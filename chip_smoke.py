@@ -7,19 +7,31 @@ Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
                 TF32 off for matmuls and convolutions;
   2. build    — compile every kernel source with nvcc (one process per
-                source, started together) and print registers/spills;
-  3. kernels  — each kernel against its plain PyTorch version on the card
-                at the yi-9b serving shapes, timed with CUDA events;
-  4. model    — the yi-9b smoke model served on the card (kernel path)
+                source, started together) and print each kernel's
+                registers and spill bytes;
+  3. bwd      — B1, B2 (dgrad) and B3 (wgrad) against their plain
+                versions at gemma2-2b's training shapes (M = 4096 tokens),
+                timed with CUDA events, and a few small cases (m 8/12,
+                stochastic, block 32, narrowed weights);
+  4. train    — one gemma2 smoke training step on the card agrees with the
+                same step on the CPU;
+  5. train-full — gemma2-2b at full width trained by the port's Trainer
+                (a warm-up step, then 3 steps): finite losses, exact
+                kernel launch counts, step time, tokens/s, peak memory,
+                and a profile of one step;
+  6. kernels  — B1 against its plain PyTorch version on the card at the
+                yi-9b serving shapes;
+  7. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
-  5. serve    — yi-9b at full width (random seeded bf16 weights) served by
+  8. serve    — yi-9b at full width (random seeded bf16 weights) served by
                 the port's ServeEngine: 12 overloading requests, paged and
                 slab, plus one async chunked-prefill request; every
                 projection must have gone through the kernels;
-  6. report   — the `kernels` JSON line, the card line, and the last line
+  9. report   — the `kernels` JSON line, the card line, and the last line
                 {"ok": true, "device": {...}}.
 
-Per-case kernel numbers also go to chiprun_out/chip_smoke.json.
+Per-case kernel numbers and the training results also go to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -55,6 +67,30 @@ CONFIGS = (("served", False, 8, 0, False),
 # fraction of the output's largest magnitude
 BLOCK_TOL = 1e-5
 
+TRAIN_M = 4096              # gemma2-2b training batch: 2 x 2048 tokens
+TRAIN_SHAPES = {            # weight: (K, N) at gemma2-2b full width
+    "wq": (2304, 2048), "wk": (2304, 1024), "wv": (2304, 1024),
+    "wo": (2048, 2304), "ffn_wg": (2304, 9216), "ffn_wi": (2304, 9216),
+    "ffn_wo": (9216, 2304), "head": (2304, 256000),
+}
+# (name, quantize_w, mantissa_bits, block, stochastic) of the small cases
+BWD_SMALL = (("m8", True, 8, 0, False), ("m12", True, 12, 0, False),
+             ("m8_b32", True, 8, 32, False), ("m8_stoch", True, 8, 0, True),
+             ("narrow_w", False, 8, 0, False))
+# B3 sums tokens with varying scales in f32 in another order than its
+# plain version: |Δ| <= 2·M·2^-24 · (|x̂|ᵀ|ĝ|) elementwise, twice the f32
+# rounding bound of an M-term sum of those products
+F32_UNIT = 2.0 ** -24
+# card vs CPU training step (gemma2 smoke, f32): the card's and the CPU's
+# f32 ops (exp, tanh, rsqrt, reduction orders) differ in the last ulps,
+# and now and then an ulp moves a value across a BFP rounding boundary; a
+# flip changes every gradient behind it, and AdamW's first step turns a
+# near-zero gradient's sign into a ±lr update. Measured on one H100: loss
+# 2.7e-4 relative, grads 2.5% and updates 17.5% in relative Frobenius
+# norm, no parameter further than 2·lr apart.
+TRAIN_TOL = dict(loss=2e-3, grads=0.1, updates=0.5)
+TRAIN_LR = 1e-3
+
 
 def log(*a):
     print(*a, flush=True)
@@ -83,25 +119,69 @@ def phase_device():
     return name, card
 
 
+def _demangle(names):
+    for tool in ("/usr/local/cuda/bin/cu++filt", "c++filt"):
+        try:
+            r = subprocess.run([tool], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60)
+        except OSError:
+            continue
+        out = r.stdout.splitlines()
+        if r.returncode == 0 and len(out) == len(names):
+            return out
+    return list(names)
+
+
+def _ptxas_kernels(text: str):
+    """(kernel, registers, spill store bytes, spill load bytes, stack
+    bytes) for every entry function in nvcc's -Xptxas -v report."""
+    rows, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            rows.setdefault(cur, [0, 0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            rows[cur][3], rows[cur][1], rows[cur][2] = map(int, m.groups())
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            rows.setdefault(cur, [0, 0, 0, 0])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            rows[cur][0] = int(m.group(1))
+    names = list(rows)
+    return [(d, *rows[n]) for d, n in zip(_demangle(names), names)]
+
+
 def phase_build():
     from repro_torch.kernels import hbfp_matmul as hm
-    builds = {"hbfp_matmul_fwd": (hm.build, hm.load)}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as ex:
-        futs = {k: ex.submit(b) for k, (b, _) in builds.items()}
+    with ThreadPoolExecutor(len(hm.SOURCES)) as ex:
+        futs = {k: ex.submit(hm.build, k) for k in hm.SOURCES}
         infos = {k: f.result() for k, f in futs.items()}
-    for k, (_, load) in builds.items():
-        info = infos[k]
-        load(info["path"])
-        regs = re.findall(r"Function properties for (\S+)[\s\S]*?"
-                          r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", info["log"])
-        used = re.findall(r"Used (\d+) registers", info["log"])
-        spills = sum(int(s) + int(l) for _, s, l in regs)
-        log(f"[build] {k}: {info['seconds']:.1f} s, "
-            f"{len(used)} kernels, registers {min(map(int, used))}-"
-            f"{max(map(int, used))}, spill bytes {spills}")
+    report = {}
+    for k, info in infos.items():
+        hm.load(k, info["path"])
+        kernels = _ptxas_kernels(info["log"])
+        spills = sum(st + ld for _, _, st, ld, _ in kernels)
+        regs = [r for _, r, *_ in kernels]
+        log(f"[build] {k}: {info['seconds']:.1f} s, {len(kernels)} "
+            f"kernels, registers {min(regs)}-{max(regs)}, spill bytes "
+            f"{spills}")
+        for name, r, st, ld, stack in kernels:
+            log(f"[build]   {name}: {r} registers, spill stores {st} B, "
+                f"spill loads {ld} B, stack {stack} B")
+        report[k] = [dict(kernel=n, registers=r, spill_store_bytes=st,
+                          spill_load_bytes=ld, stack_bytes=sk)
+                     for n, r, st, ld, sk in kernels]
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+    return report
 
 
 def _time_ms(fn, n: int) -> float:
@@ -124,12 +204,19 @@ def _reps(fn) -> int:
     return max(3, min(200, int(40.0 / max(est, 1e-3))))
 
 
-def _bound_ms(M, K, N, x_bytes, w_bytes, kind) -> tuple:
-    ops_ms = 2.0 * M * K * N / PEAK_OPS_S[kind] * 1e3
-    bytes_ms = (x_bytes * M * K + w_bytes * K * N + 4 * M * N) \
-        / HBM_BYTES_S * 1e3
+def _bound(ops: float, nbytes: float, kind: str) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of the operations
+    over the type's peak and the bytes over the memory rate."""
+    ops_ms = ops / PEAK_OPS_S[kind] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms
             else "bytes")
+
+
+def _bound_ms(M, K, N, x_bytes, w_bytes, kind) -> tuple:
+    """B1: 2MKN operations; x and w read once, y (f32) written once."""
+    return _bound(2.0 * M * K * N,
+                  x_bytes * M * K + w_bytes * K * N + 4 * M * N, kind)
 
 
 def phase_kernels():
@@ -205,6 +292,128 @@ def phase_kernels():
     return cases
 
 
+def _wgrad_ok(dw, dwp, xh, gh, M):
+    """B3 against its plain version: |Δ| <= 2·M·u·(|x̂|ᵀ|ĝ|); returns
+    (ok, max |Δ|, max |Δ| / bound)."""
+    import torch
+    bound = 2 * M * F32_UNIT * (xh.abs().T @ gh.abs())
+    d = (dw - dwp).abs()
+    ratio = float((d / bound.clamp_min(1e-38)).max())
+    return bool((d <= bound).all()), float(d.max()), ratio
+
+
+def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed):
+    """B1, B2 and B3 at one shape and configuration against their plain
+    versions; returns one row per kernel."""
+    import torch
+    from repro_torch.core import HBFPConfig, bfp
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import hbfp_matmul as hm
+    dev = torch.device("cuda")
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    if not qw:
+        w = bfp.quantize_weight(w, HBFPConfig(mantissa_bits=m))
+    w = w.to(torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    # the backward's g: the bf16 grad of y, cast to f32 by the Function
+    g = (torch.randn((M, N), generator=gen, device=dev) * 1e-3).to(
+        torch.bfloat16).float()
+    bm, bk, bn = autotune.align_tiles(
+        autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N), block)
+    kw = dict(mantissa_bits=m, stochastic=st, block=block, bm=bm, bk=bk,
+              bn=bn)
+    seed = 0x5EED if st else 0
+    exact_kind = "int8" if qw and m <= 8 and block == 0 else \
+        "bf16" if m <= 8 else "f32"
+    rows = []
+    calls = {
+        "hbfp_matmul_fwd": (
+            lambda: hm.hbfp_matmul_fwd(x, w, seed, quantize_w=qw, **kw),
+            lambda: hm.hbfp_matmul_plain(x, w, seed, quantize_w=qw, **kw),
+            lambda: torch.matmul(x, w),
+            _bound_ms(M, K, N, 2, 2, exact_kind)),
+        "hbfp_dgrad": (
+            lambda: hm.hbfp_dgrad(g, w, seed, quantize_w=qw, **kw),
+            lambda: hm.hbfp_dgrad_plain(g, w, seed, quantize_w=qw, **kw),
+            lambda: torch.matmul(g.to(torch.bfloat16), w.T),
+            _bound(2.0 * M * K * N, 4 * M * N + 2 * K * N + 4 * M * K,
+                   exact_kind)),
+        "hbfp_wgrad": (
+            lambda: hm.hbfp_wgrad(x, g, seed, **kw),
+            lambda: hm.hbfp_wgrad_plain(x, g, seed, **kw),
+            lambda: torch.matmul(x.T, g.to(torch.bfloat16)),
+            # dequantized m <= 8 operands are exact in bf16
+            _bound(2.0 * M * K * N, 2 * M * K + 4 * M * N + 4 * K * N,
+                   "bf16" if m <= 8 else "f32")),
+    }
+    for kname, (run, plain, mm, (bound, by)) in calls.items():
+        if kname == "hbfp_wgrad":
+            yk, xh, gh = hm.hbfp_wgrad(x, g, seed, operands=True, **kw)
+            yp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, seed, operands=True,
+                                               **kw)
+            torch.cuda.synchronize()
+            ok_w, err, ratio = _wgrad_ok(yk, yp, xh, gh, M)
+            ok = ok_w and torch.equal(xh, xhp) and torch.equal(gh, ghp)
+            exact = "operands EQ, dw TOL"
+            del xh, gh, xhp, ghp
+        else:
+            yk, yp = run(), plain()
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max())
+            ratio = None
+            if block == 0:
+                ok, exact = torch.equal(yk, yp), "EQ"
+            else:
+                ok = err <= BLOCK_TOL * float(yp.abs().max())
+                exact = "TOL"
+        if not torch.isfinite(yk).all():
+            fail(f"non-finite {kname} output {wname} {M}x{K}x{N}")
+        del yk, yp
+        row = dict(kernel=kname, weight=wname, M=M, K=K, N=N,
+                   config=timed, ok=bool(ok), check=exact,
+                   max_abs_err=err, err_over_bound=ratio, bound_ms=bound,
+                   bound_by=by)
+        if timed == "train":
+            n = _reps(run)
+            row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 2),
+                       matmul_bf16_ms=_time_ms(mm, n), reps=n)
+        rows.append(row)
+        log(f"[bwd] {kname} {wname} {M}x{K}x{N} {timed} {exact} "
+            f"err={err:.3g}" + ("" if ratio is None else
+                                f" err/bound={ratio:.3g}")
+            + ("" if timed != "train" else
+               f" kernel_ms={row['kernel_ms']:.3f} bound_ms={bound:.4f}"
+               f"({by[0]}) plain_ms={row['plain_ms']:.2f} "
+               f"matmul_bf16_ms={row['matmul_bf16_ms']:.4f}"))
+        if not ok:
+            fail(f"{kname} != plain: {row}")
+    return rows
+
+
+def phase_bwd():
+    """B1/B2/B3 at gemma2-2b's training shapes (the training
+    configuration: quantized bf16 weights, m = 8, nearest) plus small
+    cases of the other configurations."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for wname, (K, N) in TRAIN_SHAPES.items():
+        rows += _bwd_case(wname, TRAIN_M, K, N, True, 8, 0, False, gen,
+                          "train")
+        torch.cuda.empty_cache()
+    for cname, qw, m, block, st in BWD_SMALL:
+        rows += _bwd_case("wq", 256, 2304, 2048, qw, m, block, st, gen,
+                          cname)
+    for k in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"):
+        tr = [r for r in rows if r["kernel"] == k and r["config"] == "train"]
+        log(f"[bwd] {k}: one layer + head at M={TRAIN_M}: kernel_ms "
+            f"{sum(r['kernel_ms'] for r in tr):.2f}, bound_ms "
+            f"{sum(r['bound_ms'] for r in tr):.3f}, plain_ms "
+            f"{sum(r['plain_ms'] for r in tr):.1f}, matmul_bf16_ms "
+            f"{sum(r['matmul_bf16_ms'] for r in tr):.3f}")
+    return rows
+
+
 def phase_model():
     """yi-9b smoke in f32: card (kernel) vs CPU (plain) prefill logits and
     greedy decode tokens."""
@@ -245,6 +454,193 @@ def phase_model():
         fail("card logits disagree with the CPU path")
     if outs["cpu"] != outs["cuda"]:
         fail(f"greedy tokens differ: {outs}")
+
+
+def _rel_fro(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / a.norm().clamp_min(1e-30))
+
+
+def phase_train():
+    """One gemma2 smoke step (f32, "8; backend=pallas") on the card (the
+    kernels) and on the CPU (their plain versions) from the same state and
+    batch: loss, grads and the parameter updates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import OptState, named_leaves
+    from repro_torch.train import TrainState, init_train_state, make_step
+    arch = dataclasses.replace(get_arch("gemma2-2b").smoke(),
+                               dtype="float32", loss_chunk=32)
+    sched = make_schedule("constant", base_lr=TRAIN_LR, warmup_steps=0,
+                          total_steps=10)
+    cpu = init_train_state(7, arch, device="cpu")
+    p0 = {n: t.clone() for n, t in named_leaves(cpu.params)}
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.cuda()
+    card = TrainState(to(cpu.params), OptState(0, to(cpu.opt.mu),
+                                               to(cpu.opt.nu)), 0)
+    batch = batch_for_arch(arch, 2, 32, kind="markov", device="cpu")
+    out = {}
+    for dev, state in (("cpu", cpu), ("cuda", card)):
+        step = make_step(arch, "8; backend=pallas", sched, device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, _, grads = step.grads(state, b)
+        state, m = step(state, b)
+        out[dev] = (float(m["loss"]), dict(named_leaves(grads)),
+                    dict(named_leaves(state.params)))
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    g_err = max(_rel_fro(gc[n], gg[n]) for n in gc)
+    u_err = max(_rel_fro(pc[n] - p0[n], pg[n].cpu() - p0[n]) for n in pc)
+    p_err = max(float((pc[n] - pg[n].cpu()).abs().max()) for n in pc)
+    log(f"[train] gemma2 smoke one step card vs cpu: loss {lg:.6f} vs "
+        f"{lc:.6f}, grads rel-fro {g_err:.3g}, updates rel-fro "
+        f"{u_err:.3g}, max |dparam| {p_err:.3g}")
+    if not (abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc)
+            and g_err <= TRAIN_TOL["grads"]
+            and u_err <= TRAIN_TOL["updates"] and p_err <= 4 * TRAIN_LR):
+        fail("card training step disagrees with the CPU step")
+    return dict(loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
+                updates_rel_fro=u_err, max_abs_param=p_err)
+
+
+class _ListSink:
+    """A run-log sink that keeps the events in memory."""
+
+    def __init__(self):
+        self.events = []
+
+    def write(self, ev):
+        self.events.append(ev)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def _profile_step(trainer, steps: int):
+    """Kernel time by name over one more training step, from
+    torch.profiler; None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(steps, log_every=0)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+        if dev_us and e.device_type.name == "CUDA":
+            rows.append((e.key, dev_us, e.count))
+    total = sum(r[1] for r in rows)
+    if not total:
+        return None
+    groups = {"B1 gemm (fwd)": r"gemm_kernel<\d+, \d+, false",
+              "B2 gemm (dgrad)": r"gemm_kernel<\d+, \d+, true",
+              "B3 gemm (wgrad)": r"wgrad_gemm_kernel",
+              "B1-B3 quantize passes": r"quantize_(rows|w)_kernel"}
+    share = {g: sum(us for k, us, _ in rows if re.search(p, k)) / total
+             for g, p in groups.items()}
+    share["everything else"] = 1.0 - sum(share.values())
+    top = sorted(rows, key=lambda r: -r[1])[:15]
+    return dict(device_ms=total / 1e3, share=share,
+                top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
+                     for k, us, c in top])
+
+
+def phase_train_full(card: str):
+    """gemma2-2b at full width, "8; backend=pallas", 2 x 2048 tokens of
+    markov data (loss_chunk 2048: 2 CE chunks), through the Trainer: a
+    warm-up step, then 3 timed steps whose launches are counted."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.models import loss_fn
+    from repro_torch.models.layers import Ctx
+    from repro_torch.obs import Recorder
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    from repro_torch.train.train_step import _narrow_copy
+    arch = get_arch("gemma2-2b")
+    B, S = 2, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(0, arch)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in named_leaves(state.params))
+    log(f"[train-full] gemma2-2b full width: {arch.n_layers} layers (no "
+        f"depth cut), d_model {arch.d_model}, {arch.n_heads}/"
+        f"{arch.n_kv_heads} heads x {arch.hd}, d_ff {arch.d_ff}, vocab "
+        f"{arch.vocab_size}, {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    pipe = SyntheticLM(arch.vocab_size, S + 1, B, seed=0)
+    # fp32 reference: the same weights and batch with plain matmuls
+    with torch.no_grad():
+        ref = _narrow_copy(state.params, None, torch.bfloat16)
+        loss_fp32 = float(loss_fn(ref, pipe.batch(0), arch, Ctx())[0])
+        del ref
+    torch.cuda.empty_cache()
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    step = make_step(arch, "8; backend=pallas", sched)
+    sink = _ListSink()
+    trainer = Trainer(train_step=step, init_state=state, data_fn=pipe.batch,
+                      recorder=Recorder([sink]))
+    lines = []
+    trainer.run(1, log_every=1, log_fn=lines.append)       # warm-up
+    loss0 = float(lines[0].split("loss=")[1].split()[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hm.reset_counts()                        # counts cover the main path
+    trainer.run(4, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counts = {k: getattr(hm, k).launches for k in
+              ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")}
+    plain = sum(getattr(hm, k).plain_calls for k in counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+    spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
+             if ev.kind == "span" and ev.data.get("name") == "train/step"]
+    step_s = spans[1:]
+    per = 7 * arch.n_layers + 2
+    want = {"hbfp_matmul_fwd": 3 * 2 * per, "hbfp_dgrad": 3 * per,
+            "hbfp_wgrad": 3 * per}
+    tok_s = B * S / (sum(step_s) / len(step_s))
+    for ln in lines:
+        log(f"[train-full] {ln}")
+    log(f"[train-full] step times {[round(t, 3) for t in step_s]} s, "
+        f"{tok_s:.0f} tokens/s, peak {peak:.2f} of {total:.2f} GiB | {card}")
+    log(f"[train-full] launches over 3 steps {counts} (expected {want}), "
+        f"plain calls {plain}; step-0 loss HBFP {loss0:.4f} vs fp32 "
+        f"{loss_fp32:.4f}")
+    if not all(torch.isfinite(torch.tensor(losses))):
+        fail(f"non-finite training loss {losses}")
+    if counts != want or plain != 0:
+        fail(f"launch counts {counts} != {want} or plain calls {plain}")
+    if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
+        fail(f"step-0 HBFP loss {loss0} not within 2% of fp32 {loss_fp32}")
+    prof = _profile_step(trainer, 5)
+    if prof is None:
+        log("[train-full] torch.profiler saw no device time")
+    else:
+        log(f"[train-full] profiled step: {prof['device_ms']:.1f} ms of "
+            f"kernels; share " + ", ".join(
+                f"{k} {v:.1%}" for k, v in prof["share"].items()))
+    result = dict(layers=arch.n_layers, params=n_params, tokens=B * S,
+                  losses=losses, loss_fp32_step0=loss_fp32,
+                  step_s=step_s, tokens_per_s=tok_s, peak_gib=peak,
+                  total_gib=total, launches=counts, profile=prof)
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    return result
 
 
 def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
@@ -361,6 +757,32 @@ def _leaves(tree):
         yield tree
 
 
+def _bound_by(rows) -> str:
+    """What bounds a sum of per-shape bounds: the side with the larger
+    share of it."""
+    ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return "operations" if 2 * ops > sum(r["bound_ms"] for r in rows) \
+        else "bytes"
+
+
+def _bwd_entry(name, rows, launches, replaces, source):
+    """One kernel's JSON entry from the bwd phase: times summed over one
+    gemma2-2b layer's seven projections and the head at M = 4096."""
+    tr = [r for r in rows if r["kernel"] == name and r["config"] == "train"]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kernel"] == name),
+        "ms": sum(r["kernel_ms"] for r in tr),
+        "plain_ms": sum(r["plain_ms"] for r in tr),
+        "bound_ms": sum(r["bound_ms"] for r in tr),
+        "bound_by": _bound_by(tr),
+        "library_ms": None,
+        "matmul_bf16_ms": sum(r["matmul_bf16_ms"] for r in tr),
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -370,36 +792,53 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     t0 = time.perf_counter()
     name, card = phase_device()
-    phase_build()
+    build = phase_build()
+    bwd = phase_bwd()
+    log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
+    train_smoke = phase_train()
+    train = phase_train_full(card)
+    log(f"[time] training done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     phase_model()
-    launches = phase_serve(card)
+    serve_launches = phase_serve(card)
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"device": name, "card": card, "cases": cases}, f,
+        json.dump({"device": name, "card": card, "build": build,
+                   "cases": cases, "bwd_cases": bwd,
+                   "train_smoke": train_smoke, "train_full": train}, f,
                   indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
-    entry = {
+    src = "src/repro_torch/kernels/csrc/"
+    b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/hbfp_matmul_fwd.cu",
+        "source": src + "hbfp_matmul_fwd.cu",
         "replaces": "src/repro/kernels/hbfp_matmul.py:140",
         "held_against": "hbfp_matmul_plain",
-        "launches": launches,
+        # both main paths: yi-9b serving and gemma2-2b training
+        "launches": serve_launches + train["launches"]["hbfp_matmul_fwd"],
+        "launches_by_path": {
+            "serve": serve_launches,
+            "train": train["launches"]["hbfp_matmul_fwd"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         # one generate tick's eight served shapes (seven projections of a
         # layer + head) at M = 8, bf16 activations
         "ms": sum(c["kernel_ms"] for c in tick),
         "plain_ms": sum(c["plain_ms"] for c in tick),
         "bound_ms": sum(c["bound_ms"] for c in tick),
-        "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in tick)
-        else "operations",
+        "bound_by": _bound_by(tick),
         "library_ms": None,
         "matmul_bf16_ms": sum(c["matmul_bf16_ms"] for c in tick),
     }
-    print(json.dumps({"kernels": [entry]}))
+    b2 = _bwd_entry("hbfp_dgrad", bwd, train["launches"]["hbfp_dgrad"],
+                    "src/repro/kernels/hbfp_matmul.py:262",
+                    src + "hbfp_matmul_bwd.cu")
+    b3 = _bwd_entry("hbfp_wgrad", bwd, train["launches"]["hbfp_wgrad"],
+                    "src/repro/kernels/hbfp_matmul.py:352",
+                    src + "hbfp_matmul_bwd.cu")
+    print(json.dumps({"kernels": [b1, b2, b3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -98,7 +98,7 @@ class ArchConfig:
         )
 
 
-_REGISTRY = ("yi_9b",)
+_REGISTRY = ("gemma2_2b", "yi_9b")
 
 
 def arch_ids() -> Tuple[str, ...]:

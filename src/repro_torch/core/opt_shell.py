@@ -1,12 +1,15 @@
-"""Narrow-weight derivation of the optimizer shell (port of the serving
-part of `repro.core.opt_shell`).
+"""Wide-weight-storage optimizer shell (port of `repro.core.opt_shell`,
+paper §4.2 + §5.1).
 
-Parameters are a nested dict of tensors with the reference's layout, so
-`param_path_name` gives byte-identical names and per-layer policy
-overrides match the same parameters. Dot-product weights are quantized to
-the narrow compute width; everything matching `FP_NAME_FRAGMENTS` stays FP
-(the hybrid in HBFP). Widening, the crc32 per-parameter stochastic stream
-and the update rule come with ROADMAP A5.
+The persistent master params are the wide-BFP copy (16-bit mantissas in
+f32 containers); `narrow_params` derives the narrow compute copy and
+`hbfp_apply_updates` rounds freshly updated weights back into wide
+storage. Parameters are a nested dict of tensors with the reference's
+layout, so `param_path_name` gives byte-identical names and per-layer
+policy overrides match the same parameters. Dot-product weights are
+quantized; everything matching `FP_NAME_FRAGMENTS` stays FP (the hybrid
+in HBFP). Nearest rounding only: the crc32 per-parameter stochastic
+stream comes with ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -73,18 +76,57 @@ def _quantize_tree(params, cfg, wide: bool):
         return params
 
     def q(name, leaf):
-        c = resolve_param_cfg(cfg, name)
-        if c is None or not is_hbfp_weight(name, leaf):
-            return leaf
-        if c.rounding == "stochastic":
-            raise NotImplementedError(
-                "stochastic weight narrowing comes with ROADMAP A5")
-        return _quantize_weight_slices(leaf, c, wide)
+        c = _weight_cfg(cfg, name, leaf)
+        return leaf if c is None else _quantize_weight_slices(leaf, c, wide)
 
     return _named_map(q, params)
+
+
+def _weight_cfg(cfg, name: str, leaf) -> Optional[HBFPConfig]:
+    """The config a parameter is quantized at, or None when it stays FP."""
+    c = resolve_param_cfg(cfg, name)
+    if c is None or not is_hbfp_weight(name, leaf):
+        return None
+    if c.rounding == "stochastic":
+        raise NotImplementedError(
+            "stochastic weight narrowing comes with ROADMAP A5")
+    return c
 
 
 def narrow_params(params, cfg):
     """The narrow-mantissa compute copy of `params` (paper §5.1). `cfg`:
     HBFPConfig, ResolvedPolicy (per-layer widths) or None."""
     return _quantize_tree(params, cfg, wide=False)
+
+
+def widen_params(params, cfg):
+    """Round freshly updated weights into the wide-BFP storage format."""
+    return _quantize_tree(params, cfg, wide=True)
+
+
+def apply_update_(name: str, leaf: torch.Tensor, index: Optional[int],
+                  update: torch.Tensor, cfg) -> None:
+    """leaf ← Q_wide(leaf + update) in place, for the whole leaf (index
+    None) or one layer slice of a stacked leaf: f32 update, wide-BFP
+    storage."""
+    p = leaf if index is None else leaf[index]
+    new = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
+    c = _weight_cfg(cfg, name, leaf)
+    if c is not None:
+        new = bfp.quantize_weight(new, c, None, wide=True)
+    p.copy_(new)
+
+
+def hbfp_apply_updates(params, updates, cfg):
+    """params ← Q_wide(params + updates), leaf by leaf, in place (the
+    reference returns a new tree; the port saves the copy). Returns
+    params."""
+    def one(name, leaf):
+        u = updates
+        for k in name.split("/"):
+            u = u[k]
+        apply_update_(name, leaf, None, u, cfg)
+        return leaf
+
+    _named_map(one, params)
+    return params

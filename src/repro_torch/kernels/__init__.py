@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-Ported: the forward HBFP matmul (`hbfp_matmul.hbfp_matmul_fwd`, CUDA C++
-in `csrc/hbfp_matmul_fwd.cu`). The backward GEMMs, flash attention and the
-packing quantizer are queued in ROADMAP section B.
+Ported: the three HBFP GEMMs of training (`hbfp_matmul.hbfp_matmul_fwd`,
+`hbfp_dgrad`, `hbfp_wgrad`; CUDA C++ in `csrc/hbfp_matmul_fwd.cu` and
+`csrc/hbfp_matmul_bwd.cu` over the shared `csrc/hbfp_common.cuh`). Flash
+attention and the packing quantizer are queued in ROADMAP section B.
 """

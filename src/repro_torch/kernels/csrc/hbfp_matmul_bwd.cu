@@ -1,0 +1,199 @@
+// Backward HBFP GEMMs for Hopper (sm_90a), bound to PyTorch with ctypes.
+//
+// hbfp_dgrad replaces the TPU kernel repro/kernels/hbfp_matmul.py:
+// hbfp_dgrad_pallas (body _dgrad_kernel):
+//
+//     dx[M,K] = sum over N-blocks nb, ascending, of part_nb * scale_nb,
+//     part_nb = Q_row(g)[M, nb] . Q_tile(w)[K, nb]^T
+//
+// g is quantized per (row, bn-wide N-block) (or per (row, block) group) on
+// the STREAM_G offset; w per (bk x bn) tile (or (block x block) group) on
+// STREAM_W with its own element index, the forward's, so a matching tiling
+// replays the forward's draws; quantize_w = 0 takes w as given (narrowed
+// upstream). w is read in its stored [K, N] layout and contracted along its
+// rows: nothing is transposed in memory. The quantize passes and the GEMM
+// pass are B1's (hbfp_common.cuh) with the contraction over N, so B2 keeps
+// B1's exactness: each N-block's partial sum is exact (integral mantissas,
+// f32 at m <= 8, float64 above) and the partial sums are added in
+// ascending N-block order with explicit round-to-nearest multiply and add.
+// For block = 0 B2 equals its plain version (hbfp_dgrad_plain) bit for bit.
+//
+// hbfp_wgrad replaces hbfp_matmul.py: hbfp_wgrad_pallas (body
+// _wgrad_kernel):
+//
+//     dw[K,N] = sum over tokens m of x^[m,K] (outer) g^[m,N]
+//
+// with x^ = Q_row(x) * dx per (row, bk-wide K-block) on STREAM_X (B1's x
+// pass, so the forward's quantization is replayed when the tiles match)
+// and g^ = Q_row(g) * dg per (row, bn-wide N-block) on STREAM_G, both
+// dequantized in scratch (exact in f32 for m <= 12). The per-token scales
+// ride the contraction, so the f32 sum depends on its order: the kernel
+// adds tokens in ascending order with f32 FMA, the reference adds M-blocks
+// of its own dot products; B3 is held to its plain version at a stated f32
+// tolerance, and its quantized operands bit for bit.
+//
+// Bound at gemma2-2b's training shapes (M = 4096 tokens, H100 SXM):
+// every projection does 2MKN operations over a few hundred MB, far above
+// the 295 operations per byte at which the tensor cores become the limit,
+// so both are bound by operations: 0.32 ms a layer for B2 at the int8 rate
+// (m <= 8 mantissas are exact in int8), 0.65 ms for B3 at the bf16 rate
+// (its dequantized m <= 8 operands are exact in bf16).
+//
+// What this simple design leaves on the table: both GEMMs run on CUDA
+// cores in f32 (no mma/wgmma, no TMA, no cp.async pipelining), and the
+// quantized operands make a round trip through device memory. The redesign
+// is int8 wgmma with int32 accumulate per N-block for B2 and bf16 wgmma
+// with f32 accumulate for B3.
+
+#include "hbfp_common.cuh"
+
+using namespace hbfp;
+
+namespace {
+
+// dw[K, N] = xq[M, K]^T . gq[M, N] over dequantized operands. CTA tile
+// 64 x 64 of dw; thread (tx, ty) owns rows ty + 16 i and columns tx + 16 j
+// and adds the tokens in ascending order.
+__global__ void __launch_bounds__(kThreads)
+wgrad_gemm_kernel(const float* __restrict__ xq, const float* __restrict__ gq,
+                  float* __restrict__ dw, int M, int K, int N) {
+  constexpr int R = kTN / 16;
+  __shared__ float xs[kKC][kTN + 1];
+  __shared__ float gs[kKC][kTN + 1];
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.y * kTN;
+  const int n0 = blockIdx.x * kTN;
+
+  float acc[R][R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[i][j] = 0.0f;
+
+  for (int mm = 0; mm < M; mm += kKC) {
+    const int mlen = min(kKC, M - mm);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kKC * kTN; e += kThreads) {
+      const int m = e / kTN, c = e % kTN;
+      float xv = 0.0f, gv = 0.0f;
+      if (m < mlen) {
+        if (k0 + c < K) xv = xq[static_cast<size_t>(mm + m) * K + k0 + c];
+        if (n0 + c < N) gv = gq[static_cast<size_t>(mm + m) * N + n0 + c];
+      }
+      xs[m][c] = xv;
+      gs[m][c] = gv;
+    }
+    __syncthreads();
+    for (int m = 0; m < mlen; ++m) {
+      float av[R], bv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) av[i] = xs[m][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < R; ++j) bv[j] = gs[m][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= K) continue;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col < N) dw[static_cast<size_t>(row) * N + col] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C entry point of B2. g: [M,N] f32 or bf16 (g_bf16); w: [K,N] f32
+// or bf16 (w_bf16); dx: [M,K] f32. Scratch, allocated by the caller:
+// gq [M,N] f32, sg [M, N/gg] f32, and when quantize_w is set wq [K,N] f32
+// and sw [K/gk, N/gn] f32. (bk, bn) are the reference's clipped,
+// block-aligned tiles; K and N must be multiples of them. Returns a
+// cudaError_t code.
+extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
+                          int w_bf16, float* dx, float* gq, float* sg,
+                          float* wq, float* sw, int M, int K, int N, int bk,
+                          int bn, int mbits, int stochastic, int quantize_w,
+                          int block, int seed, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
+      N % bn || mbits < 2 || mbits > 12 || block < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool g_sub = block > 0 && block < bn;
+  const bool w_sub = block > 0 && (block < bk || block < bn);
+  const int gg = g_sub ? block : bn;
+  const int gk = w_sub ? min(block, bk) : bk;
+  const int gn = w_sub ? min(block, bn) : bn;
+  if (bn % gg || (quantize_w && (bk % gk || bn % gn)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mode = quantize_w ? ((g_sub || w_sub) ? kModeDeq : kModeInt)
+                              : (g_sub ? kModeDeq : kModeRawW);
+  const int dequant = mode == kModeDeq;
+  const uint32_t useed = static_cast<uint32_t>(seed);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+
+  if (g_bf16)
+    launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
+                                        stochastic, useed, kStreamG, dequant,
+                                        stream);
+  else
+    launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
+                                useed, kStreamG, dequant, stream);
+  if (quantize_w) {
+    if (w_bf16)
+      launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
+                                       stochastic, useed, dequant, stream);
+    else
+      launch_quantize_w<float>(w, wq, sw, K, N, gk, gn, mbits, stochastic,
+                               useed, dequant, stream);
+  }
+  // contraction over N (blocks of bn), output columns over K (tiles of bk)
+  launch_gemm_case<true>(quantize_w, mode, mbits, w_bf16, gq, sg, w, wq, sw,
+                         dx, M, N, K, bn, bk, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of B3. x: [M,K] f32 or bf16 (x_bf16); g: [M,N] f32
+// or bf16 (g_bf16); dw: [K,N] f32. Scratch, allocated by the caller:
+// xq [M,K] f32 and gq [M,N] f32 (dequantized operands, readable after the
+// call), sx [M, K/gx] f32, sg [M, N/gg] f32. K and N must be multiples of
+// (bk, bn). Returns a cudaError_t code.
+extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
+                          int g_bf16, float* dw, float* xq, float* sx,
+                          float* gq, float* sg, int M, int K, int N, int bk,
+                          int bn, int mbits, int stochastic, int block,
+                          int seed, void* stream_ptr) {
+  if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
+      N % bn || mbits < 2 || mbits > 12 || block < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int gx = (block > 0 && block < bk) ? block : bk;
+  const int gg = (block > 0 && block < bn) ? block : bn;
+  if (bk % gx || bn % gg) return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t useed = static_cast<uint32_t>(seed);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+
+  if (x_bf16)
+    launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
+                                        stochastic, useed, kStreamX, 1,
+                                        stream);
+  else
+    launch_quantize_rows<float>(x, xq, sx, M, K, gx, mbits, stochastic,
+                                useed, kStreamX, 1, stream);
+  if (g_bf16)
+    launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
+                                        stochastic, useed, kStreamG, 1,
+                                        stream);
+  else
+    launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
+                                useed, kStreamG, 1, stream);
+  dim3 grid((N + kTN - 1) / kTN, (K + kTN - 1) / kTN);
+  wgrad_gemm_kernel<<<grid, kThreads, 0, stream>>>(xq, gq, dw, M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}

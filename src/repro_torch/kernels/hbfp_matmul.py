@@ -1,18 +1,22 @@
-"""Forward HBFP matmul on Hopper: the wrapper of `csrc/hbfp_matmul_fwd.cu`
-(port of `repro.kernels.hbfp_matmul.hbfp_matmul_pallas`).
+"""HBFP GEMMs on Hopper: the wrappers of `csrc/hbfp_matmul_fwd.cu` (B1,
+port of `repro.kernels.hbfp_matmul.hbfp_matmul_pallas`) and
+`csrc/hbfp_matmul_bwd.cu` (B2 `hbfp_dgrad_pallas`, B3
+`hbfp_wgrad_pallas`).
 
-    y[M,N] = Σ_kb Q_row(x)[M,bk] · (Q_tile(w) or narrow w)[bk,bn] · δx(·δw)
+    y [M,N] = Σ_kb Q_row(x)[M,bk] · (Q_tile(w) or narrow w)[bk,bn] · δx(·δw)
+    dx[M,K] = Σ_nb Q_row(g)[M,bn] · (Q_tile(w) or narrow w)[bk,bn]ᵀ · δg(·δw)
+    dw[K,N] = Σ_m  (Q_row(x)·δx)[m,K]ᵀ (Q_row(g)·δg)[m,N]
 
-The CUDA source is compiled with `nvcc` at first use into
-`build/repro_torch/` (a plain C entry point loaded with ctypes), never at
-import, so the CPU tests import this module freely. `hbfp_matmul_fwd`
-launches the kernel for CUDA tensors and raises if it cannot; for CPU
-tensors it computes the plain version `hbfp_matmul_plain`
-(`kernels/ref.py`). Nothing falls back from the card to the plain version.
+Each CUDA source (with the shared `csrc/hbfp_common.cuh`) is compiled
+with `nvcc` at first use into `build/repro_torch/` (a plain C entry point
+loaded with ctypes), never at import, so the CPU tests import this module
+freely. A wrapper launches its kernel for CUDA tensors and raises if it
+cannot; for CPU tensors it computes the plain version (`kernels/ref.py`).
+Nothing falls back from the card to the plain version.
 
-Counters: `hbfp_matmul_fwd.launches` counts kernel launches and
-`hbfp_matmul_fwd.plain_calls` counts CPU calls of the plain version made by
-the wrapper (`reset_counts()` zeroes both).
+Counters: each wrapper's `.launches` counts kernel launches and
+`.plain_calls` counts CPU calls of its plain version (`reset_counts()`
+zeroes all of them).
 """
 from __future__ import annotations
 
@@ -26,10 +30,22 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.ref import hbfp_dgrad_ref as hbfp_dgrad_plain
 from repro_torch.kernels.ref import hbfp_matmul_ref as hbfp_matmul_plain
+from repro_torch.kernels.ref import hbfp_wgrad_ref as hbfp_wgrad_plain
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "hbfp_matmul_fwd.cu")
+_CSRC = os.path.join(_HERE, "csrc")
+HEADER = os.path.join(_CSRC, "hbfp_common.cuh")
+# library name -> source; each library's entry points and their ctypes
+# argument kinds ("p" pointer, "i" int)
+SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
+           "hbfp_matmul_bwd": os.path.join(_CSRC, "hbfp_matmul_bwd.cu")}
+_ENTRIES = {
+    "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipippppp" + "i" * 10 + "p"},
+    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipippppp" + "i" * 10 + "p",
+                        "hbfp_wgrad": "pipippppp" + "i" * 9 + "p"},
+}
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,65 +62,60 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(source: str = SOURCE) -> str:
-    """Build output for `source`, named by the hash of its contents so an
-    edited source never loads a stale library."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    stem = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+def library_path(name: str) -> str:
+    """Build output of library `name`, named by the hash of its source and
+    the shared header so an edited source never loads a stale library."""
+    h = hashlib.sha1()
+    for path in (SOURCES[name], HEADER):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-class _Library:
-    """The loaded kernel library (loaded once per process)."""
-
-    def __init__(self):
-        self.lib = None
-
-    def load(self, path: Optional[str] = None):
-        if self.lib is not None:
-            return self.lib
-        if path is None:
-            path = library_path()
-            if not os.path.exists(path):
-                path = build()["path"]
-        lib = ctypes.CDLL(path)
-        fn = lib.hbfp_matmul_fwd
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr,
-                       i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
-        self.lib = lib
-        return lib
-
-
-_LIB = _Library()
-
-
-def build(source: str = SOURCE) -> dict:
-    """Compile `source` with nvcc now; returns {path, seconds, log} with
-    the `-Xptxas -v` register/spill report in `log`. Raises on failure."""
+def build(name: str) -> dict:
+    """Compile library `name` with nvcc now; returns {path, seconds, log}
+    with the `-Xptxas -v` register/spill report in `log`. Raises on
+    failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = library_path(source)
+    out = library_path(name)
     t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", source],
-                       capture_output=True, text=True)
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp",
+                        SOURCES[name]], capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n"
+                           f"{r.stdout}{r.stderr}")
     os.replace(out + ".tmp", out)
     return {"path": out, "seconds": time.perf_counter() - t0,
             "log": r.stdout + r.stderr}
 
 
-def load(path: Optional[str] = None):
-    """Load the kernel library from `path`, or from its build output,
-    building it first when that is missing."""
-    return _LIB.load(path)
+_LIBS: dict = {}
+
+
+def load(name: str, path: Optional[str] = None):
+    """Load library `name` (once per process) from `path`, or from its
+    build output, building it first when that is missing."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    if path is None:
+        path = library_path(name)
+        if not os.path.exists(path):
+            path = build(name)["path"]
+    lib = ctypes.CDLL(path)
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for entry, sig in _ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [kinds[c] for c in sig]
+        fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
 
 
 def reset_counts() -> None:
-    hbfp_matmul_fwd.launches = 0
-    hbfp_matmul_fwd.plain_calls = 0
+    for fn in (hbfp_matmul_fwd, hbfp_dgrad, hbfp_wgrad):
+        fn.launches = 0
+        fn.plain_calls = 0
 
 
 def _seed_int(seed) -> int:
@@ -116,68 +127,177 @@ def _seed_int(seed) -> int:
     return seed - (1 << 32) if seed >= (1 << 31) else seed
 
 
+def _check(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    """Shared operand checks: 2-D, one device, supported dtypes,
+    contiguous."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"{what}: bad shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"{what}: operands on {a.device} and {b.device}")
+    if a.dtype not in _DTYPES or b.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtypes {a.dtype}, {b.dtype} not in "
+                        f"{_DTYPES}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _tiles(what: str, M: int, K: int, N: int, bm: int, bk: int, bn: int,
+           block: int):
+    bm, bk, bn = min(bm, M), min(bk, K), min(bn, N)
+    if M % bm or K % bk or N % bn:
+        raise ValueError(f"{what}: (M,K,N)=({M},{K},{N}) not divisible by "
+                         f"({bm},{bk},{bn})")
+    if block and (bk % min(block, bk) or bn % min(block, bn)):
+        raise ValueError(f"{what}: block {block} must divide tiles "
+                         f"({bk},{bn})")
+    return bm, bk, bn
+
+
+def _launchable(t: torch.Tensor, mantissa_bits: int, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    if not 2 <= mantissa_bits <= 12:
+        raise ValueError(f"{what}: the CUDA kernel takes 2 <= m <= 12, got "
+                         f"{mantissa_bits}")
+
+
+def _launch(lib_name: str, entry: str, dev: torch.device, *args) -> None:
+    fn = getattr(load(lib_name), entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _w_scratch(quantize_w: bool, K: int, N: int, gk: int, gn: int, f32):
+    if not quantize_w:
+        return None, None
+    return (torch.empty((K, N), **f32),
+            torch.empty((K // gk, N // gn), **f32))
+
+
 def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
                     mantissa_bits: int = 8, stochastic: bool = False,
                     quantize_w: bool = True, block: int = 0,
                     bm: int = 128, bk: int = 128,
                     bn: int = 128) -> torch.Tensor:
-    """Fused quantize + matmul. x: [M,K] f32/bf16, w: [K,N] f32/bf16, both
-    contiguous on one device and divisible by the clipped tiles (the
+    """B1, fused quantize + matmul. x: [M,K] f32/bf16, w: [K,N] f32/bf16,
+    both contiguous on one device and divisible by the clipped tiles (the
     caller pads, `kernels/linear.py`). Returns y [M,N] f32."""
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+    _check(x, w, "hbfp_matmul_fwd")
+    if x.shape[1] != w.shape[0]:
         raise ValueError(f"bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
-    if x.device != w.device:
-        raise ValueError(f"x on {x.device} but w on {w.device}")
-    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"dtypes {x.dtype}, {w.dtype} not in {_DTYPES}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
     M, K = x.shape
     N = w.shape[1]
-    bm, bk, bn = min(bm, M), min(bk, K), min(bn, N)
-    if M % bm or K % bk or N % bn:
-        raise ValueError(f"({M},{K})x({K},{N}) not divisible by "
-                         f"({bm},{bk},{bn})")
-    if block and (bk % min(block, bk) or bn % min(block, bn)):
-        raise ValueError(f"block {block} must divide tiles ({bk},{bn})")
+    bm, bk, bn = _tiles("hbfp_matmul_fwd", M, K, N, bm, bk, bn, block)
     kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
               quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
     if x.device.type == "cpu":
         hbfp_matmul_fwd.plain_calls += 1
         return hbfp_matmul_plain(x, w, seed, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not 2 <= mantissa_bits <= 12:
-        raise ValueError(f"the CUDA kernel takes 2 <= m <= 12, got "
-                         f"{mantissa_bits}")
-    lib = load()
-    dev = x.device
+    _launchable(x, mantissa_bits, "hbfp_matmul_fwd")
     x_sub = bool(block) and block < bk
     w_sub = bool(block) and (block < bk or block < bn)
     gx = block if x_sub else bk
     gk, gn = (min(block, bk), min(block, bn)) if w_sub else (bk, bn)
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((M, N), **f32)
     xq = torch.empty((M, K), **f32)
     sx = torch.empty((M, K // gx), **f32)
-    if quantize_w:
-        wq = torch.empty((K, N), **f32)
-        sw = torch.empty((K // gk, N // gn), **f32)
-    else:
-        wq = sw = None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hbfp_matmul_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-            int(w.dtype == torch.bfloat16), y.data_ptr(), xq.data_ptr(),
-            sx.data_ptr(), ptr(wq), ptr(sw), M, K, N, bk, bn,
-            mantissa_bits, int(stochastic), int(quantize_w), int(block),
-            _seed_int(seed), stream)
-    if rc != 0:
-        raise RuntimeError(f"hbfp_matmul_fwd launch failed: CUDA error {rc}")
+    wq, sw = _w_scratch(quantize_w, K, N, gk, gn, f32)
+    _launch("hbfp_matmul_fwd", "hbfp_matmul_fwd", x.device,
+            x.data_ptr(), _is_bf16(x), w.data_ptr(), _is_bf16(w),
+            y.data_ptr(), xq.data_ptr(), sx.data_ptr(), _ptr(wq), _ptr(sw),
+            M, K, N, bk, bn, mantissa_bits, int(stochastic),
+            int(quantize_w), int(block), _seed_int(seed))
     hbfp_matmul_fwd.launches += 1
     return y
+
+
+def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
+               mantissa_bits: int = 8, stochastic: bool = False,
+               quantize_w: bool = True, block: int = 0,
+               bm: int = 128, bk: int = 128, bn: int = 128) -> torch.Tensor:
+    """B2, dx[M,K] = Q(g)[M,N] · Q(w)[K,N]ᵀ. g: [M,N] f32/bf16, w: [K,N]
+    f32/bf16 as stored, contiguous, divisible by the clipped tiles (bm over
+    M, bk over K, bn over the contracted N). Returns dx [M,K] f32."""
+    _check(g, w, "hbfp_dgrad")
+    if g.shape[1] != w.shape[1]:
+        raise ValueError(f"dgrad: bad shapes {tuple(g.shape)}, "
+                         f"{tuple(w.shape)}")
+    M, N = g.shape
+    K = w.shape[0]
+    bm, bk, bn = _tiles("hbfp_dgrad", M, K, N, bm, bk, bn, block)
+    kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
+              quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
+    if g.device.type == "cpu":
+        hbfp_dgrad.plain_calls += 1
+        return hbfp_dgrad_plain(g, w, seed, **kw)
+    _launchable(g, mantissa_bits, "hbfp_dgrad")
+    g_sub = bool(block) and block < bn
+    w_sub = bool(block) and (block < bk or block < bn)
+    gg = block if g_sub else bn
+    gk, gn = (min(block, bk), min(block, bn)) if w_sub else (bk, bn)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    dx = torch.empty((M, K), **f32)
+    gq = torch.empty((M, N), **f32)
+    sg = torch.empty((M, N // gg), **f32)
+    wq, sw = _w_scratch(quantize_w, K, N, gk, gn, f32)
+    _launch("hbfp_matmul_bwd", "hbfp_dgrad", g.device,
+            g.data_ptr(), _is_bf16(g), w.data_ptr(), _is_bf16(w),
+            dx.data_ptr(), gq.data_ptr(), sg.data_ptr(), _ptr(wq), _ptr(sw),
+            M, K, N, bk, bn, mantissa_bits, int(stochastic),
+            int(quantize_w), int(block), _seed_int(seed))
+    hbfp_dgrad.launches += 1
+    return dx
+
+
+def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
+               mantissa_bits: int = 8, stochastic: bool = False,
+               block: int = 0, bm: int = 128, bk: int = 128,
+               bn: int = 128, operands: bool = False):
+    """B3, dw[K,N] = (Q(x)·δx)[M,K]ᵀ · (Q(g)·δg)[M,N]. x: [M,K], g: [M,N],
+    f32/bf16, contiguous, divisible by the clipped tiles (bm over the
+    contracted M, bk over K, bn over N). Returns dw [K,N] f32, or
+    (dw, x̂, ĝ) with the dequantized operands when `operands` is set."""
+    _check(x, g, "hbfp_wgrad")
+    if x.shape[0] != g.shape[0]:
+        raise ValueError(f"wgrad: bad shapes {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    M, K = x.shape
+    N = g.shape[1]
+    bm, bk, bn = _tiles("hbfp_wgrad", M, K, N, bm, bk, bn, block)
+    kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
+              block=block, bm=bm, bk=bk, bn=bn, operands=operands)
+    if x.device.type == "cpu":
+        hbfp_wgrad.plain_calls += 1
+        return hbfp_wgrad_plain(x, g, seed, **kw)
+    _launchable(x, mantissa_bits, "hbfp_wgrad")
+    gx = block if (block and block < bk) else bk
+    gg = block if (block and block < bn) else bn
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw = torch.empty((K, N), **f32)
+    xq = torch.empty((M, K), **f32)
+    sx = torch.empty((M, K // gx), **f32)
+    gq = torch.empty((M, N), **f32)
+    sg = torch.empty((M, N // gg), **f32)
+    _launch("hbfp_matmul_bwd", "hbfp_wgrad", x.device,
+            x.data_ptr(), _is_bf16(x), g.data_ptr(), _is_bf16(g),
+            dw.data_ptr(), xq.data_ptr(), sx.data_ptr(), gq.data_ptr(),
+            sg.data_ptr(), M, K, N, bk, bn, mantissa_bits, int(stochastic),
+            int(block), _seed_int(seed))
+    hbfp_wgrad.launches += 1
+    return (dw, xq, gq) if operands else dw
 
 
 reset_counts()

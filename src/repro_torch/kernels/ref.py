@@ -1,21 +1,23 @@
-"""Plain PyTorch version of the forward HBFP matmul kernel (port of
-`repro.kernels.ref.hbfp_matmul_ref`).
+"""Plain PyTorch versions of the HBFP GEMM kernels (port of
+`repro.kernels.ref.hbfp_matmul_ref`, `hbfp_dgrad_ref` and
+`hbfp_wgrad_ref`).
 
-It is the oracle the CUDA kernel is held to, and what the kernel wrapper
-computes for a tensor that lies on the CPU. The reference loops over
-(K-block, N-block) tiles; this version loops over K-blocks in ascending
-order and handles all N-blocks of one K-block at once, which computes
-every output element with the same dot product. Integral-mantissa dot
-products run in float64: with at most 2^(2m-2) per product and the few
-hundred products of a K-block the float64 sum is exact, and its single
-rounding to f32 is what the kernel's exact accumulation gives too.
+They are the oracles the CUDA kernels are held to, and what the kernel
+wrappers compute for tensors that lie on the CPU. The reference loops over
+(contraction block, output block) tiles; these versions loop over the
+contraction blocks in ascending order and handle all output blocks of one
+contraction block at once, which computes every output element with the
+same dot product. Integral-mantissa dot products run in float64: with at
+most 2^(2m-2) per product and the few hundred products of a block the
+float64 sum is exact, and its single rounding to f32 is what the kernels'
+exact accumulation gives too.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (STREAM_W, STREAM_X, quantize_block,
-                                        row_group_amax)
+from repro_torch.kernels.common import (STREAM_G, STREAM_W, STREAM_X,
+                                        quantize_block, row_group_amax)
 
 
 def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
@@ -25,12 +27,48 @@ def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _slab_group_amax(ws: torch.Tensor, rb: int, cb: int) -> torch.Tensor:
-    """|w| max over (rb, cb) groups of a [bk, N] K-block slab, broadcast
-    back to the slab."""
+    """|w| max over (rb, cb) groups of a 2-D slab of w, broadcast back to
+    the slab."""
     r, c = ws.shape
     g = ws.abs().reshape(r // rb, rb, c // cb, cb).amax(dim=(1, 3),
                                                        keepdim=True)
     return g.expand(r // rb, rb, c // cb, cb).reshape(r, c)
+
+
+def _seed_value(seed) -> int:
+    return 0 if seed is None else int(torch.as_tensor(seed).reshape(-1)[0])
+
+
+def _index(r0: int, nr: int, c0: int, nc: int, C: int, stream: int,
+           device) -> torch.Tensor:
+    """int32 global element indices r * C + c + stream of a slab."""
+    r = torch.arange(r0, r0 + nr, dtype=torch.int64, device=device)
+    c = torch.arange(c0, c0 + nc, dtype=torch.int64, device=device)
+    return _wrap_i32(r[:, None] * C + c[None, :] + stream)
+
+
+def _quantize_rows(a: torch.Tensor, c0: int, width: int, C: int,
+                   mantissa_bits: int, block: int, stochastic: bool,
+                   seed: int, stream: int):
+    """Columns [c0, c0 + width) of the f32 [R, C] operand `a`, quantized
+    per (row, block group): (q, delta) on the operand's stochastic
+    stream."""
+    s = a[:, c0:c0 + width]
+    idx = _index(0, a.shape[0], c0, width, C, stream, a.device) \
+        if stochastic else None
+    return quantize_block(s, mantissa_bits, row_group_amax(s, block),
+                          stochastic=stochastic, seed=seed, idx=idx)
+
+
+def _quantize_w(ws: torch.Tensor, r0: int, c0: int, N: int, rb: int,
+                cb: int, mantissa_bits: int, stochastic: bool, seed: int):
+    """A slab of w [K, N] starting at (r0, c0), quantized per (rb, cb)
+    group on STREAM_W with w's own element indices (so the forward and
+    dgrad draw the same numbers): (q, delta)."""
+    idx = _index(r0, ws.shape[0], c0, ws.shape[1], N, STREAM_W, ws.device) \
+        if stochastic else None
+    return quantize_block(ws, mantissa_bits, _slab_group_amax(ws, rb, cb),
+                          stochastic=stochastic, seed=seed, idx=idx)
 
 
 def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
@@ -52,21 +90,14 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
                          f"({bm_},{bk_},{bn_})")
     x_sub = bool(block) and block < bk_
     w_sub = bool(block) and (block < bk_ or block < bn_)
-    seed_v = 0 if seed is None else int(torch.as_tensor(seed).reshape(-1)[0])
-    dev = x.device
+    seed_v = _seed_value(seed)
     xf = x.to(torch.float32)
     wf = w.to(torch.float32)
-    acc = torch.zeros((M, N), dtype=torch.float32, device=dev)
-    rows = torch.arange(M, dtype=torch.int64, device=dev)[:, None]
-    for kk in range(K // bk_):
-        k0 = kk * bk_
-        xs = xf[:, k0:k0 + bk_]
-        idx_x = None
-        if stochastic:
-            cols = torch.arange(k0, k0 + bk_, dtype=torch.int64, device=dev)
-            idx_x = _wrap_i32(rows * K + cols[None, :] + STREAM_X)
-        qx, dx = quantize_block(xs, mantissa_bits, row_group_amax(xs, block),
-                                stochastic=stochastic, seed=seed_v, idx=idx_x)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
+    for k0 in range(0, K, bk_):
+        qx, dx = _quantize_rows(xf, k0, bk_, K, mantissa_bits, block,
+                                stochastic, seed_v, STREAM_X)
         ws = wf[k0:k0 + bk_]                                   # [bk, N]
         if not quantize_w:
             if x_sub:
@@ -74,18 +105,89 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
             else:
                 acc = acc + (qx @ ws) * dx
             continue
-        rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
-        idx_w = None
-        if stochastic:
-            rw = torch.arange(k0, k0 + bk_, dtype=torch.int64, device=dev)
-            cw = torch.arange(N, dtype=torch.int64, device=dev)
-            idx_w = _wrap_i32(rw[:, None] * N + cw[None, :] + STREAM_W)
-        qw, dw = quantize_block(ws, mantissa_bits,
-                                _slab_group_amax(ws, rb, cb),
-                                stochastic=stochastic, seed=seed_v, idx=idx_w)
+        qw, dw = _quantize_w(ws, k0, 0, N, rb, cb, mantissa_bits, stochastic,
+                             seed_v)
         if x_sub or w_sub:
             acc = acc + (qx * dx) @ (qw * dw)
             continue
         part = (qx.to(torch.float64) @ qw.to(torch.float64)).to(torch.float32)
         acc = acc + part * (dx * dw[:1])       # δw is constant down a column
     return acc.to(out_dtype)
+
+
+def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
+                   quantize_w=True, block=0, bm=128, bk=128, bn=128,
+                   out_dtype=torch.float32):
+    """dx[M,K] = Q(g)·Q(w)ᵀ: gradient rows quantized per (row, N-block)
+    on STREAM_G, weight tiles per (bk, bn) block of w on STREAM_W (the
+    forward's element index), f32 accumulation over N-blocks in ascending
+    order. quantize_w=False contracts the given (pre-narrowed) w; block>0
+    refines the exponent groups like hbfp_matmul_ref."""
+    M, N = g.shape
+    K, N2 = w.shape
+    if N != N2:
+        raise ValueError(f"dgrad: {tuple(g.shape)} vs {tuple(w.shape)}")
+    bm_, bk_, bn_ = min(bm, M), min(bk, K), min(bn, N)
+    if M % bm_ or K % bk_ or N % bn_:
+        raise ValueError(f"dgrad ({M},{N})x({K},{N}) not divisible by "
+                         f"({bm_},{bk_},{bn_})")
+    g_sub = bool(block) and block < bn_
+    w_sub = bool(block) and (block < bk_ or block < bn_)
+    seed_v = _seed_value(seed)
+    gf = g.to(torch.float32)
+    wf = w.to(torch.float32)
+    acc = torch.zeros((M, K), dtype=torch.float32, device=g.device)
+    rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
+    for n0 in range(0, N, bn_):
+        qg, dg = _quantize_rows(gf, n0, bn_, N, mantissa_bits, block,
+                                stochastic, seed_v, STREAM_G)
+        ws = wf[:, n0:n0 + bn_]                                 # [K, bn]
+        if not quantize_w:
+            if g_sub:
+                acc = acc + (qg * dg) @ ws.T
+            else:
+                acc = acc + (qg @ ws.T) * dg
+            continue
+        qw, dw = _quantize_w(ws, 0, n0, N, rb, cb, mantissa_bits, stochastic,
+                             seed_v)
+        if g_sub or w_sub:
+            acc = acc + (qg * dg) @ (qw * dw).T
+            continue
+        part = (qg.to(torch.float64) @ qw.to(torch.float64).T).to(torch.float32)
+        acc = acc + part * (dg * dw[:, 0][None, :])  # δw constant along a row
+    return acc.to(out_dtype)
+
+
+def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
+                   block=0, bm=128, bk=128, bn=128, out_dtype=torch.float32,
+                   operands=False):
+    """dw[K,N] = (Q(x)·δx)ᵀ·(Q(g)·δg): x rows per (row, K-block) on the
+    forward's STREAM_X, g rows per (row, N-block) on STREAM_G, dequantized
+    f32 products accumulated over M-blocks in ascending order, as the
+    reference does. `operands` also returns the dequantized x̂ [M,K] and
+    ĝ [M,N] (what the kernel's scratch holds)."""
+    M, K = x.shape
+    M2, N = g.shape
+    if M != M2:
+        raise ValueError(f"wgrad: {tuple(x.shape)} vs {tuple(g.shape)}")
+    bm_, bk_, bn_ = min(bm, M), min(bk, K), min(bn, N)
+    if M % bm_ or K % bk_ or N % bn_:
+        raise ValueError(f"wgrad ({M},{K})x({M},{N}) not divisible by "
+                         f"({bm_},{bk_},{bn_})")
+    seed_v = _seed_value(seed)
+
+    def dequant(a, C, width, stream):
+        out = torch.empty_like(a)
+        for c0 in range(0, C, width):
+            q, d = _quantize_rows(a, c0, width, C, mantissa_bits, block,
+                                  stochastic, seed_v, stream)
+            out[:, c0:c0 + width] = q * d
+        return out
+
+    xh = dequant(x.to(torch.float32), K, bk_, STREAM_X)
+    gh = dequant(g.to(torch.float32), N, bn_, STREAM_G)
+    acc = torch.zeros((K, N), dtype=torch.float32, device=x.device)
+    for m0 in range(0, M, bm_):
+        acc = acc + xh[m0:m0 + bm_].T @ gh[m0:m0 + bm_]
+    acc = acc.to(out_dtype)
+    return (acc, xh, gh) if operands else acc

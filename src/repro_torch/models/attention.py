@@ -2,9 +2,13 @@
 KV cache (port of the serving path of `repro.models.attention`).
 
 QK^T and PV are activation x activation products and run on the sim path
-(`core/hbfp_ops.py`) in BFP when cfg.quantize_attention. The prefill path
-without a cache always takes `mha`, as the reference's jitted serving
-stages do; the flash gate comes with ROADMAP B4.
+(`core/hbfp_ops.py`) in BFP when cfg.quantize_attention, forward and
+backward. The cache-less path keeps the reference's flash gate: where the
+reference would take its fused flash kernel (`flash_mha`: full-causal
+pattern without softcap, standard positions, backend "pallas", nearest
+rounding) the port raises until that kernel is ported (ROADMAP B4), never
+falling back to `mha`. The serving stages pass `flash_ok=False`, as the
+reference's jitted stages see traced positions.
 
 Unlike the reference's functional caches, cache appends here write into
 the cache tensors in place (the stacked [L, ...] tensors, through per-layer
@@ -21,6 +25,16 @@ from repro_torch.kernels.common import max_exponent, pow2
 from repro_torch.models.layers import apply_rope, ctx_matmul, softcap
 
 NEG_INF = -1e30
+
+_FLASH_BLOCKS = (128, 64, 32, 16, 8)
+
+
+def _flash_block(S: int):
+    """Largest flash block dividing S (None: no flash path)."""
+    for b in _FLASH_BLOCKS:
+        if S % b == 0:
+            return min(b, S)
+    return None
 
 
 class KVCache(NamedTuple):
@@ -193,11 +207,14 @@ def _paged_append(cache: PagedKVCache, k, v, tok_pos, bfp_cache: bool,
 def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
                     positions, rope_theta=10000.0, window=None,
                     attn_cap=None, q_chunk=512, cache=None,
-                    return_cache: bool = False, bfp_cache: bool = False):
-    """x: [B,S,D]; positions: [B,S]. Without a cache (prefill) the block
-    attends causally within x; with one (decode, chunked prefill) the S
-    incoming tokens are appended to their ring slots first and the block
-    attends over the cache."""
+                    return_cache: bool = False, bfp_cache: bool = False,
+                    flash_ok: bool = False):
+    """x: [B,S,D]; positions: [B,S]. Without a cache (training, prefill)
+    the block attends causally within x; with one (decode, chunked
+    prefill) the S incoming tokens are appended to their ring slots first
+    and the block attends over the cache. flash_ok: the arch's pattern is
+    full-causal without softcap and the positions are standard, so the
+    reference would take its flash kernel here."""
     B, S, D = x.shape
     q = ctx_matmul(x, p["attn_wq"], ctx, "wq")
     k = ctx_matmul(x, p["attn_wk"], ctx, "wk")
@@ -210,6 +227,14 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
     tok_pos = positions
 
     if cache is None:
+        # the reference's static flash gate (repro/models/attention.py)
+        if (flash_ok and ctx.backend == "pallas" and ctx.cfg is not None
+                and ctx.cfg.quantize_attention
+                and ctx.cfg.rounding == "nearest"
+                and _flash_block(S) is not None):
+            raise NotImplementedError(
+                "the reference takes its fused flash attention kernel "
+                "(flash_mha) here; its port comes with ROADMAP B4")
         out = mha(q, k, v, tok_pos, tok_pos, ctx, cap=attn_cap,
                   window=window, q_chunk=q_chunk)
         new_cache = None

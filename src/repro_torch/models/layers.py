@@ -55,8 +55,9 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight"):
     """Route one model dot product through the Ctx's resolved policy, with
     the reference's dispatch: attention roles take their role width on the
     sim path; backend "pallas" sends 2-D weight-kind products to the
-    forward kernel (`kernels/linear.py`); everything else is the sim path
-    (`core/hbfp_ops.py`)."""
+    kernels (`kernels/linear.py`: forward, dgrad and wgrad); everything
+    else is the sim path (`core/hbfp_ops.py`). dgrad/wgrad role widths
+    reach the backward of both."""
     cfg = ctx.cfg if cfg is _UNSET else cfg
     gen = ctx.key_for(site)
     role = _ATTN_ROLE.get(site)

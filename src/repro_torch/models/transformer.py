@@ -1,18 +1,24 @@
-"""Dense transformer stack for serving (port of the dense path of
+"""Dense transformer stack (port of the dense path of
 `repro.models.transformer`).
 
 Entry points:
   init_params(seed, arch, device=None)             -> params dict
   from_jax_params(tree_of_numpy, device, dtype)    -> params dict
+  forward(params, batch, arch, ctx)                -> (logits, aux)
+  loss_fn(params, batch, arch, ctx)                -> (loss, metrics)
   prefill(params, batch, arch, ctx)                -> (logits_last, cache)
   decode_step(params, batch, cache, arch, ctx)     -> (logits, cache)
 
 Parameters keep the reference's nested-dict layout: a "layers" dict of
 tensors stacked on a leading L axis, "embed_table", "head_w" and
-"final_norm_scale", so parameter names are byte-identical. The layer scan
-is a Python loop over layers. Caches are stacked per-layer NamedTuples
-(leading L) that decode updates in place. MoE, SSM and xLSTM layers come
-with ROADMAP A12.
+"final_norm_scale", so parameter names are byte-identical. "layers" may
+also be a list of per-layer dicts (the train step's narrow copy, so each
+layer's weights are autograd leaves of their own). The layer scan is a
+Python loop over layers; with `arch.remat` each layer, and each chunk of
+the chunked cross-entropy, is recomputed in the backward
+(`torch.utils.checkpoint`), as the reference's `jax.checkpoint`s do.
+Caches are stacked per-layer NamedTuples (leading L) that decode updates
+in place. MoE, SSM and xLSTM layers come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import check_on, dtype_of, resolve_device
@@ -121,7 +128,7 @@ def _layer_windows(arch: ArchConfig, n_layers: int):
 
 
 def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
-                    cache, want_cache: bool):
+                    cache, want_cache: bool, std_pos: bool = False):
     """Pre-norm block (gemma2-style post-norms when set). Returns
     (x, new_cache)."""
     h = rms_norm(x, lp["ln1_norm_scale"], arch.norm_eps,
@@ -131,7 +138,11 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         head_dim=arch.hd, positions=positions, rope_theta=arch.rope_theta,
         window=window, attn_cap=arch.attn_softcap, q_chunk=arch.q_chunk,
         cache=None if cache is None else cache["kv"],
-        return_cache=want_cache, bfp_cache=arch.bfp_kv_cache)
+        return_cache=want_cache, bfp_cache=arch.bfp_kv_cache,
+        # flash masks by block index, so it also needs the standard
+        # positions (std_pos)
+        flash_ok=(arch.attn_pattern == "global"
+                  and arch.attn_softcap is None and std_pos))
     new_cache = {"kv": new_kv} if (want_cache or cache is not None) else None
     if arch.post_norms:
         a = rms_norm(a, lp["post1_norm_scale"], arch.norm_eps,
@@ -164,19 +175,49 @@ def _layer_cache(cache, i: int):
     return {"kv": type(kv)(*(None if t is None else t[i] for t in kv))}
 
 
+def _std_positions(batch) -> bool:
+    """True when attention may mask by block index (the reference's flash
+    gate): positions are absent from the batch, or a [B, S] (or [3, B, S])
+    array equal to the standard contiguous arange. The port has no traced
+    positions; its serving stages, which stand in for the reference's
+    jitted ones, pass std_pos=False explicitly."""
+    if "positions" not in batch:
+        return True
+    p = torch.as_tensor(batch["positions"])
+    if p.ndim not in (2, 3):
+        return False
+    want = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+    return bool((p == want).all())
+
+
+def _remat_block(x, lp, ctx, arch, positions, window, std_pos):
+    return _attn_ffn_block(x, lp, ctx, arch, positions, window, None,
+                           False, std_pos)[0]
+
+
 def _run_stack(params, x, positions, arch: ArchConfig, ctx,
-               cache=None, want_cache: bool = False):
+               cache=None, want_cache: bool = False,
+               std_pos: bool = False):
     """The layer loop. Decode updates `cache` in place and returns it; a
-    prefill with want_cache stacks the per-layer prompt caches."""
+    prefill with want_cache stacks the per-layer prompt caches. Under
+    autograd with arch.remat each layer is recomputed in the backward."""
     L = arch.n_layers
     windows = _layer_windows(arch, L)
     layers = params["layers"]
+    remat = (arch.remat and cache is None and not want_cache
+             and torch.is_grad_enabled())
     built = []
     for i in range(L):
-        lp = {k: v[i] for k, v in layers.items()}
+        lp = layers[i] if isinstance(layers, (list, tuple)) \
+            else {k: v[i] for k, v in layers.items()}
+        if remat:
+            x = checkpoint(_remat_block, x, lp, ctx, arch, positions,
+                           windows[i], std_pos, use_reentrant=False)
+            continue
         x, nc = _attn_ffn_block(x, lp, ctx, arch, positions, windows[i],
                                 None if cache is None
-                                else _layer_cache(cache, i), want_cache)
+                                else _layer_cache(cache, i), want_cache,
+                                std_pos)
         if cache is None and want_cache:
             built.append(nc["kv"])
     if cache is not None:
@@ -209,13 +250,73 @@ def _entry_device(params, ctx, device):
     return dev
 
 
-def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
-    """Forward over the prompt; returns (last-token logits [B,1,V], cache).
-    Runs on `device`, else ctx.device, else the CUDA device."""
+def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
+    """Logits [B,S,V] over the batch and the (zero, dense) aux loss. Runs
+    on `device`, else ctx.device, else the CUDA device."""
     _require_dense(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
-    x, cache = _run_stack(params, x, positions, arch, ctx, want_cache=True)
+    x, _ = _run_stack(params, x, positions, arch, ctx,
+                      std_pos=_std_positions(batch))
+    return _logits(params, x, arch, ctx), torch.zeros((), device=dev)
+
+
+def _ce(params, xc, lc, arch: ArchConfig, ctx):
+    """Summed next-token CE of one token chunk: head, softcap, logsumexp."""
+    logits = _head_logits(params, xc, arch, ctx)             # [t, V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc[:, None]).squeeze(-1)
+    return (lse - ll).sum()
+
+
+def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
+            aux_weight: float = 0.01, device=None):
+    """Next-token CE, the LM head and softmax-CE computed in `loss_chunk`
+    token chunks (each recomputed in the backward under arch.remat), so
+    the f32 [tokens, vocab] logits exist one chunk at a time. Returns
+    (loss, {"nll", "aux", "loss"})."""
+    _require_dense(arch)
+    dev = _entry_device(params, ctx, device)
+    x, positions = _embed_in(params, batch, arch, dev)
+    x, _ = _run_stack(params, x, positions, arch, ctx,
+                      std_pos=_std_positions(batch))
+    x = rms_norm(x, params["final_norm_scale"], arch.norm_eps,
+                 arch.zero_centered_norm)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    lt = labels.reshape(T)
+    lc = arch.loss_chunk
+    if lc and T > lc and T % lc == 0:
+        remat = arch.remat and torch.is_grad_enabled()
+        tot = torch.zeros((), dtype=torch.float32, device=dev)
+        for c0 in range(0, T, lc):
+            args = (params, xt[c0:c0 + lc], lt[c0:c0 + lc], arch, ctx)
+            tot = tot + (checkpoint(_ce, *args, use_reentrant=False)
+                         if remat else _ce(*args))
+    else:
+        tot = _ce(params, xt, lt, arch, ctx)
+    nll = tot / T
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux, "loss": loss}
+
+
+def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
+            std_pos: Optional[bool] = None):
+    """Forward over the prompt; returns (last-token logits [B,1,V], cache).
+    Runs on `device`, else ctx.device, else the CUDA device. std_pos None
+    reads the batch's positions as the reference's un-jitted prefill
+    does; the serving stages pass False, as the reference's jitted ones
+    see traced positions."""
+    _require_dense(arch)
+    dev = _entry_device(params, ctx, device)
+    x, positions = _embed_in(params, batch, arch, dev)
+    if std_pos is None:
+        std_pos = _std_positions(batch)
+    x, cache = _run_stack(params, x, positions, arch, ctx, want_cache=True,
+                          std_pos=std_pos)
     return _logits(params, x[:, -1:], arch, ctx), cache
 
 

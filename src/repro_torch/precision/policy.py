@@ -115,9 +115,19 @@ class ResolvedPolicy:
         return rw.apply(self.global_cfg) if rw is not None else self.global_cfg
 
     @property
+    def has_overrides(self) -> bool:
+        return bool(self.layer_overrides)
+
+    @property
     def is_fp32(self) -> bool:
         return (self.global_cfg is None
                 and all(c is None for _, c in self.layer_overrides))
+
+    @property
+    def any_stochastic(self) -> bool:
+        cfgs = [self.global_cfg] + [c for _, c in self.layer_overrides]
+        return any(c is not None and c.rounding == "stochastic"
+                   for c in cfgs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +160,19 @@ class PrecisionPolicy:
             layer_overrides=tuple((f, _apply_override(seg, v))
                                   for f, v in self.layer_overrides),
             role_widths=self.role_widths, backend=self.backend)
+
+
+def as_policy(spec, backend: Optional[str] = None) -> PrecisionPolicy:
+    """Coerce a precision spec (PrecisionPolicy, spec string, HBFPConfig or
+    None) into a PrecisionPolicy; `backend` applies to the non-policy
+    kinds."""
+    if isinstance(spec, PrecisionPolicy):
+        return spec
+    if isinstance(spec, str):
+        return parse_policy(spec, backend=backend)
+    if spec is None or isinstance(spec, HBFPConfig):
+        return PrecisionPolicy(base=spec, backend=backend or "sim")
+    raise TypeError(f"not a precision spec: {type(spec).__name__}")
 
 
 def as_segment(spec, backend: Optional[str] = None) -> ResolvedPolicy:

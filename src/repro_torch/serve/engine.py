@@ -200,7 +200,7 @@ class ServeEngine:
         pos = torch.arange(plen, dtype=torch.int32,
                            device=self.device)[None]
         return prefill(params, {"tokens": tokens, "positions": pos},
-                       self.arch, self._ctx)
+                       self.arch, self._ctx, std_pos=False)
 
     def _extend(self, params, tokens, pos, pf_cache):
         """Chunked-prefill extension stage: a multi-token decode step that

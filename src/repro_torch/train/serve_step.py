@@ -50,7 +50,10 @@ def make_prefill_fn(arch: ArchConfig, hbfp, device=None):
     ctx_for = _serve_ctx(arch, hbfp, device)
 
     def prefill_fn(params, batch, generator=None):
-        return prefill(params, batch, arch, ctx_for(generator))
+        # a serving stage: the reference's jitted prefill sees traced
+        # positions and never takes the flash path
+        return prefill(params, batch, arch, ctx_for(generator),
+                       std_pos=False)
 
     return prefill_fn
 

@@ -112,8 +112,11 @@ def test_wrapper_counts_and_checks():
         hm.hbfp_matmul_fwd(torch.randn(8, 200), torch.randn(200, 256))
     with pytest.raises(TypeError):
         hm.hbfp_matmul_fwd(x.double(), w.double())
-    with pytest.raises(NotImplementedError):
-        tlinear.hbfp_matmul_kernel(x.requires_grad_(), w, HBFP8_16)
+    # the backward GEMMs are ported: autograd runs dgrad and wgrad
+    y = tlinear.hbfp_matmul_kernel(x.requires_grad_(), w, HBFP8_16)
+    y.sum().backward()
+    assert x.grad.shape == x.shape
+    assert hm.hbfp_dgrad.plain_calls == 1 and hm.hbfp_wgrad.plain_calls == 0
     hm.reset_counts()
 
 

@@ -1,5 +1,6 @@
 """Rules of the port: it imports neither jax nor the reference package,
-its entry points run on the card unless the CPU is asked for, and its
+its entry points (serving and training) run on the card unless the CPU is
+asked for, unported parts raise naming their ROADMAP item, and its
 kernels are held to their plain versions on the card (the `gpu`-marked
 test, which skips where there is no CUDA device).
 
@@ -27,8 +28,10 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.kernels.hbfp_matmul" in mods
-    assert "repro_torch.serve.engine" in mods
+    for m in ("repro_torch.kernels.hbfp_matmul", "repro_torch.serve.engine",
+              "repro_torch.train.train_step", "repro_torch.train.trainer",
+              "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -67,11 +70,37 @@ def test_default_device_entry_points_need_a_gpu():
         resolve_device("cuda")
 
 
+def test_training_entry_points_need_a_gpu():
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim import make_schedule
+    from repro_torch.train import Trainer, init_train_state, make_step
+    arch = get_arch("gemma2-2b").smoke()
+    if torch.cuda.is_available():
+        return
+    sched = make_schedule("constant", base_lr=1e-3, warmup_steps=0,
+                          total_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(0, arch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_step(arch, "8; backend=pallas", sched)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_for_arch(arch, 2, 8)
+    state = init_train_state(0, arch, device="cpu")
+    step = make_step(arch, "8; backend=pallas", sched, device="cpu")
+    data = lambda i: batch_for_arch(arch, 2, 8, step=i, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(train_step=step, init_state=state, data_fn=data)
+    state, metrics = Trainer(train_step=step, init_state=state,
+                             data_fn=data, device="cpu").run(1, log_fn=None)
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+
+
 def test_unported_parts_raise_with_their_roadmap_item():
     from repro_torch.configs import get_arch
     from repro_torch.precision import parse_policy
     with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("gemma2-2b")
+        get_arch("hymba-1.5b")
     with pytest.raises(NotImplementedError, match="A9"):
         parse_policy("4@0,8@90%")
     with pytest.raises(NotImplementedError, match="A9"):
@@ -81,6 +110,24 @@ def test_unported_parts_raise_with_their_roadmap_item():
     assert seg.backend == "pallas" and seg.global_cfg.act_block == 16
     assert seg.for_param("lm_head").mantissa_bits == 12
     assert seg.for_param("layers/ffn_wg", "wgrad").mantissa_bits == 10
+
+
+def test_unported_training_parts_raise_with_their_roadmap_item():
+    from repro_torch.configs import get_arch
+    from repro_torch.optim import make_schedule
+    from repro_torch.train import Trainer, init_train_state, make_step
+    arch = get_arch("gemma2-2b").smoke()
+    sched = make_schedule("constant", base_lr=1e-3, warmup_steps=0,
+                          total_steps=1)
+    with pytest.raises(NotImplementedError, match="A5"):
+        make_step(arch, "8~stochastic", sched, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_step(arch, "8", sched, controller=object(), device="cpu")
+    state = init_train_state(0, arch, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        Trainer(train_step=make_step(arch, "8", sched, device="cpu"),
+                init_state=state, data_fn=None, ckpt_dir="ckpt",
+                device="cpu")
 
 
 def test_policy_resolution_matches_reference():
@@ -109,5 +156,5 @@ def test_chip_smoke_kernel_phase_on_card():
     import chip_smoke
     chip_smoke.phase_device()
     chip_smoke.phase_build()
-    cases = chip_smoke.phase_kernels()
+    cases = chip_smoke.phase_kernels() + chip_smoke.phase_bwd()
     assert cases and all(c["ok"] for c in cases)
