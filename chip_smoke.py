@@ -6,29 +6,35 @@
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
                 TF32 off for matmuls and convolutions;
-  2. build    — compile every kernel source with nvcc (one process per
-                source, started together) and print each kernel's
-                registers and spill bytes;
+  2. build    — compile every kernel source (three libraries) with nvcc,
+                one process per source, started together, and print each
+                kernel's registers, spill bytes and stack;
   3. bwd      — B1, B2 (dgrad) and B3 (wgrad) against their plain
                 versions at gemma2-2b's training shapes (M = 4096 tokens),
                 timed with CUDA events, and a few small cases (m 8/12,
                 stochastic, block 32, narrowed weights);
-  4. train    — one gemma2 smoke training step on the card agrees with the
-                same step on the CPU;
-  5. train-full — gemma2-2b at full width trained by the port's Trainer
-                (a warm-up step, then 3 steps): finite losses, exact
-                kernel launch counts, step time, tokens/s, peak memory,
-                and a profile of one step;
-  6. kernels  — B1 against its plain PyTorch version on the card at the
+  4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
+                dv) against their plain versions at yi-9b's training
+                attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
+                timed, beside SDPA as a yardstick, and small cases (m 12,
+                m_qk != m_pv, non-causal, S 96 in f32);
+  5. train    — one gemma2 and one yi-9b smoke training step on the card
+                agree with the same step on the CPU (yi-9b through flash);
+  6. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
+                full width trained by the port's Trainer (a warm-up step,
+                then 3 steps): finite losses, step-0 loss within 2% of
+                fp32, exact launch counts of B1-B6, step time, tokens/s,
+                peak memory, and a profile of one step;
+  7. kernels  — B1 against its plain PyTorch version on the card at the
                 yi-9b serving shapes;
-  7. model    — the yi-9b smoke model served on the card (kernel path)
+  8. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
-  8. serve    — yi-9b at full width (random seeded bf16 weights) served by
+  9. serve    — yi-9b at full width (random seeded bf16 weights) served by
                 the port's ServeEngine: 12 overloading requests, paged and
                 slab, plus one async chunked-prefill request; every
                 projection must have gone through the kernels;
-  9. report   — the `kernels` JSON line, the card line, and the last line
-                {"ok": true, "device": {...}}.
+ 10. report   — the `kernels` JSON line (B1-B6), the card line, and the
+                last line {"ok": true, "device": {...}}.
 
 Per-case kernel numbers and the training results also go to
 chiprun_out/chip_smoke.json.
@@ -90,6 +96,26 @@ F32_UNIT = 2.0 ** -24
 # norm, no parameter further than 2·lr apart.
 TRAIN_TOL = dict(loss=2e-3, grads=0.1, updates=0.5)
 TRAIN_LR = 1e-3
+
+# yi-9b's training attention: 1 sequence x 32 heads, 4096 tokens, hd 128
+FLASH_SHAPE = (32, 4096, 128)
+# yi-9b trains at full width and 16 of its 48 layers: 3.29 B parameters,
+# ~53 GB of f32 master, AdamW moments and grads (all 48 would need ~140 GB)
+YI_LAYERS = 16
+# (name, BH, S, hd, dtype, m_bits, m_qk, m_pv, causal) of the small cases
+FLASH_SMALL = (("m12", 4, 512, 128, "bfloat16", 12, 0, 0, True),
+               ("qk10", 4, 512, 128, "bfloat16", 8, 10, 0, True),
+               ("pv6", 4, 512, 128, "bfloat16", 8, 0, 6, True),
+               ("qk12_pv6", 4, 512, 128, "bfloat16", 8, 12, 6, True),
+               ("noncausal", 4, 512, 128, "bfloat16", 8, 0, 0, False),
+               ("s96_f32", 4, 96, 64, "float32", 8, 0, 0, True))
+# B4's scores, probabilities, quantized operands, o and lse equal the
+# plain version's bit for bit (the same f32 ops, expf/logf, and the row sum
+# of p in the kernel's order). B5/B6 sum dq, dk, dv (exact products with
+# varying scales) in another order: |Δ| <= 2·S·2^-24·(Σ|a||b|) elementwise
+# before the cast to the output type, plus, for bf16 outputs, one rounding
+# of each side (|r(x) - x| <= u·|x| <= u/(1-u)·|r(x)|, u = 2^-8).
+BF16_ROUND = 2.0 ** -8 / (1 - 2.0 ** -8)
 
 
 def log(*a):
@@ -414,6 +440,177 @@ def phase_bwd():
     return rows
 
 
+def _flash_work(BH, S, hd, causal):
+    """(MACs of one S×S×hd product the mask leaves, exp count): positions
+    k <= q only when causal."""
+    pairs = BH * (S * (S + 1) // 2 if causal else S * S)
+    return pairs * hd, pairs
+
+
+def _flash_bounds(BH, S, hd, esize, causal, m_qk, m_pv):
+    """{kernel: (bound ms, bound_by)} for B4, B5, B6: integral products at
+    the int8 rate (f32 above m = 8), f32-path products at the bf16 rate
+    (their m <= 8 operands are exact in bf16); bytes: every input read
+    once, every output written once."""
+    mac, _ = _flash_work(BH, S, hd, causal)
+    rate = lambda m: PEAK_OPS_S["int8" if m <= 8 else "f32"]
+    frate = PEAK_OPS_S["bf16" if max(m_qk, m_pv) <= 8 else "f32"]
+    t = BH * S * hd * esize          # one [BH, S, hd] tensor
+    r = BH * S * 4                   # one [BH, S] f32 tensor
+    work = {  # kernel: (seconds of operations, bytes)
+        "hbfp_flash_fwd": (2 * mac / rate(m_qk) + 2 * mac / rate(m_pv),
+                           4 * t + r),
+        "hbfp_flash_dq": (2 * mac / rate(m_qk) + 2 * mac / rate(m_pv)
+                          + 2 * mac / frate, 5 * t + 2 * r),
+        "hbfp_flash_dkv": (2 * mac / rate(m_qk) + 2 * mac / rate(m_pv)
+                           + 4 * mac / frate, 6 * t + 2 * r),
+    }
+    out = {}
+    for k, (ops_s, nbytes) in work.items():
+        bytes_s = nbytes / HBM_BYTES_S
+        out[k] = (max(ops_s, bytes_s) * 1e3,
+                  "operations" if ops_s > bytes_s else "bytes")
+    return out
+
+
+def _flash_grad_ok(got, want, bound, S, bf16):
+    """|Δ| <= 2·S·u·Σ|a||b| (+ bf16 rounding of both sides); returns (ok,
+    max |Δ|, max |Δ| / tolerance, bit-equal)."""
+    import torch
+    g, w = got.float(), want.float()
+    tol = 2 * S * F32_UNIT * bound
+    if bf16:
+        tol = tol + BF16_ROUND * (g.abs() + w.abs())
+    d = (g - w).abs()
+    ratio = float((d / tol.clamp_min(1e-38)).max())
+    return (bool((d <= tol).all()), float(d.max()), ratio,
+            bool(torch.equal(g, w)))
+
+
+def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, gen, timed):
+    """B4, B5 and B6 at one shape against their plain versions on the
+    same inputs; returns one row per kernel (and, timed, the SDPA
+    yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import hbfp_flash_attn as fa
+    from repro_torch.kernels.ref import flash_delta
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    blk = min(128, S & -S)
+    q, k, v = (torch.randn((BH, S, hd), generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    do = (torch.randn((BH, S, hd), generator=gen, device=dev) * 1e-2).to(dt)
+    kw = dict(m_bits=m, m_qk=m_qk, m_pv=m_pv, bq=blk, bk=blk, causal=causal)
+    mq, mp = m_qk or m, m_pv or m
+    rows, bf16 = [], dt == torch.bfloat16
+    ok_k, lse_k = fa.hbfp_flash_fwd(q, k, v, with_lse=True, **kw)
+    o_nolse = fa.hbfp_flash_fwd(q, k, v, **kw)
+    o_p, lse_p = fa.hbfp_flash_fwd_plain(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    fwd_ok = (torch.equal(ok_k, o_p) and torch.equal(lse_k, lse_p)
+              and torch.equal(o_nolse, ok_k))
+    err = max(float((ok_k.float() - o_p.float()).abs().max()),
+              float((lse_k - lse_p).abs().max()))
+    rows.append(dict(kernel="hbfp_flash_fwd", ok=fwd_ok, check="EQ",
+                     max_abs_err=err, bit_equal=fwd_ok))
+    del ok_k, o_nolse
+    delta = flash_delta(o_p, do)
+    args = (q, k, v, do, lse_p, delta)
+    dq_k = fa.hbfp_flash_dq(*args, **kw)
+    dq_p, bq_ = fa.hbfp_flash_dq_plain(*args, with_bound=True, **kw)
+    torch.cuda.synchronize()
+    ok, err, ratio, eq = _flash_grad_ok(dq_k, dq_p, bq_, S, bf16)
+    rows.append(dict(kernel="hbfp_flash_dq", ok=ok, check="TOL",
+                     max_abs_err=err, err_over_tol=ratio, bit_equal=eq))
+    del dq_k, dq_p, bq_
+    dk_k, dv_k = fa.hbfp_flash_dkv(*args, **kw)
+    dk_p, dv_p, bk_, bv_ = fa.hbfp_flash_dkv_plain(*args, with_bound=True,
+                                                  **kw)
+    torch.cuda.synchronize()
+    rk = _flash_grad_ok(dk_k, dk_p, bk_, S, bf16)
+    rv = _flash_grad_ok(dv_k, dv_p, bv_, S, bf16)
+    rows.append(dict(kernel="hbfp_flash_dkv", ok=rk[0] and rv[0],
+                     check="TOL", max_abs_err=max(rk[1], rv[1]),
+                     err_over_tol=max(rk[2], rv[2]),
+                     bit_equal=rk[3] and rv[3]))
+    del dk_k, dv_k, dk_p, dv_p, bk_, bv_
+    finite = all(bool(torch.isfinite(t).all()) for t in (o_p, lse_p))
+    bounds = _flash_bounds(BH, S, hd, q.element_size(), causal, mq, mp)
+    mac, n_exp = _flash_work(BH, S, hd, causal)
+    calls = {
+        "hbfp_flash_fwd": (lambda: fa.hbfp_flash_fwd(q, k, v, with_lse=True,
+                                                     **kw),
+                           lambda: fa.hbfp_flash_fwd_plain(
+                               q, k, v, with_lse=True, **kw)),
+        "hbfp_flash_dq": (lambda: fa.hbfp_flash_dq(*args, **kw),
+                          lambda: fa.hbfp_flash_dq_plain(*args, **kw)),
+        "hbfp_flash_dkv": (lambda: fa.hbfp_flash_dkv(*args, **kw),
+                           lambda: fa.hbfp_flash_dkv_plain(*args, **kw)),
+    }
+    sdpa = None
+    if timed:
+        # q, k, v hold one [S, hd] head per B·H (kv heads repeated):
+        # SDPA on [1, BH, S, hd]
+        q4, k4, v4 = (t.reshape(1, BH, S, hd).to(torch.bfloat16)
+                      for t in (q, k, v))
+        f = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=causal)
+        q4g, k4g, v4g = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
+        do4 = do.reshape(1, BH, S, hd).to(torch.bfloat16)
+
+        def fb():
+            out = F.scaled_dot_product_attention(q4g, k4g, v4g,
+                                                 is_causal=causal)
+            torch.autograd.grad(out, (q4g, k4g, v4g), do4)
+        sdpa = dict(fwd_ms=_time_ms(f, _reps(f)),
+                    fwd_bwd_ms=_time_ms(fb, _reps(fb)))
+    for row in rows:
+        name_k = row["kernel"]
+        bound, by = bounds[name_k]
+        row.update(case=name, BH=BH, S=S, hd=hd, dtype=dtype, m_bits=m,
+                   m_qk=mq, m_pv=mp, causal=causal, bound_ms=bound,
+                   bound_by=by, macs_per_product=mac, exp_count=n_exp)
+        if timed:
+            run, plain = calls[name_k]
+            n = _reps(run)
+            row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 1),
+                       reps=n)
+        log(f"[flash] {name_k} {name} BH={BH} S={S} hd={hd} {dtype[:4]} "
+            f"m={m}/{mq}/{mp} causal={causal} {row['check']} "
+            f"bit_equal={row['bit_equal']} err={row['max_abs_err']:.3g}"
+            + (f" err/tol={row['err_over_tol']:.3g}"
+               if "err_over_tol" in row else "")
+            + (f" kernel_ms={row['kernel_ms']:.3f} bound_ms={bound:.4f}"
+               f"({by[0]}) plain_ms={row['plain_ms']:.1f}" if timed else ""))
+        if not finite:
+            row["ok"] = False
+    if sdpa:
+        log(f"[flash] SDPA yardstick (bf16, is_causal={causal}, another "
+            f"function): fwd {sdpa['fwd_ms']:.3f} ms, fwd+bwd "
+            f"{sdpa['fwd_bwd_ms']:.3f} ms; MUFU exp per kernel {n_exp:.3g}")
+        for row in rows:
+            row["sdpa"] = sdpa
+    return rows
+
+
+def phase_flash():
+    """B4/B5/B6 against their plain versions on the card: the yi-9b
+    training shape (timed, with the SDPA yardstick) and the small cases."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    BH, S, hd = FLASH_SHAPE
+    rows = _flash_case("yi_train", BH, S, hd, "bfloat16", 8, 0, 0, True, gen,
+                       timed=True)
+    torch.cuda.empty_cache()
+    for case in FLASH_SMALL:
+        rows += _flash_case(*case, gen, timed=False)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"flash kernels disagree with their plain versions: {bad}")
+    return rows
+
+
 def phase_model():
     """yi-9b smoke in f32: card (kernel) vs CPU (plain) prefill logits and
     greedy decode tokens."""
@@ -461,18 +658,20 @@ def _rel_fro(a, b) -> float:
     return float((a - b).norm() / a.norm().clamp_min(1e-30))
 
 
-def phase_train():
-    """One gemma2 smoke step (f32, "8; backend=pallas") on the card (the
-    kernels) and on the CPU (their plain versions) from the same state and
-    batch: loss, grads and the parameter updates."""
+def phase_train(arch_name: str):
+    """One smoke step of `arch_name` (f32, "8; backend=pallas") on the card
+    (the kernels) and on the CPU (their plain versions) from the same
+    state and batch: loss, grads and the parameter updates. yi-9b's
+    attention takes flash (B4-B6), gemma2's never does."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import batch_for_arch
+    from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.optim import make_schedule
     from repro_torch.optim.adamw import OptState, named_leaves
     from repro_torch.train import TrainState, init_train_state, make_step
-    arch = dataclasses.replace(get_arch("gemma2-2b").smoke(),
+    arch = dataclasses.replace(get_arch(arch_name).smoke(),
                                dtype="float32", loss_chunk=32)
     sched = make_schedule("constant", base_lr=TRAIN_LR, warmup_steps=0,
                           total_steps=10)
@@ -483,25 +682,31 @@ def phase_train():
     card = TrainState(to(cpu.params), OptState(0, to(cpu.opt.mu),
                                                to(cpu.opt.nu)), 0)
     batch = batch_for_arch(arch, 2, 32, kind="markov", device="cpu")
-    out = {}
+    out, flash = {}, {}
     for dev, state in (("cpu", cpu), ("cuda", card)):
         step = make_step(arch, "8; backend=pallas", sched, device=dev)
         b = {k: v.to(dev) for k, v in batch.items()}
+        fa.reset_counts()
         _, _, grads = step.grads(state, b)
         state, m = step(state, b)
+        flash[dev] = (fa.hbfp_flash_fwd.plain_calls, fa.hbfp_flash_fwd.launches)
         out[dev] = (float(m["loss"]), dict(named_leaves(grads)),
                     dict(named_leaves(state.params)))
     (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
     g_err = max(_rel_fro(gc[n], gg[n]) for n in gc)
     u_err = max(_rel_fro(pc[n] - p0[n], pg[n].cpu() - p0[n]) for n in pc)
     p_err = max(float((pc[n] - pg[n].cpu()).abs().max()) for n in pc)
-    log(f"[train] gemma2 smoke one step card vs cpu: loss {lg:.6f} vs "
+    log(f"[train] {arch_name} smoke one step card vs cpu: loss {lg:.6f} vs "
         f"{lc:.6f}, grads rel-fro {g_err:.3g}, updates rel-fro "
-        f"{u_err:.3g}, max |dparam| {p_err:.3g}")
+        f"{u_err:.3g}, max |dparam| {p_err:.3g}; B4 plain calls on the "
+        f"CPU {flash['cpu'][0]}, launches on the card {flash['cuda'][1]}")
     if not (abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc)
             and g_err <= TRAIN_TOL["grads"]
             and u_err <= TRAIN_TOL["updates"] and p_err <= 4 * TRAIN_LR):
-        fail("card training step disagrees with the CPU step")
+        fail(f"{arch_name}: card training step disagrees with the CPU step")
+    takes_flash = arch.attn_pattern == "global" and arch.attn_softcap is None
+    if takes_flash != (flash["cpu"][0] > 0 and flash["cuda"][1] > 0):
+        fail(f"{arch_name}: flash taken {flash}, expected {takes_flash}")
     return dict(loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
                 updates_rel_fro=u_err, max_abs_param=p_err)
 
@@ -543,7 +748,10 @@ def _profile_step(trainer, steps: int):
     groups = {"B1 gemm (fwd)": r"gemm_kernel<\d+, \d+, false",
               "B2 gemm (dgrad)": r"gemm_kernel<\d+, \d+, true",
               "B3 gemm (wgrad)": r"wgrad_gemm_kernel",
-              "B1-B3 quantize passes": r"quantize_(rows|w)_kernel"}
+              "B1-B3 quantize passes": r"quantize_(rows|w)_kernel",
+              "B4 flash fwd": r"flash_fwd_kernel",
+              "B5 flash dq": r"flash_dq_kernel",
+              "B6 flash dkv": r"flash_dkv_kernel"}
     share = {g: sum(us for k, us, _ in rows if re.search(p, k)) / total
              for g, p in groups.items()}
     share["everything else"] = 1.0 - sum(share.values())
@@ -553,13 +761,21 @@ def _profile_step(trainer, steps: int):
                      for k, us, c in top])
 
 
-def phase_train_full(card: str):
-    """gemma2-2b at full width, "8; backend=pallas", 2 x 2048 tokens of
-    markov data (loss_chunk 2048: 2 CE chunks), through the Trainer: a
-    warm-up step, then 3 timed steps whose launches are counted."""
+FLASH_KERNELS = ("hbfp_flash_fwd", "hbfp_flash_dq", "hbfp_flash_dkv")
+GEMM_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")
+
+
+def phase_train_full(card: str, arch_name: str, B: int, S: int,
+                     n_layers: int = 0):
+    """`arch_name` at full width (n_layers > 0 cuts the depth),
+    "8; backend=pallas", B x S tokens of markov data (loss_chunk 2048),
+    constant LR 1e-4, through the Trainer: a warm-up step, then 3 steps
+    whose launches are counted exactly, and a profiled step."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
     from repro_torch.models import loss_fn
     from repro_torch.models.layers import Ctx
@@ -568,20 +784,24 @@ def phase_train_full(card: str):
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.train import Trainer, init_train_state, make_step
     from repro_torch.train.train_step import _narrow_copy
-    arch = get_arch("gemma2-2b")
-    B, S = 2, 2048
+    full = get_arch(arch_name)
+    arch = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    L = arch.n_layers
+    tag = f"[train-full {arch_name}]"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(0, arch)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in named_leaves(state.params))
-    log(f"[train-full] gemma2-2b full width: {arch.n_layers} layers (no "
-        f"depth cut), d_model {arch.d_model}, {arch.n_heads}/"
-        f"{arch.n_kv_heads} heads x {arch.hd}, d_ff {arch.d_ff}, vocab "
-        f"{arch.vocab_size}, {n_params / 1e9:.3f} B params, init "
-        f"{time.perf_counter() - t0:.1f} s")
+    depth = (f"{L} of {full.n_layers} layers (depth cut)" if L < full.n_layers
+             else f"{L} layers (no depth cut)")
+    log(f"{tag} full width: {depth}, d_model {arch.d_model}, "
+        f"{arch.n_heads}/{arch.n_kv_heads} heads x {arch.hd}, d_ff "
+        f"{arch.d_ff}, vocab {arch.vocab_size}, {n_params / 1e9:.3f} B "
+        f"params, init {time.perf_counter() - t0:.1f} s")
     pipe = SyntheticLM(arch.vocab_size, S + 1, B, seed=0)
-    # fp32 reference: the same weights and batch with plain matmuls
+    # fp32 reference: the same weights and batch with plain matmuls and
+    # the sim-path attention
     with torch.no_grad():
         ref = _narrow_copy(state.params, None, torch.bfloat16)
         loss_fp32 = float(loss_fn(ref, pipe.batch(0), arch, Ctx())[0])
@@ -599,45 +819,52 @@ def phase_train_full(card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hm.reset_counts()                        # counts cover the main path
+    fa.reset_counts()
     trainer.run(4, log_every=1, log_fn=lines.append)
     torch.cuda.synchronize()
-    counts = {k: getattr(hm, k).launches for k in
-              ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")}
-    plain = sum(getattr(hm, k).plain_calls for k in counts)
+    counts = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
+    counts.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
+    plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) + \
+        sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
     losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
     spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
              if ev.kind == "span" and ev.data.get("name") == "train/step"]
     step_s = spans[1:]
-    per = 7 * arch.n_layers + 2
+    per = 7 * L + 2
+    fl = L if arch.attn_pattern == "global" and arch.attn_softcap is None \
+        else 0
     want = {"hbfp_matmul_fwd": 3 * 2 * per, "hbfp_dgrad": 3 * per,
-            "hbfp_wgrad": 3 * per}
+            "hbfp_wgrad": 3 * per, "hbfp_flash_fwd": 3 * 2 * fl,
+            "hbfp_flash_dq": 3 * fl, "hbfp_flash_dkv": 3 * fl}
     tok_s = B * S / (sum(step_s) / len(step_s))
     for ln in lines:
-        log(f"[train-full] {ln}")
-    log(f"[train-full] step times {[round(t, 3) for t in step_s]} s, "
+        log(f"{tag} {ln}")
+    log(f"{tag} step times {[round(t, 3) for t in step_s]} s, "
         f"{tok_s:.0f} tokens/s, peak {peak:.2f} of {total:.2f} GiB | {card}")
-    log(f"[train-full] launches over 3 steps {counts} (expected {want}), "
-        f"plain calls {plain}; step-0 loss HBFP {loss0:.4f} vs fp32 "
+    log(f"{tag} launches over 3 steps {counts} (expected {want}), plain "
+        f"calls {plain}; step-0 loss HBFP {loss0:.4f} vs fp32 "
         f"{loss_fp32:.4f}")
     if not all(torch.isfinite(torch.tensor(losses))):
-        fail(f"non-finite training loss {losses}")
+        fail(f"{arch_name}: non-finite training loss {losses}")
     if counts != want or plain != 0:
-        fail(f"launch counts {counts} != {want} or plain calls {plain}")
+        fail(f"{arch_name}: launch counts {counts} != {want} or plain "
+             f"calls {plain}")
     if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
-        fail(f"step-0 HBFP loss {loss0} not within 2% of fp32 {loss_fp32}")
+        fail(f"{arch_name}: step-0 HBFP loss {loss0} not within 2% of fp32 "
+             f"{loss_fp32}")
     prof = _profile_step(trainer, 5)
     if prof is None:
-        log("[train-full] torch.profiler saw no device time")
+        log(f"{tag} torch.profiler saw no device time")
     else:
-        log(f"[train-full] profiled step: {prof['device_ms']:.1f} ms of "
-            f"kernels; share " + ", ".join(
-                f"{k} {v:.1%}" for k, v in prof["share"].items()))
-    result = dict(layers=arch.n_layers, params=n_params, tokens=B * S,
-                  losses=losses, loss_fp32_step0=loss_fp32,
-                  step_s=step_s, tokens_per_s=tok_s, peak_gib=peak,
-                  total_gib=total, launches=counts, profile=prof)
+        log(f"{tag} profiled step: {prof['device_ms']:.1f} ms of kernels; "
+            f"share " + ", ".join(f"{k} {v:.1%}"
+                                  for k, v in prof["share"].items()))
+    result = dict(arch=arch_name, layers=L, params=n_params, tokens=B * S,
+                  losses=losses, loss_fp32_step0=loss_fp32, step_s=step_s,
+                  tokens_per_s=tok_s, peak_gib=peak, total_gib=total,
+                  launches=counts, profile=prof)
     del trainer, state, step
     torch.cuda.empty_cache()
     return result
@@ -765,13 +992,14 @@ def _bound_by(rows) -> str:
         else "bytes"
 
 
-def _bwd_entry(name, rows, launches, replaces, source):
+def _bwd_entry(name, rows, by_path, replaces, source):
     """One kernel's JSON entry from the bwd phase: times summed over one
     gemma2-2b layer's seven projections and the head at M = 4096."""
     tr = [r for r in rows if r["kernel"] == name and r["config"] == "train"]
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "held_against": name + "_plain",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["kernel"] == name),
         "ms": sum(r["kernel_ms"] for r in tr),
@@ -780,6 +1008,26 @@ def _bwd_entry(name, rows, launches, replaces, source):
         "bound_by": _bound_by(tr),
         "library_ms": None,
         "matmul_bf16_ms": sum(r["matmul_bf16_ms"] for r in tr),
+    }
+
+
+def _flash_entry(name, rows, launches, replaces, source):
+    """One flash kernel's JSON entry: times at the yi-9b training shape;
+    max_abs_err over every flash case. No PyTorch call computes the HBFP
+    attention, so library_ms is null; SDPA on the same bf16 q/k/v is a
+    yardstick of another function, never called by the port."""
+    main = next(r for r in rows
+                if r["kernel"] == name and r["case"] == "yi_train")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "held_against": name + "_plain",
+        "launches": launches, "launches_by_path": {"train_yi": launches},
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["kernel"] == name),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "sdpa_ms": main["sdpa"],
     }
 
 
@@ -795,8 +1043,12 @@ def main() -> int:
     build = phase_build()
     bwd = phase_bwd()
     log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
-    train_smoke = phase_train()
-    train = phase_train_full(card)
+    flash = phase_flash()
+    log(f"[time] flash kernels done at {time.perf_counter() - t0:.1f} s")
+    train_smoke = {a: phase_train(a) for a in ("gemma2-2b", "yi-9b")}
+    train = phase_train_full(card, "gemma2-2b", 2, 2048)
+    # yi-9b: 16 of 48 layers, so f32 master, AdamW moments and grads fit
+    train_yi = phase_train_full(card, "yi-9b", 1, 4096, n_layers=YI_LAYERS)
     log(f"[time] training done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
@@ -806,22 +1058,22 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "card": card, "build": build,
-                   "cases": cases, "bwd_cases": bwd,
-                   "train_smoke": train_smoke, "train_full": train}, f,
-                  indent=1)
+                   "cases": cases, "bwd_cases": bwd, "flash_cases": flash,
+                   "train_smoke": train_smoke, "train_full": train,
+                   "train_full_yi": train_yi}, f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
     src = "src/repro_torch/kernels/csrc/"
+    by_path = lambda k: {"train_gemma2": train["launches"][k],
+                         "train_yi": train_yi["launches"][k]}
+    b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
     b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
         "source": src + "hbfp_matmul_fwd.cu",
         "replaces": "src/repro/kernels/hbfp_matmul.py:140",
         "held_against": "hbfp_matmul_plain",
-        # both main paths: yi-9b serving and gemma2-2b training
-        "launches": serve_launches + train["launches"]["hbfp_matmul_fwd"],
-        "launches_by_path": {
-            "serve": serve_launches,
-            "train": train["launches"]["hbfp_matmul_fwd"]},
+        # every main path: yi-9b serving, gemma2-2b and yi-9b training
+        "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         # one generate tick's eight served shapes (seven projections of a
         # layer + head) at M = 8, bf16 activations
@@ -832,13 +1084,20 @@ def main() -> int:
         "library_ms": None,
         "matmul_bf16_ms": sum(c["matmul_bf16_ms"] for c in tick),
     }
-    b2 = _bwd_entry("hbfp_dgrad", bwd, train["launches"]["hbfp_dgrad"],
+    b2 = _bwd_entry("hbfp_dgrad", bwd, by_path("hbfp_dgrad"),
                     "src/repro/kernels/hbfp_matmul.py:262",
                     src + "hbfp_matmul_bwd.cu")
-    b3 = _bwd_entry("hbfp_wgrad", bwd, train["launches"]["hbfp_wgrad"],
+    b3 = _bwd_entry("hbfp_wgrad", bwd, by_path("hbfp_wgrad"),
                     "src/repro/kernels/hbfp_matmul.py:352",
                     src + "hbfp_matmul_bwd.cu")
-    print(json.dumps({"kernels": [b1, b2, b3]}))
+    fsrc = src + "hbfp_flash_attn.cu"
+    fref = "src/repro/kernels/hbfp_flash_attn.py:"
+    b456 = [_flash_entry(k, flash, train_yi["launches"][k], fref + line,
+                         fsrc)
+            for k, line in (("hbfp_flash_fwd", "128"),
+                            ("hbfp_flash_dq", "205"),
+                            ("hbfp_flash_dkv", "241"))]
+    print(json.dumps({"kernels": [b1, b2, b3, *b456]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

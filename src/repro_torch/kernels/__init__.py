@@ -2,6 +2,8 @@
 
 Ported: the three HBFP GEMMs of training (`hbfp_matmul.hbfp_matmul_fwd`,
 `hbfp_dgrad`, `hbfp_wgrad`; CUDA C++ in `csrc/hbfp_matmul_fwd.cu` and
-`csrc/hbfp_matmul_bwd.cu` over the shared `csrc/hbfp_common.cuh`). Flash
-attention and the packing quantizer are queued in ROADMAP section B.
+`csrc/hbfp_matmul_bwd.cu` over the shared `csrc/hbfp_common.cuh`) and the
+flash attention forward and backward (`hbfp_flash_attn.hbfp_flash_fwd`,
+`hbfp_flash_dq`, `hbfp_flash_dkv`; `csrc/hbfp_flash_attn.cu`). The
+packing quantizer is queued in ROADMAP section B.
 """

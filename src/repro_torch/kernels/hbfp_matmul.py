@@ -38,13 +38,17 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 HEADER = os.path.join(_CSRC, "hbfp_common.cuh")
 # library name -> source; each library's entry points and their ctypes
-# argument kinds ("p" pointer, "i" int)
+# argument kinds ("p" pointer, "i" int, "f" float)
 SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
-           "hbfp_matmul_bwd": os.path.join(_CSRC, "hbfp_matmul_bwd.cu")}
+           "hbfp_matmul_bwd": os.path.join(_CSRC, "hbfp_matmul_bwd.cu"),
+           "hbfp_flash_attn": os.path.join(_CSRC, "hbfp_flash_attn.cu")}
 _ENTRIES = {
     "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipippppp" + "i" * 10 + "p"},
     "hbfp_matmul_bwd": {"hbfp_dgrad": "pipippppp" + "i" * 10 + "p",
                         "hbfp_wgrad": "pipippppp" + "i" * 9 + "p"},
+    "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "i" * 8 + "fp",
+                        "hbfp_flash_dq": "ppppppip" + "i" * 8 + "fp",
+                        "hbfp_flash_dkv": "ppppppipp" + "i" * 8 + "fp"},
 }
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")
@@ -103,7 +107,7 @@ def load(name: str, path: Optional[str] = None):
         if not os.path.exists(path):
             path = build(name)["path"]
     lib = ctypes.CDLL(path)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     for entry, sig in _ENTRIES[name].items():
         fn = getattr(lib, entry)
         fn.argtypes = [kinds[c] for c in sig]

@@ -1,16 +1,20 @@
-"""Plain PyTorch versions of the HBFP GEMM kernels (port of
-`repro.kernels.ref.hbfp_matmul_ref`, `hbfp_dgrad_ref` and
-`hbfp_wgrad_ref`).
+"""Plain PyTorch versions of the HBFP kernels (port of
+`repro.kernels.ref`): the GEMMs `hbfp_matmul_ref`, `hbfp_dgrad_ref`,
+`hbfp_wgrad_ref`, and flash attention `hbfp_flash_attn_ref` (B4),
+`hbfp_flash_dq_ref` (B5), `hbfp_flash_dkv_ref` (B6) with their
+compositions `hbfp_flash_attn_bwd_ref` and `hbfp_flash_attn_vjp_ref`.
 
 They are the oracles the CUDA kernels are held to, and what the kernel
 wrappers compute for tensors that lie on the CPU. The reference loops over
-(contraction block, output block) tiles; these versions loop over the
+(contraction block, output block) tiles; the GEMM versions loop over the
 contraction blocks in ascending order and handle all output blocks of one
 contraction block at once, which computes every output element with the
-same dot product. Integral-mantissa dot products run in float64: with at
+same dot product; the flash versions are batched over B·H and loop over
+q- and k-blocks. Integral-mantissa dot products run in float64: with at
 most 2^(2m-2) per product and the few hundred products of a block the
 float64 sum is exact, and its single rounding to f32 is what the kernels'
-exact accumulation gives too.
+exact accumulation gives too (at m > 8 the reference's f32 dot rounds
+partial sums past 2^24 instead, ROADMAP C4).
 """
 from __future__ import annotations
 
@@ -191,3 +195,224 @@ def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
         acc = acc + xh[m0:m0 + bm_].T @ gh[m0:m0 + bm_]
     acc = acc.to(out_dtype)
     return (acc, xh, gh) if operands else acc
+
+
+# ----------------------------------------------------------------------------
+# Flash attention (port of `repro.kernels.ref.hbfp_flash_attn_ref` and
+# `hbfp_flash_attn_vjp_ref`), batched over BH, looping over q- and k-blocks.
+# ----------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _flash_blocks(S: int, bq: int, bk: int):
+    bq_, bk_ = min(bq, S), min(bk, S)
+    if S % bq_ or S % bk_:
+        raise ValueError(f"flash: S={S} not divisible by blocks ({bq_},{bk_})")
+    return bq_, bk_
+
+
+def _flash_scale(hd: int, device) -> torch.Tensor:
+    """1/√hd as an f32 tensor: q·α is taken in f32 after the cast, never
+    with a scale rounded to q's dtype."""
+    return torch.tensor(1.0 / (hd ** 0.5), dtype=torch.float32, device=device)
+
+
+def _rows(x: torch.Tensor, m_bits: int):
+    """Nearest BFP quantization with one exponent per row of the last axis:
+    (integral mantissas, step [..., 1])."""
+    return quantize_block(x, m_bits, x.abs().amax(dim=-1, keepdim=True),
+                          stochastic=False)
+
+
+def _idot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product of integral mantissas, summed exactly (float64) and
+    rounded once to f32, as the kernels' exact partial sums are."""
+    return torch.bmm(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
+def _row_sum(p: torch.Tensor) -> torch.Tensor:
+    """Row sum over the last axis in the flash kernel's order: each of 16
+    lanes adds its columns c = lane + 16 j in ascending j, then the lanes
+    are summed by a halving tree (8, 4, 2, 1). Returns [..., 1]."""
+    n = p.shape[-1]
+    nj = -(-n // 16)
+    if nj * 16 != n:
+        p = torch.nn.functional.pad(p, (0, nj * 16 - n))
+    t = p.reshape(*p.shape[:-1], nj, 16)
+    s = t[..., 0, :]
+    for j in range(1, nj):
+        s = s + t[..., j, :]
+    for off in (8, 4, 2, 1):
+        s = s[..., :off] + s[..., off:2 * off]
+    return s
+
+
+def _causal_mask(s: torch.Tensor, i: int, j: int, bq: int, bk: int):
+    qpos = i * bq + torch.arange(bq, device=s.device)[:, None]
+    kpos = j * bk + torch.arange(bk, device=s.device)[None, :]
+    return torch.where(kpos <= qpos, s,
+                       torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+
+
+def _n_kblocks(i: int, bq: int, bk: int, nk: int, causal: bool) -> int:
+    """k-blocks a q-block visits: all, or those that `kb*bk <= i*bq + bq-1`
+    leaves unmasked (the reference skips the others)."""
+    return min(nk, (i * bq + bq - 1) // bk + 1) if causal else nk
+
+
+def hbfp_flash_attn_ref(q, k, v, *, m_bits=8, m_qk=0, m_pv=0, bq=128,
+                        bk=128, causal=True, with_lse=False):
+    """B4's plain version. q, k, v: [BH, S, hd]. Per (q-block, k-block):
+    q·α and k per row over hd at m_qk, s = Q(q)·Q(k)ᵀ·δqδk, the f32 online
+    softmax, p per row over bk and v per column over bk at m_pv,
+    acc = acc·α + Q(p)·Q(v)·δpδv. Returns o in q's dtype, and lse [BH, S]
+    f32 when with_lse. m_qk/m_pv 0 mean m_bits."""
+    BH, S, hd = q.shape
+    m_qk, m_pv = m_qk or m_bits, m_pv or m_bits
+    bq_, bk_ = _flash_blocks(S, bq, bk)
+    dev = q.device
+    scale = _flash_scale(hd, dev)
+    out = torch.empty((BH, S, hd), dtype=q.dtype, device=dev)
+    lse_out = torch.empty((BH, S), dtype=torch.float32, device=dev)
+    for i in range(S // bq_):
+        rows = slice(i * bq_, (i + 1) * bq_)
+        qq, dq = _rows(q[:, rows].to(torch.float32) * scale, m_qk)
+        m = torch.full((BH, bq_, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((BH, bq_, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((BH, bq_, hd), dtype=torch.float32, device=dev)
+        for j in range(_n_kblocks(i, bq_, bk_, S // bk_, causal)):
+            cols = slice(j * bk_, (j + 1) * bk_)
+            kq, dk = _rows(k[:, cols].to(torch.float32), m_qk)
+            s = _idot(qq, kq.transpose(1, 2)) * (dq * dk.transpose(1, 2))
+            if causal:
+                s = _causal_mask(s, i, j, bq_, bk_)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + _row_sum(p)
+            pq, dp = _rows(p, m_pv)
+            vs = v[:, cols].to(torch.float32)
+            vq, dv = quantize_block(vs, m_pv,
+                                    vs.abs().amax(dim=1, keepdim=True),
+                                    stochastic=False)
+            acc = acc * alpha + _idot(pq, vq) * (dp * dv)
+            m = m_new
+        lc = torch.clamp(l, min=1e-30)
+        out[:, rows] = (acc / lc).to(q.dtype)
+        lse_out[:, rows] = (m + torch.log(lc))[..., 0]
+    return (out, lse_out) if with_lse else out
+
+
+def _flash_bwd_blocks(q, k, v, do, lse, delta, *, m_qk, m_pv, bq, bk,
+                      causal, want_dq, want_dkv, with_bound):
+    """The two-pass flash backward's arithmetic over every (q-block,
+    k-block) pair the causal mask leaves, q-blocks outer: dq accumulates
+    over k-blocks and dk/dv over q-blocks, each in ascending order, as
+    both reference kernels do. With `with_bound` each f32 contraction also
+    sums |a|·|b| of its products (same shapes as dq, dk, dv)."""
+    BH, S, hd = q.shape
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scale = _flash_scale(hd, dev)
+    dq = torch.zeros((BH, S, hd), **f32) if want_dq else None
+    dk = torch.zeros((BH, S, hd), **f32) if want_dkv else None
+    dv = torch.zeros((BH, S, hd), **f32) if want_dkv else None
+    bounds = {n: torch.zeros((BH, S, hd), **f32) for n, w in
+              (("dq", want_dq), ("dk", want_dkv), ("dv", want_dkv))
+              if w and with_bound}
+    for i in range(S // bq):
+        rows = slice(i * bq, (i + 1) * bq)
+        qq, dqs = _rows(q[:, rows].to(torch.float32) * scale, m_qk)
+        do_q, do_d = _rows(do[:, rows].to(torch.float32), m_pv)
+        lse_i = lse[:, rows, None]
+        delta_i = delta[:, rows, None]
+        for j in range(_n_kblocks(i, bq, bk, S // bk, causal)):
+            cols = slice(j * bk, (j + 1) * bk)
+            kq, dks = _rows(k[:, cols].to(torch.float32), m_qk)
+            s = _idot(qq, kq.transpose(1, 2)) * (dqs * dks.transpose(1, 2))
+            if causal:
+                s = _causal_mask(s, i, j, bq, bk)
+            p = torch.exp(s - lse_i)
+            vq, dvs = _rows(v[:, cols].to(torch.float32), m_pv)
+            dp = _idot(do_q, vq.transpose(1, 2)) * (do_d * dvs.transpose(1, 2))
+            ds = p * (dp - delta_i)
+            ds_q, ds_d = _rows(ds, m_qk)
+            dsh = ds_q * ds_d
+            if want_dq:
+                kh = kq * dks
+                dq[:, rows] = dq[:, rows] + torch.bmm(dsh, kh) * scale
+                if with_bound:
+                    bounds["dq"][:, rows] += torch.bmm(dsh.abs(),
+                                                       kh.abs()) * scale
+            if want_dkv:
+                p_q, p_d = _rows(p, m_pv)
+                ph, doh, qh = p_q * p_d, do_q * do_d, qq * dqs
+                dv[:, cols] = dv[:, cols] + torch.bmm(ph.transpose(1, 2), doh)
+                dk[:, cols] = dk[:, cols] + torch.bmm(dsh.transpose(1, 2), qh)
+                if with_bound:
+                    bounds["dv"][:, cols] += torch.bmm(
+                        ph.abs().transpose(1, 2), doh.abs())
+                    bounds["dk"][:, cols] += torch.bmm(
+                        dsh.abs().transpose(1, 2), qh.abs())
+    return dq, dk, dv, bounds
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(do ∘ o) in f32 [BH, S], from the saved o (the FP side,
+    outside the kernels as in the reference)."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+
+
+def hbfp_flash_dq_ref(q, k, v, do, lse, delta, *, m_bits=8, m_qk=0, m_pv=0,
+                      bq=128, bk=128, causal=True, with_bound=False):
+    """B5's plain version: dq [BH, S, hd] in q's dtype (with_bound: also
+    the f32 Σ|a||b| of its contraction)."""
+    S = q.shape[1]
+    bq_, bk_ = _flash_blocks(S, bq, bk)
+    dq, _, _, b = _flash_bwd_blocks(
+        q, k, v, do, lse, delta, m_qk=m_qk or m_bits, m_pv=m_pv or m_bits,
+        bq=bq_, bk=bk_, causal=causal, want_dq=True, want_dkv=False,
+        with_bound=with_bound)
+    dq = dq.to(q.dtype)
+    return (dq, b["dq"]) if with_bound else dq
+
+
+def hbfp_flash_dkv_ref(q, k, v, do, lse, delta, *, m_bits=8, m_qk=0,
+                       m_pv=0, bq=128, bk=128, causal=True,
+                       with_bound=False):
+    """B6's plain version: (dk, dv) in q's dtype (with_bound: also their
+    f32 Σ|a||b| bounds)."""
+    S = q.shape[1]
+    bq_, bk_ = _flash_blocks(S, bq, bk)
+    _, dk, dv, b = _flash_bwd_blocks(
+        q, k, v, do, lse, delta, m_qk=m_qk or m_bits, m_pv=m_pv or m_bits,
+        bq=bq_, bk=bk_, causal=causal, want_dq=False, want_dkv=True,
+        with_bound=with_bound)
+    dk, dv = dk.to(q.dtype), dv.to(q.dtype)
+    return (dk, dv, b["dk"], b["dv"]) if with_bound else (dk, dv)
+
+
+def hbfp_flash_attn_bwd_ref(q, k, v, o, lse, do, *, m_bits=8, m_qk=0,
+                            m_pv=0, bq=128, bk=128, causal=True):
+    """(dq, dk, dv) from the forward's saved o and lse, as the kernel entry
+    takes them: D from o, then B5's and B6's arithmetic."""
+    S = q.shape[1]
+    bq_, bk_ = _flash_blocks(S, bq, bk)
+    dq, dk, dv, _ = _flash_bwd_blocks(
+        q, k, v, do, lse, flash_delta(o, do), m_qk=m_qk or m_bits,
+        m_pv=m_pv or m_bits, bq=bq_, bk=bk_, causal=causal, want_dq=True,
+        want_dkv=True, with_bound=False)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def hbfp_flash_attn_vjp_ref(q, k, v, do, *, m_bits=8, m_qk=0, m_pv=0,
+                            bq=128, bk=128, causal=True):
+    """The reference's oracle composition: the forward with lse, then the
+    backward from its o and lse. Returns (dq, dk, dv)."""
+    kw = dict(m_bits=m_bits, m_qk=m_qk, m_pv=m_pv, bq=bq, bk=bk,
+              causal=causal)
+    o, lse = hbfp_flash_attn_ref(q, k, v, with_lse=True, **kw)
+    return hbfp_flash_attn_bwd_ref(q, k, v, o, lse, do, **kw)

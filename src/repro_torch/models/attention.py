@@ -3,12 +3,12 @@ KV cache (port of the serving path of `repro.models.attention`).
 
 QK^T and PV are activation x activation products and run on the sim path
 (`core/hbfp_ops.py`) in BFP when cfg.quantize_attention, forward and
-backward. The cache-less path keeps the reference's flash gate: where the
-reference would take its fused flash kernel (`flash_mha`: full-causal
-pattern without softcap, standard positions, backend "pallas", nearest
-rounding) the port raises until that kernel is ported (ROADMAP B4), never
-falling back to `mha`. The serving stages pass `flash_ok=False`, as the
-reference's jitted stages see traced positions.
+backward (`mha`). The cache-less path keeps the reference's static flash
+gate: with a full-causal pattern without softcap, standard positions,
+backend "pallas", nearest rounding and a flash block dividing S, attention
+runs on the fused flash kernels instead (`flash_mha`: B4 forward, B5/B6
+backward, `kernels/hbfp_flash_attn.py`). The serving stages pass
+`flash_ok=False`, as the reference's jitted stages see traced positions.
 
 Unlike the reference's functional caches, cache appends here write into
 the cache tensors in place (the stacked [L, ...] tensors, through per-layer
@@ -22,7 +22,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.common import max_exponent, pow2
+from repro_torch.kernels.hbfp_flash_attn import FlashAttention, FlashSpec
 from repro_torch.models.layers import apply_rope, ctx_matmul, softcap
+from repro_torch.precision import role_width_for
 
 NEG_INF = -1e30
 
@@ -128,6 +130,33 @@ def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
     return torch.cat(outs, dim=3).reshape(B, H, Sq, hd)
 
 
+def flash_mha(q, k, v, ctx):
+    """Full-causal training attention on the flash kernels (forward B4,
+    backward B5/B6 through `FlashAttention`). q: [B,H,S,hd]; k, v:
+    [B,Hkv,S,hd]. GQA repeats each kv head for its G query heads
+    (`repeat_interleave`, as `jnp.repeat(axis=1)`; autograd sums the group
+    gradients). Masks by position index, so it needs the standard layout,
+    which attention_layer's gate checks. The attn_qk/attn_pv role widths
+    become FlashSpec.m_qk/m_pv (0 when equal to the base width)."""
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=1)
+        v = v.repeat_interleave(H // Hkv, dim=1)
+    blk = _flash_block(S)
+    m = ctx.cfg.mantissa_bits
+    widths = {}
+    for role in ("attn_qk", "attn_pv"):
+        rw = role_width_for(ctx.roles, role)
+        w = rw.apply(ctx.cfg).mantissa_bits if rw is not None else m
+        widths[role] = 0 if w == m else w
+    spec = FlashSpec(m_bits=m, bq=blk, bk=blk, causal=True,
+                     m_qk=widths["attn_qk"], m_pv=widths["attn_pv"])
+    flat = lambda t: t.reshape(B * H, S, hd).contiguous()
+    out = FlashAttention.apply(spec, flat(q), flat(k), flat(v))
+    return out.reshape(B, H, S, hd)
+
+
 def _slab_append(cache: KVCache, k, v, tok_pos, bfp_cache: bool, dtype):
     """Write S tokens into their ring slots pos % C of the [B,Hkv,C,hd]
     slab (in place) and return (cache, k_dense, v_dense, kpos)."""
@@ -228,15 +257,15 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
 
     if cache is None:
         # the reference's static flash gate (repro/models/attention.py)
-        if (flash_ok and ctx.backend == "pallas" and ctx.cfg is not None
-                and ctx.cfg.quantize_attention
-                and ctx.cfg.rounding == "nearest"
-                and _flash_block(S) is not None):
-            raise NotImplementedError(
-                "the reference takes its fused flash attention kernel "
-                "(flash_mha) here; its port comes with ROADMAP B4")
-        out = mha(q, k, v, tok_pos, tok_pos, ctx, cap=attn_cap,
-                  window=window, q_chunk=q_chunk)
+        use_flash = (flash_ok and ctx.backend == "pallas"
+                     and ctx.cfg is not None and ctx.cfg.quantize_attention
+                     and ctx.cfg.rounding == "nearest"
+                     and _flash_block(S) is not None)
+        if use_flash:
+            out = flash_mha(q, k, v, ctx)
+        else:
+            out = mha(q, k, v, tok_pos, tok_pos, ctx, cap=attn_cap,
+                      window=window, q_chunk=q_chunk)
         new_cache = None
         if return_cache:
             if bfp_cache:

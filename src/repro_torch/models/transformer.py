@@ -19,6 +19,11 @@ the chunked cross-entropy, is recomputed in the backward
 (`torch.utils.checkpoint`), as the reference's `jax.checkpoint`s do.
 Caches are stacked per-layer NamedTuples (leading L) that decode updates
 in place. MoE, SSM and xLSTM layers come with ROADMAP A12.
+
+Kernel launches of one training step under "…; backend=pallas" with
+remat and C cross-entropy chunks: B1 2·(7L + C) (forward and recompute),
+B2 and B3 7L + C each; where attention takes flash (yi-9b), B4 2L (its
+Function's forward runs again in each layer's recompute), B5 and B6 L.
 """
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
-    for m in ("repro_torch.kernels.hbfp_matmul", "repro_torch.serve.engine",
+    for m in ("repro_torch.kernels.hbfp_matmul",
+              "repro_torch.kernels.hbfp_flash_attn", "repro_torch.serve.engine",
               "repro_torch.train.train_step", "repro_torch.train.trainer",
               "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
         assert m in mods
@@ -156,5 +157,6 @@ def test_chip_smoke_kernel_phase_on_card():
     import chip_smoke
     chip_smoke.phase_device()
     chip_smoke.phase_build()
-    cases = chip_smoke.phase_kernels() + chip_smoke.phase_bwd()
+    cases = (chip_smoke.phase_kernels() + chip_smoke.phase_bwd()
+             + chip_smoke.phase_flash())
     assert cases and all(c["ok"] for c in cases)

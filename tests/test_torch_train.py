@@ -39,6 +39,7 @@ from repro.train import init_train_state as jinit_train_state
 from repro.train import make_step as jmake_step
 from repro_torch.configs import get_arch
 from repro_torch.data import batch_for_arch
+from repro_torch.kernels import hbfp_flash_attn as fa
 from repro_torch.kernels import hbfp_matmul as hm
 from repro_torch.optim import make_schedule
 from repro_torch.train import (Trainer, from_jax_train_state,
@@ -216,6 +217,46 @@ def test_kernel_calls_per_step(setup):
     assert hm.hbfp_wgrad.plain_calls == per
     assert hm.hbfp_matmul_fwd.launches == hm.hbfp_dgrad.launches == 0
     hm.reset_counts()
+
+
+def test_yi_step_matches_reference():
+    """One make_step step of yi-9b smoke under "8; backend=pallas", port
+    against reference from the reference's state and batch: its attention
+    takes flash in both packages (the reference's Pallas kernels in
+    interpret mode, the port's B4-B6 plain versions: B4 2·L times a step
+    with the per-layer recompute, B5 and B6 L times). Bounds as for gemma2
+    (TOL["hbfp"], the module docstring's reasons)."""
+    spec = "8; backend=pallas"
+    ja, ta = (dataclasses.replace(g("yi-9b").smoke(), dtype="float32",
+                                  loss_chunk=32)
+              for g in (jget_arch, get_arch))
+    s0 = jinit_train_state(jax.random.key(0), ja, jinit_params)
+    batch = _np(jbatch(ja, 2, 32, step=0, kind="markov"))
+    jsched, sched = _schedules()
+    loss0, grads = _reference_grads(ja, spec, s0, batch)
+    s1, m1 = jmake_step(ja, spec, jsched)(s0, batch, jax.random.key(1))
+    state = from_jax_train_state(_np(s0), device="cpu")
+    step = make_step(ta, spec, sched, device="cpu")
+    tb = _torch_batch(batch)
+    tloss0, _, tgrads = step.grads(state, tb)
+    fa.reset_counts()
+    state, tm = step(state, tb)
+    L = ta.n_layers
+    assert (fa.hbfp_flash_fwd.plain_calls, fa.hbfp_flash_dq.plain_calls,
+            fa.hbfp_flash_dkv.plain_calls) == (2 * L, L, L)
+    tol = TOL["hbfp"]
+    assert abs(float(tloss0) - loss0) <= tol["loss"] * loss0
+    assert abs(float(tm["loss"]) - float(m1["loss"])) <= \
+        tol["loss"] * float(m1["loss"])
+    share = _compare("grads", grads, tgrads, tol["grads"])
+    _compare("updates", _np(s1).params, state.params, tol["updates"],
+             base=_np(s0).params)
+    worst = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(
+        _flat(_np(s1).params), _flat(state.params)))
+    assert worst <= 8 * LR, worst
+    print(f"yi-9b smoke: loss ref {float(m1['loss'])} port "
+          f"{float(tm['loss'])}; grads bit-equal share {share:.4f}; max "
+          f"|Δparam| {worst:.3g}")
 
 
 @pytest.mark.parametrize("spec", ["8", "fp32"])
