@@ -6,34 +6,48 @@
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
                 TF32 off for matmuls and convolutions;
-  2. build    — compile every kernel source (three libraries) with nvcc,
+  2. build    — compile every kernel source (four libraries) with nvcc,
                 one process per source, started together, and print each
                 kernel's registers, spill bytes and stack;
   3. bwd      — B1, B2 (dgrad) and B3 (wgrad) against their plain
                 versions at gemma2-2b's training shapes (M = 4096 tokens),
-                timed with CUDA events, and a few small cases (m 8/12,
-                stochastic, block 32, narrowed weights);
+                timed with CUDA events, a few small cases (m 8/12,
+                stochastic, block 32, narrowed weights) and the adaptive
+                path's weights narrowed at 8 bits in 24 x 24 tiles;
   4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
                 dv) against their plain versions at yi-9b's training
                 attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
                 timed, beside SDPA as a yardstick, and small cases (m 12,
                 m_qk != m_pv, non-causal, S 96 in f32);
-  5. train    — one gemma2 and one yi-9b smoke training step on the card
-                agree with the same step on the CPU (yi-9b through flash);
-  6. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
+  5. quantize — B7 against its plain version, bit for bit in all five
+                outputs, at yi-9b's tapped and packed shapes (m 8/16 at
+                tile 128, m 4 at tile 24), the whole-matrix tile, a bf16
+                activation row tap, stochastic rounding and small cases;
+                timed beside a clone() of x;
+  6. train    — one gemma2 and one yi-9b smoke training step on the card
+                agree with the same step on the CPU (yi-9b through flash),
+                and the closed adaptive-precision loop on yi-9b smoke
+                makes the CPU's decisions;
+  7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
                 fp32, exact launch counts of B1-B6, step time, tokens/s,
                 peak memory, and a profile of one step;
-  7. kernels  — B1 against its plain PyTorch version on the card at the
+  8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
+                controller: 8 steps uninterrupted, and 8 steps preempted
+                at 6 and resumed from the step-4 checkpoint, which must
+                agree bit for bit; exact B7 launches per telemetry step;
+                a packed save of the master that loads back bit for bit
+                (needs ~25 GB of free disk under build/);
+  9. kernels  — B1 against its plain PyTorch version on the card at the
                 yi-9b serving shapes;
-  8. model    — the yi-9b smoke model served on the card (kernel path)
+ 10. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
-  9. serve    — yi-9b at full width (random seeded bf16 weights) served by
+ 11. serve    — yi-9b at full width (random seeded bf16 weights) served by
                 the port's ServeEngine: 12 overloading requests, paged and
                 slab, plus one async chunked-prefill request; every
                 projection must have gone through the kernels;
- 10. report   — the `kernels` JSON line (B1-B6), the card line, and the
+ 12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
 Per-case kernel numbers and the training results also go to
@@ -69,8 +83,10 @@ CONFIGS = (("served", False, 8, 0, False),
            ("qw_m8_b32", True, 8, 32, False),
            ("qw_m8_stoch", True, 8, 0, True))
 # block > 0 sums dequantized operands whose exponents vary inside a
-# K-block, in another order than the plain version: hold them to this
-# fraction of the output's largest magnitude
+# K-block, in another order than the plain version, and so do weights
+# narrowed in tiles finer than the K-block and taken as stored (the
+# adaptive path): unless bit-equal, hold them to this fraction of the
+# output's largest magnitude
 BLOCK_TOL = 1e-5
 
 TRAIN_M = 4096              # gemma2-2b training batch: 2 x 2048 tokens
@@ -116,6 +132,55 @@ FLASH_SMALL = (("m12", 4, 512, 128, "bfloat16", 12, 0, 0, True),
 # before the cast to the output type, plus, for bf16 outputs, one rounding
 # of each side (|r(x) - x| <= u·|x| <= u/(1-u)·|r(x)|, u = 2^-8).
 BF16_ROUND = 2.0 ** -8 / (1 - 2.0 ** -8)
+
+# yi-9b's tapped and packed weight shapes (R, C) at full width
+QUANT_SHAPES = {"wq": (4096, 4096), "wk": (4096, 512),
+                "ffn_wg": (4096, 11008), "ffn_wo": (11008, 4096),
+                "head": (4096, 64000)}
+# B7 cases: (name, R, C, dtype, m, tile_r, tile_c, stochastic, seed,
+# block_r, block_c, timed); the "t24" rows are the adaptive path's weight
+# taps (HBFPConfig(4, 16, tile=24)), the main-path cost of B7
+QUANT_CASES = tuple(
+    [(f"{w}_m{m}", R, C, "float32", m, 128, 128, False, 0, 256, 512, True)
+     for w, (R, C) in QUANT_SHAPES.items() for m in (8, 16)]
+    + [(f"{w}_t24_m4", R, C, "float32", 4, 24, 24, False, 0, 256, 512, True)
+       for w, (R, C) in QUANT_SHAPES.items()]
+    + [("ffn_wg_whole_m16", 4096, 11008, "float32", 16, None, None, False, 0,
+        256, 512, True),
+       ("act_row_m4", 4096, 4096, "bfloat16", 4, 1, 4096, False, 0, 256,
+        512, True)]
+    + [c for s in (7, 1234567) for c in (
+        (f"stoch_1000_t64_s{s}", 1000, 1000, "float32", 8, 64, 64, True, s,
+         256, 512, False),
+        (f"stoch_ffn_wg_s{s}", 4096, 11008, "float32", 8, 128, 128, True, s,
+         256, 512, s == 7))]
+    + [(f"small_{R}x{C}_t{t}_m{m}", R, C, "float32", m, t, t, False, 0, 256,
+        512, False) for R, C in ((100, 130), (128, 256)) for t in (32, 64)
+       for m in (4, 8, 12)]
+    + [("small_blocks_64x96", 100, 130, "float32", 8, 32, 32, False, 0, 64,
+        96, False),
+       ("small_blocks_32x128", 128, 256, "float32", 4, 32, 64, False, 0, 32,
+        128, False)])
+
+# the closed adaptive-precision loop (tests/test_numerics.py loop_setup):
+# HBFPConfig(4, 16, tile=24), ControllerConfig(patience=1, cooldown=1),
+# TapConfig(cadence=2), on the kernels ("pallas") under "4; wgrad+4"
+ADAPT_SPEC = "4; wgrad+4; backend=pallas"
+ADAPT_STEPS = 6
+# yi-9b at full width for the adaptive path: 2 of its 48 layers (0.87 B
+# parameters, so one Trainer checkpoint of f32 params and AdamW moments
+# is ~10.4 GB on disk) and 8 steps, preempted at 6, resumed at 4
+ADAPT_LAYERS = 2
+ADAPT_FULL_STEPS = 8
+ADAPT_DISK_GB = 25.0
+# card vs CPU, adaptive smoke (f32): the step-0 weight taps see identical
+# weights, so their stats agree but for the float64 sum order of sqnr_db;
+# later taps see weights and grads that the two devices' f32 ops have
+# moved apart by a few ulps, which flips a BFP rounding now and then
+# (ROADMAP C6): sqnr_db within 1.5 dB, the fractions within 0.05, the
+# exponent spread within 2
+ADAPT_TOL = dict(sqnr0=1e-3, frac0=1e-6, sqnr=1.5, frac=0.05, spread=2.0,
+                 loss=2e-3)
 
 
 def log(*a):
@@ -328,9 +393,13 @@ def _wgrad_ok(dw, dwp, xh, gh, M):
     return bool((d <= bound).all()), float(d.max()), ratio
 
 
-def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed):
+def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
+              w_narrow=None):
     """B1, B2 and B3 at one shape and configuration against their plain
-    versions; returns one row per kernel."""
+    versions; returns one row per kernel. `w_narrow` = (bits, tile)
+    narrows the weights at their own format, as the adaptive path does
+    for a layer the controller widened (B1 and B2 then take them as
+    stored)."""
     import torch
     from repro_torch.core import HBFPConfig, bfp
     from repro_torch.kernels import autotune
@@ -338,7 +407,8 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed):
     dev = torch.device("cuda")
     w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
     if not qw:
-        w = bfp.quantize_weight(w, HBFPConfig(mantissa_bits=m))
+        bits, tile = w_narrow or (m, 128)
+        w = bfp.quantize_weight(w, HBFPConfig(mantissa_bits=bits, tile=tile))
     w = w.to(torch.bfloat16)
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
     # the backward's g: the bf16 grad of y, cast to f32 by the Function
@@ -387,8 +457,10 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed):
             torch.cuda.synchronize()
             err = float((yk - yp).abs().max())
             ratio = None
-            if block == 0:
+            if block == 0 and w_narrow is None:
                 ok, exact = torch.equal(yk, yp), "EQ"
+            elif torch.equal(yk, yp):
+                ok, exact = True, "EQ"
             else:
                 ok = err <= BLOCK_TOL * float(yp.abs().max())
                 exact = "TOL"
@@ -430,6 +502,11 @@ def phase_bwd():
     for cname, qw, m, block, st in BWD_SMALL:
         rows += _bwd_case("wq", 256, 2304, 2048, qw, m, block, st, gen,
                           cname)
+    # the adaptive path after a widen: x at m 4 against yi-9b ffn_wg
+    # weights narrowed at 8 bits in 24 x 24 tiles, taken as stored
+    rows += _bwd_case("ffn_wg", 4096, 4096, 11008, False, 4, 0, False, gen,
+                      "adaptive_w8_t24", w_narrow=(8, 24))
+    torch.cuda.empty_cache()
     for k in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"):
         tr = [r for r in rows if r["kernel"] == k and r["config"] == "train"]
         log(f"[bwd] {k}: one layer + head at M={TRAIN_M}: kernel_ms "
@@ -608,6 +685,67 @@ def phase_flash():
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"flash kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+def _quant_bound(R, C, m, tile_r, tile_c, block_r, block_c, x_bytes):
+    """B7's least time: x read once; mantissas, exponents, clip counts and
+    the per-block exponent min and max written once, at the memory rate."""
+    from repro_torch.kernels.ref import bfp_tiles
+    tr, tc, Rp, Cp, br, bc = bfp_tiles(R, C, tile_r, tile_c, block_r,
+                                       block_c)
+    tiles = (Rp // tr) * (Cp // tc)
+    blocks = (Rp // br) * (Cp // bc)
+    nbytes = x_bytes * R * C + (1 if m <= 8 else 2) * R * C + 5 * tiles \
+        + 8 * blocks
+    return _bound(0.0, nbytes, "f32")
+
+
+def phase_quantize():
+    """B7 against its plain version on the card, bit for bit in all five
+    outputs (mantissas, exponents, clip counts, exponent min and max), at
+    yi-9b's tapped and packed shapes, the whole-matrix tile, tile 24 with
+    padding, an activation row tap in bf16, stochastic rounding and the
+    small cases; timed with the plain version and a clone() of x (one read
+    and one write of x) as the yardstick."""
+    import torch
+    from repro_torch.kernels import bfp_quantize as bq
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    rows = []
+    for (name, R, C, dtype, m, tr, tc, st, seed, br, bc,
+         timed) in QUANT_CASES:
+        x = (torch.randn((R, C), generator=gen, device="cuda")
+             * 2.5).to(getattr(torch, dtype))
+        kw = dict(mantissa_bits=m, tile_r=tr, tile_c=tc, stochastic=st,
+                  block_r=br, block_c=bc, with_stats=True)
+        run = lambda: bq.bfp_quantize(x, seed, **kw)
+        plain = lambda: bq.bfp_quantize_plain(x, seed, **kw)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        ok = all(a.dtype == b.dtype and torch.equal(a, b)
+                 for a, b in zip(got, want)) and len(got) == 5
+        err = float((got[0].int() - want[0].int()).abs().max())
+        bound, by = _quant_bound(R, C, m, tr, tc, br, bc, x.element_size())
+        row = dict(kernel="bfp_quantize", case=name, R=R, C=C, dtype=dtype,
+                   m=m, tile=[tr, tc], stochastic=st, seed=seed,
+                   block=[br, bc], ok=bool(ok), check="EQ (5 outputs)",
+                   max_abs_err=err, bound_ms=bound, bound_by=by)
+        del got, want
+        if timed:
+            n = _reps(run)
+            row.update(kernel_ms=_time_ms(run, n),
+                       plain_ms=_time_ms(plain, 2),
+                       clone_ms=_time_ms(lambda: x.clone(), n), reps=n)
+        rows.append(row)
+        log(f"[quantize] {name} {R}x{C} {dtype[:4]} m={m} tile={tr}x{tc} "
+            f"stoch={st} EQ={ok}" + (
+                f" kernel_ms={row['kernel_ms']:.4f} bound_ms={bound:.4f}"
+                f"({by[0]}) plain_ms={row['plain_ms']:.2f} "
+                f"clone_ms={row['clone_ms']:.4f}" if timed else ""))
+        del x
+        if not ok:
+            fail(f"bfp_quantize != plain: {row}")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -976,6 +1114,339 @@ def phase_serve(card: str):
     return kernel_launches
 
 
+def _adapt_policy():
+    from repro_torch.core import HBFPConfig
+    from repro_torch.precision import parse_policy
+    return parse_policy(ADAPT_SPEC, base=HBFPConfig(4, 16, tile=24))
+
+
+def _b7_taps(L: int) -> int:
+    """B7 launches of one telemetry step of a dense L-layer model at tile
+    24: the weight tap narrows each layer slice of the seven projections
+    (24 divides none of yi-9b's K, so one launch per slice) and the head,
+    the grad tap does the same on the grads, the activation tap two rows
+    views (stack entry and exit)."""
+    return 2 * (7 * L + 1) + 2
+
+
+def _snap_diff(a: dict, b: dict, first: bool) -> list:
+    """Stats of one snapshot pair outside ADAPT_TOL."""
+    bad = []
+    for src in ("weights", "grads", "acts"):
+        for name, sa in a.get(src, {}).items():
+            sb = b[src][name]
+            tight = first and src == "weights"
+            lim_s = ADAPT_TOL["sqnr0" if tight else "sqnr"]
+            lim_f = ADAPT_TOL["frac0" if tight else "frac"]
+            lim_e = 0.0 if tight else ADAPT_TOL["spread"]
+            if abs(sa["sqnr_db"] - sb["sqnr_db"]) > lim_s \
+                    or abs(sa["exp_spread"] - sb["exp_spread"]) > lim_e \
+                    or any(abs(sa[k] - sb[k]) > lim_f for k in
+                           ("clip_frac", "sat_tile_frac", "ftz_frac")):
+                bad.append((src, name, sa, sb))
+    return bad
+
+
+def phase_adaptive_smoke():
+    """The closed loop on yi-9b smoke (f32) on the card (B1-B7) and on the
+    CPU (their plain versions) from the same state and batches: the same
+    decisions at the same steps, at least one widen, stats and losses
+    within ADAPT_TOL, exact B7 launches per telemetry step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.numerics import (ControllerConfig, PrecisionController,
+                                      TapConfig)
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train import TrainState, init_train_state, make_step
+    arch = dataclasses.replace(get_arch("yi-9b").smoke(), dtype="float32")
+    pipe = SyntheticLM(arch.vocab_size, 17, 4, seed=3, device="cpu")
+    cpu = init_train_state(0, arch, device="cpu")
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.cuda()
+    card = TrainState(to(cpu.params), OptState(0, to(cpu.opt.mu),
+                                               to(cpu.opt.nu)), 0)
+    runs = {}
+    for dev, state in (("cpu", cpu), ("cuda", card)):
+        lrs = make_schedule("constant", base_lr=2e-3, warmup_steps=2,
+                            total_steps=30)
+        ctrl = PrecisionController(ControllerConfig(patience=1, cooldown=1),
+                                   base_bits=4)
+        step = make_step(arch, _adapt_policy(), lrs, controller=ctrl,
+                         tap=TapConfig(cadence=2), device=dev)
+        losses, b7, snaps = [], [], []
+        for i in range(ADAPT_STEPS):
+            bq.reset_counts()
+            batch = {k: v.to(dev) for k, v in pipe.batch(i).items()}
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            b7.append((bq.bfp_quantize.launches, bq.bfp_quantize.plain_calls))
+            if i % 2 == 0:
+                snaps.append(step.buffer.latest()[1])
+        runs[dev] = dict(losses=losses, b7=b7, snaps=snaps, log=ctrl.log,
+                         variants=len(step.variants),
+                         n_overrides=float(m["n_overrides"]))
+    c, g = runs["cpu"], runs["cuda"]
+    dec = lambda r: [(d["step"], d["layer"], d["action"], d["from"], d["to"])
+                     for d in r["log"]]
+    bad = [d for i, (a, b) in enumerate(zip(c["snaps"], g["snaps"]))
+           for d in _snap_diff(a, b, i == 0)]
+    want = [(_b7_taps(arch.n_layers), 0) if i % 2 == 0 else (0, 0)
+            for i in range(ADAPT_STEPS)]
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(c["losses"],
+                                                       g["losses"]))
+    log(f"[adaptive] yi-9b smoke f32 {ADAPT_SPEC!r} tile 24, 6 steps: "
+        f"losses card {[round(v, 5) for v in g['losses']]} cpu "
+        f"{[round(v, 5) for v in c['losses']]} (max rel {loss_err:.3g}); "
+        f"decisions equal {dec(c) == dec(g)}: {dec(g)}; variants card "
+        f"{g['variants']} cpu {c['variants']}; B7 (launches, plain calls) "
+        f"per step card {g['b7']} (expected {want}); stats outside "
+        f"tolerance {len(bad)}")
+    if dec(c) != dec(g) or not any(d[2] == "widen" for d in dec(g)):
+        fail(f"adaptive smoke: decisions differ or no widen: cpu {dec(c)} "
+             f"card {dec(g)}")
+    if g["b7"] != want or g["variants"] != c["variants"]:
+        fail(f"adaptive smoke: B7 launches {g['b7']} != {want} or variants "
+             f"{g['variants']} != {c['variants']}")
+    if bad or loss_err > ADAPT_TOL["loss"]:
+        fail(f"adaptive smoke: stats or losses disagree: {bad[:4]} "
+             f"loss rel {loss_err}")
+    return dict(decisions=dec(g), losses_card=g["losses"],
+                losses_cpu=c["losses"], b7_per_step=g["b7"],
+                variants=g["variants"], loss_rel_err=loss_err)
+
+
+def _counts():
+    """Launch and plain-call counts of every kernel wrapper."""
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.kernels import hbfp_flash_attn as fa
+    from repro_torch.kernels import hbfp_matmul as hm
+    out = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
+    out.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
+    out["bfp_quantize"] = bq.bfp_quantize.launches
+    plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) \
+        + sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS) \
+        + bq.bfp_quantize.plain_calls
+    return out, plain
+
+
+def _reset_counts():
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.kernels import hbfp_flash_attn as fa
+    from repro_torch.kernels import hbfp_matmul as hm
+    hm.reset_counts()
+    fa.reset_counts()
+    bq.reset_counts()
+
+
+def _adapt_trainer(arch, pipe, state, rows, ckpt_dir=None, rec=None,
+                   **kw):
+    """A Trainer over a fresh controller and make_step for the adaptive
+    path, its steps recorded into `rows`: (step, loss, synchronized
+    seconds, launch counts, plain calls), the counts zeroed just before
+    each step. Returns (trainer, controller, step)."""
+    import torch
+    from repro_torch.numerics import (ControllerConfig, PrecisionController,
+                                      TapConfig)
+    from repro_torch.optim import make_schedule
+    from repro_torch.train import Trainer, make_step
+    pol = _adapt_policy()
+    ctrl = PrecisionController(ControllerConfig(patience=1, cooldown=1),
+                               base_bits=4)
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    step = make_step(arch, pol, sched, controller=ctrl,
+                     tap=TapConfig(cadence=2))
+
+    def counted(st, batch):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        counts, plain = _counts()
+        rows.append(dict(step=st.step - 1, loss=loss,
+                         seconds=time.perf_counter() - t0, launches=counts,
+                         plain=plain))
+        return st, m
+
+    return Trainer(train_step=counted, init_state=state, data_fn=pipe.batch,
+                   ckpt_dir=ckpt_dir, hbfp=pol, controller=ctrl,
+                   recorder=rec, **kw), ctrl, step
+
+
+def phase_adaptive_full(card: str):
+    """yi-9b at full width, ADAPT_LAYERS layers, trained under the closed
+    loop through the Trainer: (a) ADAPT_FULL_STEPS steps uninterrupted;
+    (b) checkpointed every 4 steps, preempted at 6 and resumed at 4 by a
+    fresh Trainer and controller. (b) must equal (a) bit for bit (losses,
+    master params, controller meta), B7 launches must be exact per
+    telemetry step, and a packed save of the master must load back bit for
+    bit."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.obs import Recorder
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import init_train_state
+    full = get_arch("yi-9b")
+    arch = dataclasses.replace(full, n_layers=ADAPT_LAYERS)
+    L = arch.n_layers
+    tag = "[adaptive-full]"
+    base = os.path.join(ROOT, "build", "adaptive_ckpt")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    free = shutil.disk_usage(base).free / 1e9
+    log(f"{tag} free disk at {base}: {free:.1f} GB (needs {ADAPT_DISK_GB})")
+    if free < ADAPT_DISK_GB:
+        fail(f"adaptive-full needs {ADAPT_DISK_GB} GB of free disk, "
+             f"{free:.1f} GB free")
+    pipe = SyntheticLM(arch.vocab_size, 4096 + 1, 1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    # (a) uninterrupted
+    state = init_train_state(0, arch)
+    n_params = sum(t.numel() for _, t in named_leaves(state.params))
+    log(f"{tag} yi-9b full width, {L} of {full.n_layers} layers (depth "
+        f"cut), {n_params / 1e9:.3f} B params, 1 x 4096 tokens, "
+        f"{ADAPT_SPEC!r} on HBFPConfig(4, 16, tile=24), cadence 2")
+    rows_a, rows_b1, rows_c = [], [], []
+    tr_a, ctrl_a, step_a = _adapt_trainer(arch, pipe, state, rows_a)
+    tr_a.run(ADAPT_FULL_STEPS, log_every=0)
+    params_a = {n: t.clone() for n, t in named_leaves(tr_a.state.params)}
+    meta_a = json.loads(json.dumps(ctrl_a.to_meta()))
+    variants_a = len(step_a.variants)
+    del tr_a, state, step_a
+    torch.cuda.empty_cache()
+    # (b) checkpointed, preempted at 6, resumed at 4 by fresh objects
+    d = os.path.join(base, "run")
+    events = _ListSink()
+    tr_b, _, _ = _adapt_trainer(arch, pipe, init_train_state(0, arch),
+                                rows_b1, d, Recorder([events]),
+                                ckpt_every=4, keep=1)
+    try:
+        tr_b.run(ADAPT_FULL_STEPS, fail_at_step=6, log_every=0)
+        preempted = False
+    except RuntimeError as e:
+        if "simulated preemption at step 6" not in str(e):
+            raise
+        preempted = True
+    failed_at = len(rows_b1) if preempted else None
+    del tr_b
+    torch.cuda.empty_cache()
+    tr_c, ctrl_c, _ = _adapt_trainer(arch, pipe, init_train_state(0, arch),
+                                     rows_c, d, Recorder([events]),
+                                     ckpt_every=4, keep=1)
+    resumed_at = tr_c.start_step
+    log_at_resume = list(ctrl_c.log)
+    tr_c.run(ADAPT_FULL_STEPS, log_every=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params_c = dict(named_leaves(tr_c.state.params))
+    same_params = all(torch.equal(params_a[n], params_c[n])
+                      for n in params_a)
+    loss = {r["step"]: r["loss"] for r in rows_a}
+    same_losses = all(r["loss"] == loss[r["step"]]
+                      for r in rows_b1 + rows_c)
+    same_meta = json.loads(json.dumps(ctrl_c.to_meta())) == meta_a
+    pre_log = [e for e in meta_a["log"] if e["step"] < resumed_at]
+    # launches: exact B7 taps on telemetry steps, no plain calls
+    taps = _b7_taps(L)
+    bad_counts = [(r["step"], r["launches"]["bfp_quantize"], r["plain"])
+                  for r in rows_a + rows_b1 + rows_c
+                  if r["launches"]["bfp_quantize"]
+                  != (taps if r["step"] % 2 == 0 else 0) or r["plain"]]
+    tel = [r["seconds"] for r in rows_a if r["step"] % 2 == 0 and r["step"]]
+    pln = [r["seconds"] for r in rows_a if r["step"] % 2 == 1]
+    t_tel, t_pln = sum(tel) / len(tel), sum(pln) / len(pln)
+    saves = [e.data for e in events.events if e.kind == "ckpt/save"]
+    loads = [e.data for e in events.events if e.kind == "ckpt/load"]
+    for r in rows_a:
+        log(f"{tag} (a) step {r['step']}: loss {r['loss']:.6f}, "
+            f"{r['seconds']:.3f} s, B7 {r['launches']['bfp_quantize']}, "
+            f"B1 {r['launches']['hbfp_matmul_fwd']}, B4 "
+            f"{r['launches']['hbfp_flash_fwd']}")
+    for dd in meta_a["log"]:
+        log(f"{tag} decision {dd}")
+    log(f"{tag} variants {variants_a}; telemetry step {t_tel:.3f} s vs "
+        f"plain {t_pln:.3f} s ({t_tel / t_pln - 1:+.1%}), amortized at "
+        f"cadence 2 {(t_tel + t_pln) / (2 * t_pln) - 1:+.1%} | {card}")
+    log(f"{tag} (b) preempted at {failed_at}, resumed at {resumed_at}: "
+        f"losses equal {same_losses}, master params equal {same_params}, "
+        f"controller meta equal {same_meta}; saves "
+        f"{[(s['path'][-8:], round(s['dur_s'], 2), s['bytes']) for s in saves]}"
+        f", loads {[(round(s['dur_s'], 2), s['bytes']) for s in loads]}; "
+        f"peak {peak:.2f} GiB")
+    if failed_at != 6 or resumed_at != 4 or log_at_resume != pre_log:
+        fail(f"adaptive-full: preempted at {failed_at}, resumed at "
+             f"{resumed_at}, restored log {log_at_resume} != {pre_log}")
+    if not (same_losses and same_params and same_meta):
+        fail("adaptive-full: the resumed run differs from the "
+             "uninterrupted one")
+    if bad_counts:
+        fail(f"adaptive-full: B7 launches (step, launches, plain) "
+             f"{bad_counts}, expected {taps} per telemetry step")
+    if not any(dd["action"] == "widen" for dd in meta_a["log"]) or not all(
+            torch.isfinite(torch.tensor([r["loss"] for r in rows_a]))):
+        fail("adaptive-full: no widen or a non-finite loss")
+    # packed save of the master at the resolved widths
+    packed_dir = os.path.join(base, "packed")
+    torch.cuda.synchronize()
+    bq.reset_counts()
+    t0 = time.perf_counter()
+    path = save_checkpoint(packed_dir, ADAPT_FULL_STEPS, tr_c.state.params,
+                           hbfp=_adapt_policy(), packed=True)
+    save_s = time.perf_counter() - t0
+    packed_launches = bq.bfp_quantize.launches
+    t0 = time.perf_counter()
+    back, _ = load_checkpoint(packed_dir, tr_c.state.params)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    exact = all(torch.equal(a, b) for (_, a), (_, b) in
+                zip(named_leaves(back), named_leaves(tr_c.state.params)))
+    size = lambda p, pre: sum(os.path.getsize(os.path.join(p, f))
+                              for f in os.listdir(p) if f.startswith(pre))
+    last = os.path.join(d, f"step_{ADAPT_FULL_STEPS:08d}")
+    b_packed = size(path, "")
+    b_plain = size(last, ".params.")
+    want_packed = 7 * L + 1
+    log(f"{tag} packed save of the master: {b_packed / 1e9:.3f} GB on disk "
+        f"vs {b_plain / 1e9:.3f} GB unpacked ({b_plain / b_packed:.2f}x), "
+        f"B7 launches {packed_launches} (expected {want_packed}), save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, loads back bit for bit "
+        f"{exact}")
+    if not exact or packed_launches != want_packed:
+        fail("adaptive-full: packed save does not load back bit for bit or "
+             "B7 launches differ")
+    del tr_c, back
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(arch="yi-9b", layers=L, params=n_params, steps=rows_a,
+                resumed=rows_b1 + rows_c, decisions=meta_a["log"],
+                variants=variants_a, telemetry_s=t_tel, plain_s=t_pln,
+                saves=saves, loads=loads, peak_gib=peak,
+                packed=dict(bytes=b_packed, unpacked_bytes=b_plain,
+                            launches=packed_launches, save_s=save_s,
+                            load_s=load_s),
+                launches_telemetry=sum(
+                    r["launches"]["bfp_quantize"] for r in rows_a),
+                launches=_sum_counts(rows_a))
+
+
+def _sum_counts(rows) -> dict:
+    out = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1011,7 +1482,7 @@ def _bwd_entry(name, rows, by_path, replaces, source):
     }
 
 
-def _flash_entry(name, rows, launches, replaces, source):
+def _flash_entry(name, rows, by_path, replaces, source):
     """One flash kernel's JSON entry: times at the yi-9b training shape;
     max_abs_err over every flash case. No PyTorch call computes the HBFP
     attention, so library_ms is null; SDPA on the same bf16 q/k/v is a
@@ -1021,13 +1492,37 @@ def _flash_entry(name, rows, launches, replaces, source):
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
-        "launches": launches, "launches_by_path": {"train_yi": launches},
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["kernel"] == name),
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "sdpa_ms": main["sdpa"],
+    }
+
+
+def _quant_entry(rows, adapt):
+    """B7's JSON entry: times summed over yi-9b's five distinct weight
+    shapes at the adaptive path's weight-tap format (m 4, tile 24, with
+    stats); max_abs_err over every quantize case; launches by path on the
+    adaptive run. No PyTorch call packs BFP, so library_ms is null; a
+    clone() of the same x (one read, one write) is the yardstick."""
+    main = [r for r in rows if r["case"].endswith("_t24_m4")]
+    by_path = {"telemetry": adapt["launches_telemetry"],
+               "packed_save": adapt["packed"]["launches"]}
+    return {
+        "name": "bfp_quantize", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bfp_quantize.cu",
+        "replaces": "src/repro/kernels/bfp_quantize.py:79",
+        "held_against": "bfp_quantize_plain",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["kernel_ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": "bytes", "library_ms": None,
+        "clone_ms": sum(r["clone_ms"] for r in main),
     }
 
 
@@ -1045,11 +1540,17 @@ def main() -> int:
     log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
     flash = phase_flash()
     log(f"[time] flash kernels done at {time.perf_counter() - t0:.1f} s")
+    quant = phase_quantize()
+    log(f"[time] quantize kernel done at {time.perf_counter() - t0:.1f} s")
     train_smoke = {a: phase_train(a) for a in ("gemma2-2b", "yi-9b")}
+    adapt_smoke = phase_adaptive_smoke()
+    log(f"[time] smoke training done at {time.perf_counter() - t0:.1f} s")
     train = phase_train_full(card, "gemma2-2b", 2, 2048)
     # yi-9b: 16 of 48 layers, so f32 master, AdamW moments and grads fit
     train_yi = phase_train_full(card, "yi-9b", 1, 4096, n_layers=YI_LAYERS)
     log(f"[time] training done at {time.perf_counter() - t0:.1f} s")
+    adapt = phase_adaptive_full(card)
+    log(f"[time] adaptive training done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     phase_model()
@@ -1059,13 +1560,16 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "card": card, "build": build,
                    "cases": cases, "bwd_cases": bwd, "flash_cases": flash,
-                   "train_smoke": train_smoke, "train_full": train,
-                   "train_full_yi": train_yi}, f, indent=1)
+                   "quantize_cases": quant, "train_smoke": train_smoke,
+                   "adaptive_smoke": adapt_smoke, "train_full": train,
+                   "train_full_yi": train_yi, "adaptive_full": adapt},
+                  f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
     src = "src/repro_torch/kernels/csrc/"
     by_path = lambda k: {"train_gemma2": train["launches"][k],
-                         "train_yi": train_yi["launches"][k]}
+                         "train_yi": train_yi["launches"][k],
+                         "adaptive_yi": adapt["launches"][k]}
     b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
     b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
@@ -1092,12 +1596,14 @@ def main() -> int:
                     src + "hbfp_matmul_bwd.cu")
     fsrc = src + "hbfp_flash_attn.cu"
     fref = "src/repro/kernels/hbfp_flash_attn.py:"
-    b456 = [_flash_entry(k, flash, train_yi["launches"][k], fref + line,
-                         fsrc)
+    b456 = [_flash_entry(k, flash, {"train_yi": train_yi["launches"][k],
+                                    "adaptive_yi": adapt["launches"][k]},
+                         fref + line, fsrc)
             for k, line in (("hbfp_flash_fwd", "128"),
                             ("hbfp_flash_dq", "205"),
                             ("hbfp_flash_dkv", "241"))]
-    print(json.dumps({"kernels": [b1, b2, b3, *b456]}))
+    print(json.dumps({"kernels": [b1, b2, b3, *b456,
+                                  _quant_entry(quant, adapt)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -41,7 +41,8 @@ HEADER = os.path.join(_CSRC, "hbfp_common.cuh")
 # argument kinds ("p" pointer, "i" int, "f" float)
 SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
            "hbfp_matmul_bwd": os.path.join(_CSRC, "hbfp_matmul_bwd.cu"),
-           "hbfp_flash_attn": os.path.join(_CSRC, "hbfp_flash_attn.cu")}
+           "hbfp_flash_attn": os.path.join(_CSRC, "hbfp_flash_attn.cu"),
+           "bfp_quantize": os.path.join(_CSRC, "bfp_quantize.cu")}
 _ENTRIES = {
     "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipippppp" + "i" * 10 + "p"},
     "hbfp_matmul_bwd": {"hbfp_dgrad": "pipippppp" + "i" * 10 + "p",
@@ -49,6 +50,7 @@ _ENTRIES = {
     "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "i" * 8 + "fp",
                         "hbfp_flash_dq": "ppppppip" + "i" * 8 + "fp",
                         "hbfp_flash_dkv": "ppppppipp" + "i" * 8 + "fp"},
+    "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 10 + "p"},
 }
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")

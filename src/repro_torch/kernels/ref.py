@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the HBFP kernels (port of
-`repro.kernels.ref`): the GEMMs `hbfp_matmul_ref`, `hbfp_dgrad_ref`,
+`repro.kernels.ref`): the FP→BFP conversion `bfp_quantize_ref` (B7), the
+GEMMs `hbfp_matmul_ref`, `hbfp_dgrad_ref`,
 `hbfp_wgrad_ref`, and flash attention `hbfp_flash_attn_ref` (B4),
 `hbfp_flash_dq_ref` (B5), `hbfp_flash_dkv_ref` (B6) with their
 compositions `hbfp_flash_attn_bwd_ref` and `hbfp_flash_attn_vjp_ref`.
@@ -73,6 +74,61 @@ def _quantize_w(ws: torch.Tensor, r0: int, c0: int, N: int, rb: int,
         if stochastic else None
     return quantize_block(ws, mantissa_bits, _slab_group_amax(ws, rb, cb),
                           stochastic=stochastic, seed=seed, idx=idx)
+
+
+def fit_block(n_tiles: int, want_tiles: int) -> int:
+    """Largest tile count <= want_tiles that divides n_tiles (>= 1): the
+    reference's `_fit_block`, which sets B7's grid of per-block stats."""
+    k = max(1, min(want_tiles, n_tiles))
+    while n_tiles % k:
+        k -= 1
+    return k
+
+
+def bfp_tiles(R: int, C: int, tile_r, tile_c, block_r: int, block_c: int):
+    """B7's geometry for x [R, C]: the clipped tile (tr, tc; None is the
+    whole dim), the padded shape (Rp, Cp) and the fitted stats block
+    (block_r, block_c) in elements."""
+    tr = R if tile_r is None else min(tile_r, R)
+    tc = C if tile_c is None else min(tile_c, C)
+    Rp, Cp = -(-R // tr) * tr, -(-C // tc) * tc
+    br = tr * fit_block(Rp // tr, max(min(block_r, Rp) // tr, 1))
+    bc = tc * fit_block(Cp // tc, max(min(block_c, Cp) // tc, 1))
+    return tr, tc, Rp, Cp, br, bc
+
+
+def bfp_quantize_ref(x, seed=0, *, mantissa_bits=8, tile_r=128, tile_c=128,
+                     stochastic=False, block_r=256, block_c=512,
+                     with_stats=False):
+    """B7's plain version: x [R, C] zero-padded to whole (tile_r, tile_c)
+    tiles, one exponent per tile, mantissas sliced back to [R, C] (int8
+    for m <= 8, else int16). Returns (mantissa, exponent int8) or, with
+    stats, also (clip count per tile, exponent min and max per fitted
+    block), all int32."""
+    R, C = x.shape
+    tr, tc, Rp, Cp, br, bc = bfp_tiles(R, C, tile_r, tile_c, block_r,
+                                       block_c)
+    xf = x.to(torch.float32)
+    if (Rp, Cp) != (R, C):
+        xf = torch.nn.functional.pad(xf, (0, Cp - C, 0, Rp - R))
+    g = xf.reshape(Rp // tr, tr, Cp // tc, tc)
+    amax = g.abs().amax(dim=(1, 3), keepdim=True)
+    idx = _index(0, Rp, 0, Cp, Cp, 0, x.device).reshape(g.shape) \
+        if stochastic else None
+    q, delta, clipped = quantize_block(
+        g, mantissa_bits, amax, stochastic=stochastic,
+        seed=_seed_value(seed), idx=idx, with_clip=True)
+    mdt = torch.int8 if mantissa_bits <= 8 else torch.int16
+    dbits = delta.contiguous().view(torch.int32)
+    et = (((dbits >> 23) & 0xFF) - 127 + (mantissa_bits - 2))[:, 0, :, 0]
+    mant = q.reshape(Rp, Cp).to(mdt)[:R, :C].contiguous()
+    if not with_stats:
+        return mant, et.to(torch.int8)
+    eb = et.reshape(Rp // br, br // tr, Cp // bc, bc // tc)
+    return (mant, et.to(torch.int8),
+            clipped.sum(dim=(1, 3)).to(torch.int32),
+            eb.amin(dim=(1, 3)).to(torch.int32),
+            eb.amax(dim=(1, 3)).to(torch.int32))
 
 
 def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,

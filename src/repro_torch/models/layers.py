@@ -110,13 +110,18 @@ class Ctx:
 
     cfg      — the segment's global activation format (None: FP);
     backend  — "sim" or "pallas" (the kernel backend);
-    roles    — the per-GEMM-role width table.
+    roles    — the per-GEMM-role width table;
+    act_tap  — `loss_fn` measures the residual stream at the stack's entry
+               and exit (numerics observatory, DESIGN.md §9; measurement
+               only, the values are untouched).
     """
 
-    __slots__ = ("policy", "cfg", "generator", "backend", "roles", "device")
+    __slots__ = ("policy", "cfg", "generator", "backend", "roles", "device",
+                 "act_tap")
 
     def __init__(self, cfg=None, generator: Optional[torch.Generator] = None,
-                 backend=None, policy=None, device=None):
+                 backend=None, policy=None, device=None,
+                 act_tap: bool = False):
         if policy is None:
             policy = as_segment(cfg, backend=backend or "sim")
         self.policy = policy
@@ -125,6 +130,7 @@ class Ctx:
         self.roles = policy.role_widths
         self.generator = generator
         self.device = device
+        self.act_tap = act_tap
 
     def key_for(self, site: str) -> Optional[torch.Generator]:
         """The generator of stochastic rounding at `site` (None unless the

@@ -34,11 +34,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.bfp import act_tile_shape
 from repro_torch.device import check_on, dtype_of, resolve_device
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           attention_layer)
 from repro_torch.models.layers import (Ctx, ctx_matmul, gelu_ffn, rms_norm,
                                        softcap, swiglu_ffn)
+from repro_torch.numerics.stats import tensor_stats
 
 BIG_WINDOW = 1 << 30
 
@@ -279,12 +281,24 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     """Next-token CE, the LM head and softmax-CE computed in `loss_chunk`
     token chunks (each recomputed in the backward under arch.remat), so
     the f32 [tokens, vocab] logits exist one chunk at a time. Returns
-    (loss, {"nll", "aux", "loss"})."""
+    (loss, {"nll", "aux", "loss"}); with `ctx.act_tap` the metrics gain
+    "act_stats", the `TensorStats` of quantizing the residual stream at
+    the stack's entry ("embed_out") and exit ("final_hidden") at the
+    activation format, each one B7 launch."""
     _require_dense(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
+    act_stats = None
+    if ctx.act_tap and ctx.cfg is not None:
+        def tap(t):
+            return tensor_stats(t.detach(), ctx.cfg.mantissa_bits,
+                                act_tile_shape(t.ndim, ctx.cfg.act_block))
+
+        act_stats = {"embed_out": tap(x)}
     x, _ = _run_stack(params, x, positions, arch, ctx,
                       std_pos=_std_positions(batch))
+    if act_stats is not None:
+        act_stats["final_hidden"] = tap(x)
     x = rms_norm(x, params["final_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
     labels = torch.as_tensor(batch["labels"], device=dev).long()
@@ -305,7 +319,10 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     nll = tot / T
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     loss = nll + aux_weight * aux
-    return loss, {"nll": nll, "aux": aux, "loss": loss}
+    metrics = {"nll": nll, "aux": aux, "loss": loss}
+    if act_stats is not None:
+        metrics["act_stats"] = act_stats
+    return loss, metrics
 
 
 def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,

@@ -1,0 +1,192 @@
+"""Per-tensor BFP fidelity statistics (port of `repro.numerics.stats`,
+DESIGN.md §9).
+
+`quantize_with_stats` is one composition on both devices: the conversion
+kernel B7 (`kernels.bfp_quantize`, with its fused per-tile clip counts and
+per-block exponent min and max) on each 2-D slice of the tensor
+(`core.bfp.b7_slices`), then a few torch reductions over (x, mantissas,
+exponents, clip counts) for the rest. On the card that call is the kernel,
+on the CPU its plain version. The dequantized tensor, mantissa · 2^(e-m+2)
+cast to x's dtype, equals `bfp.quantize` bit for bit. The stats:
+
+  * `exp_hist`      — histogram of per-tile exponents over EXP_BINS bins;
+  * `clip_frac`     — fraction of elements whose rounded mantissa exceeded
+                      ±(2^(m-1)-1) and was saturated;
+  * `sat_tile_frac` — fraction of tiles with at least one saturated element;
+  * `ftz_frac`      — fraction of nonzero inputs that quantized to 0;
+  * `sqnr_db`       — 10·log10(Σx² / Σe²), capped at SQNR_CAP_DB; the sums
+                      run in float64 here, in f32 in the reference, so the
+                      two differ by the reference's summation error;
+  * `exp_spread`    — max − min tile exponent;
+  * `n`             — element count.
+
+Stochastic rounding raises (ROADMAP A5): the reference draws threefry
+noise, which torch cannot replay.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import bfp
+from repro_torch.kernels.bfp_quantize import bfp_quantize
+
+EXP_BINS = 32
+EXP_BIN_WIDTH = 4
+EXP_BIN_LO = -64
+
+SQNR_CAP_DB = 200.0
+
+
+class TensorStats(NamedTuple):
+    exp_hist: torch.Tensor       # [EXP_BINS] f32
+    clip_frac: torch.Tensor      # () f32
+    sat_tile_frac: torch.Tensor  # () f32
+    ftz_frac: torch.Tensor       # () f32
+    sqnr_db: torch.Tensor        # () f32
+    exp_spread: torch.Tensor     # () f32
+    n: torch.Tensor              # () f32
+
+
+def identity_stats(n: float = 0.0, device=None) -> TensorStats:
+    """Stats of a lossless (identity) quantization."""
+    z = lambda v: torch.full((), v, dtype=torch.float32, device=device)
+    return TensorStats(exp_hist=torch.zeros(EXP_BINS, dtype=torch.float32,
+                                            device=device),
+                       clip_frac=z(0.0), sat_tile_frac=z(0.0),
+                       ftz_frac=z(0.0), sqnr_db=z(SQNR_CAP_DB),
+                       exp_spread=z(0.0), n=z(float(n)))
+
+
+def _expand(grid: torch.Tensor, tr: int, tc: int, R: int, C: int):
+    """A per-tile grid broadcast to the elements of an [R, C] slice."""
+    return grid.repeat_interleave(tr, 0).repeat_interleave(tc, 1)[:R, :C]
+
+
+class StatsAccumulator:
+    """Raw sums of one tensor's stats over the B7 operands it is cut into
+    (several slices of a stacked weight, or one view), so that a tensor
+    narrowed slice by slice still gets the one `TensorStats` of the
+    whole."""
+
+    def __init__(self, device):
+        i64 = dict(dtype=torch.int64, device=device)
+        f64 = dict(dtype=torch.float64, device=device)
+        self.n = self.tiles = 0
+        self.counts = torch.zeros(4, **i64)  # clip, sat tiles, ftz, nonzero
+        self.sig = torch.zeros((), **f64)
+        self.err = torch.zeros((), **f64)
+        self.hist = torch.zeros(EXP_BINS, **i64)
+        self.emin = self.emax = None
+
+    @torch.no_grad()
+    def add(self, x: torch.Tensor, mantissa_bits: int,
+            tile_shape: Sequence[Optional[int]], want_q: bool = True):
+        """Quantize x through B7 and add its stats; returns the dequantized
+        x in its dtype (None unless want_q)."""
+        parts, tr, tc = bfp.b7_slices(x, tile_shape)
+        qs = []
+        for p in parts:
+            mant, expo, clip, emin, emax = bfp_quantize(
+                p, 0, mantissa_bits=mantissa_bits, tile_r=tr, tile_c=tc,
+                with_stats=True)
+            R, C = p.shape
+            delta = bfp.pow2(expo.to(torch.int32) - mantissa_bits + 2)
+            xf = p.to(torch.float32)
+            qd = mant.to(torch.float32) * _expand(delta, tr, tc, R, C)
+            err = xf - qd
+            nonzero = xf != 0.0
+            self.n += p.numel()
+            self.tiles += clip.numel()
+            self.counts += torch.stack([
+                clip.sum(), (clip > 0).sum(), (nonzero & (mant == 0)).sum(),
+                nonzero.sum()])
+            self.sig += (xf * xf).sum(dtype=torch.float64)
+            self.err += (err * err).sum(dtype=torch.float64)
+            e = expo.to(torch.int64).reshape(-1)
+            idx = torch.div(e - EXP_BIN_LO, EXP_BIN_WIDTH,
+                            rounding_mode="floor").clamp(0, EXP_BINS - 1)
+            self.hist += torch.bincount(idx, minlength=EXP_BINS)
+            lo, hi = emin.min(), emax.max()
+            self.emin = lo if self.emin is None else torch.minimum(self.emin,
+                                                                   lo)
+            self.emax = hi if self.emax is None else torch.maximum(self.emax,
+                                                                   hi)
+            if want_q:
+                qs.append(qd.to(x.dtype))
+        return torch.cat(qs).reshape(x.shape) if want_q else None
+
+    def finish(self) -> TensorStats:
+        clip, sat, ftz, nonzero = self.counts.to(torch.float64)
+        sqnr = torch.where(
+            self.err > 0.0,
+            10.0 * torch.log10(self.sig.clamp_min(1e-30)
+                               / self.err.clamp_min(1e-30)),
+            torch.full_like(self.sig, SQNR_CAP_DB))
+        f32 = lambda v: v.to(torch.float32)
+        return TensorStats(
+            exp_hist=f32(self.hist), clip_frac=f32(clip / self.n),
+            sat_tile_frac=f32(sat / self.tiles),
+            ftz_frac=f32(ftz / nonzero.clamp_min(1.0)),
+            sqnr_db=f32(sqnr.clamp(-SQNR_CAP_DB, SQNR_CAP_DB)),
+            exp_spread=f32(self.emax - self.emin),
+            n=torch.full((), float(self.n), dtype=torch.float32,
+                         device=self.sig.device))
+
+
+def quantize_with_stats(x: torch.Tensor, mantissa_bits: int,
+                        tile_shape: Sequence[Optional[int]],
+                        rounding: str = "nearest"
+                        ) -> Tuple[torch.Tensor, TensorStats]:
+    """FP→BFP→FP through B7 plus the fidelity stats of that quantization;
+    the tensor equals `bfp.quantize(x, ...)` bit for bit."""
+    if mantissa_bits >= 24:
+        return x, identity_stats(x.numel(), x.device)
+    if rounding == "stochastic":
+        raise NotImplementedError(
+            "stochastic quantization with stats (the reference draws "
+            "threefry noise) comes with ROADMAP A5")
+    acc = StatsAccumulator(x.device)
+    xq = acc.add(x, mantissa_bits, tile_shape)
+    return xq, acc.finish()
+
+
+def tensor_stats(x: torch.Tensor, mantissa_bits: int,
+                 tile_shape: Sequence[Optional[int]]) -> TensorStats:
+    """`quantize_with_stats(...)[1]` without building the dequantized
+    tensor (the gradient and activation taps)."""
+    if mantissa_bits >= 24:
+        return identity_stats(x.numel(), x.device)
+    acc = StatsAccumulator(x.device)
+    acc.add(x, mantissa_bits, tile_shape, want_q=False)
+    return acc.finish()
+
+
+def stats_to_host(stats) -> dict:
+    """A TensorStats, or a nested dict of them, as plain-python dicts of
+    floats (controller / ring-buffer / JSON form), in one device-to-host
+    copy."""
+    flat = []
+
+    def collect(s):
+        if isinstance(s, TensorStats):
+            flat.append(s)
+        else:
+            for v in s.values():
+                collect(v)
+
+    collect(stats)
+    rows = iter(torch.stack([torch.cat([torch.stack(list(s[1:])),
+                                        s.exp_hist]) for s in flat])
+                .cpu().tolist() if flat else [])
+
+    def build(s):
+        if not isinstance(s, TensorStats):
+            return {k: build(v) for k, v in s.items()}
+        r = next(rows)
+        return {"clip_frac": r[0], "sat_tile_frac": r[1], "ftz_frac": r[2],
+                "sqnr_db": r[3], "exp_spread": r[4], "n": r[5],
+                "exp_hist": r[6:]}
+
+    return build(stats)

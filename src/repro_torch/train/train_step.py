@@ -7,12 +7,17 @@
   3. updates = AdamW(grads) in f32;
   4. master  = Q_wide(master + updates), 16-bit wide weight storage.
 
-`make_step(arch, policy, lr_schedule)` is the entry point for a constant
-(single-segment) policy; schedules (ROADMAP A9), numerics taps and the
-controller (A10) and stochastic weight narrowing (A5) raise. Unlike the
-reference's functional step, the port updates the state's master params
-and moments in place, one layer slice at a time, so the optimizer adds
-only one layer's f32 temporaries to the training state.
+`make_step(arch, policy, lr_schedule, controller=, tap=)` is the entry
+point: a host dispatcher over step variants, one per distinct (policy
+segment ⊕ controller overrides, telemetry), chosen by the step counter.
+A telemetry variant (`make_train_step(..., taps=)`) narrows the weights
+through the conversion kernel B7 with their stats (the weight tap *is*
+the narrowing, bit-identical to the plain one), measures the grads at the
+wgrad width and the residual stream, and feeds the controller. Stochastic
+weight narrowing (A5) raises. Unlike the reference's functional step, the
+port updates the state's master params and moments in place, one layer
+slice at a time, so the optimizer adds only one layer's f32 temporaries
+to the training state.
 """
 from __future__ import annotations
 
@@ -27,6 +32,11 @@ from repro_torch.core.opt_shell import _weight_cfg, apply_update_
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import init_params, loss_fn
+from repro_torch.numerics.collect import (RingBuffer, TapConfig, grad_stats,
+                                          snapshot_event)
+from repro_torch.numerics.controller import merge_sources
+from repro_torch.numerics.stats import StatsAccumulator, stats_to_host
+from repro_torch.obs import NULL_RECORDER
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.precision.policy import (ResolvedPolicy, as_policy,
                                           as_segment)
@@ -72,30 +82,43 @@ def from_jax_train_state(state, device=None) -> TrainState:
 
 
 def _narrow_leaf(name: str, leaf: torch.Tensor, index, cfg,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, acc=None) -> torch.Tensor:
     """One leaf (or layer slice) of the compute copy: narrowed at its
-    config, cast to the compute dtype when the leaf is a matrix (as the
-    reference casts: stacked [L, D] norm scales too), a fresh autograd
-    leaf."""
+    config (through B7 with its stats into `acc` when given), cast to the
+    compute dtype when the leaf is a matrix (as the reference casts:
+    stacked [L, D] norm scales too), a fresh autograd leaf."""
     p = leaf if index is None else leaf[index]
     c = _weight_cfg(cfg, name, leaf)
     if c is not None:
-        p = bfp.quantize_weight(p, c)
+        p = bfp.quantize_weight(p, c) if acc is None else acc.add(
+            p, c.mantissa_bits, bfp.weight_tile_shape(p.ndim, c.tile))
     return p.to(dtype if leaf.ndim >= 2 else p.dtype,
                 copy=True).requires_grad_()
 
 
-def _narrow_copy(master, cfg, dtype):
+def _narrow_copy(master, cfg, dtype, stats=None):
     """The compute copy with "layers" as a list of per-layer dicts, so each
-    layer's weights get their own gradients."""
+    layer's weights get their own gradients. With a `stats` dict, every
+    BFP weight is narrowed through B7 and its `TensorStats` (over all its
+    layer slices) lands in stats[name]."""
+    accs = {}
+
+    def acc(name, leaf):
+        if stats is None or _weight_cfg(cfg, name, leaf) is None:
+            return None
+        return accs.setdefault(name, StatsAccumulator(leaf.device))
+
     out = {}
     for k, v in master.items():
         if k == "layers":
             L = next(iter(v.values())).shape[0]
-            out[k] = [{n: _narrow_leaf(f"layers/{n}", t, i, cfg, dtype)
+            out[k] = [{n: _narrow_leaf(f"layers/{n}", t, i, cfg, dtype,
+                                       acc(f"layers/{n}", t))
                        for n, t in v.items()} for i in range(L)]
         else:
-            out[k] = _narrow_leaf(k, v, None, cfg, dtype)
+            out[k] = _narrow_leaf(k, v, None, cfg, dtype, acc(k, v))
+    if stats is not None:
+        stats.update((n, accs[n].finish()) for n in sorted(accs))
     return out
 
 
@@ -126,15 +149,26 @@ def _stack_grads(paths, grads: list):
     return out
 
 
+def _nearest_only(seg: ResolvedPolicy) -> None:
+    if not seg.is_fp32 and seg.any_stochastic:
+        raise NotImplementedError(
+            "stochastic rounding in training (per-parameter narrowing "
+            "streams) comes with ROADMAP A5")
+
+
 def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
-                    device=None):
+                    taps=None, device=None):
     """Returns train_step(state, batch) -> (state, metrics) for one static
     precision segment (None, an HBFPConfig or a ResolvedPolicy). With
     grad_accum > 1 the batch leaves are [A, ...] microbatches and the mean
-    grads accumulate in f32. `train_step.grads(state, batch)` -> (loss,
-    metrics, grads) runs steps 1 and 2 alone and returns the grads in the
-    master's layout."""
+    grads accumulate in f32. `taps` (a `numerics.TapConfig`) makes this
+    the telemetry variant: metrics gain "numerics", per-parameter
+    `TensorStats` of the weight narrowing ("weights") and the grads at the
+    wgrad width ("grads") and the activation taps ("acts"), all through
+    B7; the training values are bit-identical to taps=None.
+    `train_step.grads(state, batch)` -> (loss, metrics, grads) runs steps
+    1 and 2 alone and returns the grads in the master's layout."""
     dev = resolve_device(device)
     compute_dtype = dtype_of(arch.dtype)
     seg = as_segment(hbfp, backend=arch.kernel_backend)
@@ -144,6 +178,8 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
     if seg.is_fp32:
         act_cfg = param_cfg = None
     elif seg.has_overrides or seg.global_cfg is None:
+        # per-layer widths are resolved by the narrowing: the matmuls must
+        # not re-quantize a widened layer at the global width
         act_cfg = None if seg.global_cfg is None else \
             seg.global_cfg.with_(requantize_weights=False)
         param_cfg = seg
@@ -154,24 +190,30 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             requantize_weights=(backend == "pallas"))
         param_cfg = seg.global_cfg.with_(requantize_weights=False)
         if seg.role_widths:
+            # the role table stays visible so the grad tap measures at the
+            # wgrad width
             param_cfg = ResolvedPolicy(global_cfg=param_cfg,
                                        role_widths=seg.role_widths,
                                        backend=backend)
-    if not seg.is_fp32 and seg.any_stochastic:
-        raise NotImplementedError(
-            "stochastic rounding in training (per-parameter narrowing "
-            "streams) comes with ROADMAP A5")
+    _nearest_only(seg)
     exec_seg = ResolvedPolicy(global_cfg=act_cfg,
                               role_widths=seg.role_widths, backend=backend)
+    if taps is not None and param_cfg is None:
+        taps = None     # a true fp32 step: nothing to measure
+    act_tap = taps is not None and taps.acts and grad_accum == 1 \
+        and act_cfg is not None
 
     def loss_and_grads(narrow, batch):
-        ctx = Ctx(policy=exec_seg, device=dev)
+        ctx = Ctx(policy=exec_seg, device=dev, act_tap=act_tap)
         leaves = [t for _, t in _leaves(narrow)]
         if grad_accum == 1:
             loss, metrics = loss_fn(narrow, batch, arch, ctx, device=dev)
             grads = list(torch.autograd.grad(loss, leaves))
-            return loss.detach(), {k: v.detach() for k, v in
-                                   metrics.items()}, grads
+            acts = metrics.pop("act_stats", None)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if acts is not None:
+                metrics["act_stats"] = acts
+            return loss.detach(), metrics, grads
         acc = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
                for t in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -184,15 +226,23 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             loss = loss + la.detach() / grad_accum
         return loss, {"loss": loss}, acc
 
-    def grads(state: TrainState, batch):
-        narrow = _narrow_copy(state.params, param_cfg, compute_dtype)
+    def grads(state: TrainState, batch, weight_stats=None):
+        narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
+                              weight_stats)
         loss, metrics, gs = loss_and_grads(narrow, batch)
         paths = [p for p, _ in _leaves(narrow)]
         del narrow
         return loss, metrics, _stack_grads(paths, gs)
 
     def train_step(state: TrainState, batch):
-        _, metrics, gs = grads(state, batch)
+        numerics = {}
+        if taps is not None and taps.weights:
+            numerics["weights"] = {}
+        _, metrics, gs = grads(state, batch, numerics.get("weights"))
+        if "act_stats" in metrics:
+            numerics["acts"] = metrics.pop("act_stats")
+        if taps is not None and taps.grads:
+            numerics["grads"] = grad_stats(gs, param_cfg)
         _, opt = adamw_update(
             gs, state.opt, state.params, lr=schedule,
             weight_decay=weight_decay, grad_clip=grad_clip,
@@ -201,33 +251,138 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         metrics = dict(metrics)
         metrics["lr"] = schedule(opt.step) if callable(schedule) \
             else torch.tensor(schedule, dtype=torch.float32)
+        if numerics:
+            metrics["numerics"] = numerics
         return TrainState(state.params, opt, state.step + 1), metrics
 
     train_step.grads = grads
     return train_step
 
 
+def _tap_widths(seg: ResolvedPolicy, snapshot: dict) -> dict:
+    """Resolved mantissa widths of every tapped tensor (0: FP): the weight
+    tap quantizes at the fwd width, the grad tap at the wgrad width."""
+    out = {}
+    for source, role in (("weights", "fwd"), ("grads", "wgrad")):
+        if source not in snapshot:
+            continue
+        widths = {}
+        for name in snapshot[source]:
+            c = seg.for_param(name, role)
+            widths[name] = 0 if c is None else c.mantissa_bits
+        out[source] = widths
+    return out
+
+
 def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
-              tap=None, device=None, **kwargs):
-    """The train-step entry point for a constant precision policy (a
-    PrecisionPolicy, a spec string, an HBFPConfig or None; the legacy
-    kinds pick up `arch.kernel_backend`). Returns train_step(state, batch
-    ) -> (state, metrics); metrics gains "mantissa_bits" (0 for fp32).
+              tap=None, recorder=None, device=None, **kwargs):
+    """The train-step entry point (DESIGN.md §11): one precision policy (a
+    PrecisionPolicy, a spec string, a PrecisionSchedule, an HBFPConfig or
+    None; the legacy kinds pick up `arch.kernel_backend`) drives format,
+    schedule, per-layer and per-role widths, the controller loop and the
+    kernel backend.
+
+    Returns train_step(state, batch) -> (state, metrics), a host
+    dispatcher over step variants cached per (resolved segment ⊕
+    controller overrides, telemetry):
+
+      * `tap` (a `numerics.TapConfig`) runs the telemetry variant on its
+        cadence; metrics gain the "numerics" stats (kept in metrics when
+        there is no controller);
+      * `controller` (a `numerics.PrecisionController`) closes the loop:
+        snapshots (with their resolved widths) land in `.buffer`, feed
+        `controller.observe`, and its overrides merge into the segment
+        of the next step;
+      * `recorder` (an `obs.Recorder`) gets "train/recompile" for every
+        new variant, "numerics/snapshot" for every collection and the
+        controller's "precision/decision" events.
+
+    metrics gain "mantissa_bits" (the segment's global width, 0 for fp32)
+    and, with a controller, "n_overrides" and "min_mantissa_bits".
+    Attributes: `.policy`, `.variants`, `.controller`, `.buffer`, `.tap`,
+    and `.grads(state, batch)` (steps 1-2 of the variant at state.step).
     Extra kwargs go to `make_train_step`."""
-    if controller is not None or tap is not None:
-        raise NotImplementedError(
-            "numerics taps and the precision controller come with ROADMAP "
-            "A10")
+    rec = recorder if recorder is not None else NULL_RECORDER
     pol = as_policy(policy, backend=arch.kernel_backend)
-    seg = pol.resolve_segment(0)
-    step_fn = make_train_step(arch, seg, schedule, device=device, **kwargs)
-    bits = 0 if seg.global_cfg is None else seg.global_cfg.mantissa_bits
+    buffer = None
+    if controller is not None:
+        if pol.format(0) is None:
+            raise ValueError("adaptive precision needs a BFP base format; "
+                             "fp32 has nothing to widen or narrow")
+        tap = tap if tap is not None else TapConfig()
+        buffer = RingBuffer(tap.history, recorder=rec)
+        if rec.enabled and getattr(controller, "recorder", None) is None:
+            controller.recorder = rec
+    resolve_device(device)       # raise now when the card is missing
+    segments = {i: pol.resolve_segment(i) for i in range(pol.num_segments)}
+    for seg in segments.values():
+        _nearest_only(seg)
+    variants = {}
+
+    def segment(step: int) -> ResolvedPolicy:
+        seg = segments[pol.segment_index(step)]
+        if controller is not None:
+            # the controller's overrides name the current adaptive
+            # "segment"; decisions take effect at the next step
+            seg = seg.with_controller(controller.overrides())
+        return seg
+
+    def variant(seg: ResolvedPolicy, telemetry: bool, step: int):
+        fn = variants.get((seg, telemetry))
+        if fn is None:
+            fn = make_train_step(arch, seg, schedule,
+                                 taps=tap if telemetry else None,
+                                 device=device, **kwargs)
+            variants[(seg, telemetry)] = fn
+            gcfg = seg.global_cfg
+            rec.emit("train/recompile", step=step,
+                     mantissa_bits=0 if gcfg is None else gcfg.mantissa_bits,
+                     n_overrides=len(seg.layer_overrides)
+                     + len(seg.controller_overrides),
+                     backend=seg.backend, telemetry=telemetry,
+                     n_variants=len(variants))
+        return fn
 
     def train_step(state: TrainState, batch):
-        state, metrics = step_fn(state, batch)
-        metrics["mantissa_bits"] = torch.tensor(float(bits))
+        step = int(state.step)
+        seg = segment(step)
+        telemetry = tap is not None and tap.collect_at(step)
+        state, metrics = variant(seg, telemetry, step)(state, batch)
+        if telemetry and (controller is not None or rec.enabled):
+            numerics = (metrics.pop("numerics", None)
+                        if controller is not None
+                        else metrics.get("numerics"))
+            if numerics is not None:
+                snapshot = stats_to_host(numerics)
+                snapshot["widths"] = _tap_widths(seg, snapshot)
+                if controller is not None:
+                    buffer.append(step, snapshot)
+                    controller.observe(step, merge_sources(snapshot))
+                else:
+                    rec.emit("numerics/snapshot", step=step,
+                             **snapshot_event(snapshot))
+        gcfg = seg.global_cfg
+        metrics["mantissa_bits"] = torch.tensor(
+            float(0 if gcfg is None else gcfg.mantissa_bits))
+        if controller is not None:
+            ovr = controller.overrides()
+            # bare widths or {"m", "b"} axis dicts (block decisions)
+            widths = [w.get("m") if isinstance(w, dict) else w
+                      for _, w in ovr]
+            widths = [w for w in widths if w is not None]
+            widths.append(controller.base_bits)
+            metrics["n_overrides"] = torch.tensor(float(len(ovr)))
+            metrics["min_mantissa_bits"] = torch.tensor(float(min(widths)))
         return state, metrics
 
+    def grads(state: TrainState, batch):
+        step = int(state.step)
+        return variant(segment(step), False, step).grads(state, batch)
+
     train_step.policy = pol
-    train_step.grads = step_fn.grads
+    train_step.variants = variants
+    train_step.controller = controller
+    train_step.buffer = buffer
+    train_step.tap = tap
+    train_step.grads = grads
     return train_step

@@ -2,7 +2,9 @@
 its entry points (serving and training) run on the card unless the CPU is
 asked for, unported parts raise naming their ROADMAP item, and its
 kernels are held to their plain versions on the card (the `gpu`-marked
-test, which skips where there is no CUDA device).
+test, which skips where there is no CUDA device). The schedules, the
+controller loop and checkpoints, which raised until they were ported, are
+held to working here.
 
 Run the card test on a machine with an H100:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_port_rules.py
@@ -29,7 +31,10 @@ def _port_modules():
 def test_port_imports_no_jax_and_no_reference():
     mods = _port_modules()
     for m in ("repro_torch.kernels.hbfp_matmul",
-              "repro_torch.kernels.hbfp_flash_attn", "repro_torch.serve.engine",
+              "repro_torch.kernels.hbfp_flash_attn",
+              "repro_torch.kernels.bfp_quantize", "repro_torch.numerics.stats",
+              "repro_torch.checkpoint.checkpointing",
+              "repro_torch.core.schedule_precision", "repro_torch.serve.engine",
               "repro_torch.train.train_step", "repro_torch.train.trainer",
               "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
         assert m in mods
@@ -98,14 +103,28 @@ def test_training_entry_points_need_a_gpu():
 
 
 def test_unported_parts_raise_with_their_roadmap_item():
+    """Other model families still raise (A12); step and block schedules,
+    which raised until ROADMAP A9 was done, resolve as the reference's."""
+    from repro.precision import parse_policy as jparse
     from repro_torch.configs import get_arch
     from repro_torch.precision import parse_policy
+    import dataclasses
     with pytest.raises(NotImplementedError, match="A12"):
         get_arch("hymba-1.5b")
-    with pytest.raises(NotImplementedError, match="A9"):
-        parse_policy("4@0,8@90%")
-    with pytest.raises(NotImplementedError, match="A9"):
-        parse_policy("8; b=16@0,b=64@50%")
+    asd = lambda c: None if c is None else dataclasses.asdict(c)
+    for spec in ("4@0,8@90%", "8; b=16@0,b=64@50%"):
+        t, j = parse_policy(spec, total_steps=100), jparse(spec,
+                                                          total_steps=100)
+        assert t.boundaries() == j.boundaries() == (0, 50 if "b=" in spec
+                                                    else 90)
+        for step in (0, 49, 50, 89, 90, 99):
+            for role in ("fwd", "wgrad"):
+                assert asd(t.resolve(("layers/ffn_wg"), step).cfg) == \
+                    asd(j.resolve("layers/ffn_wg", step).cfg)
+                assert asd(t.resolve_segment(t.segment_index(step))
+                           .for_param("head_w", role)) == \
+                    asd(j.resolve_segment(j.segment_index(step))
+                        .for_param("head_w", role))
     pol = parse_policy("8; lm_head:12; wgrad+2; b=16; backend=pallas")
     seg = pol.resolve_segment(0)
     assert seg.backend == "pallas" and seg.global_cfg.act_block == 16
@@ -113,8 +132,13 @@ def test_unported_parts_raise_with_their_roadmap_item():
     assert seg.for_param("layers/ffn_wg", "wgrad").mantissa_bits == 10
 
 
-def test_unported_training_parts_raise_with_their_roadmap_item():
+def test_unported_training_parts_raise_with_their_roadmap_item(tmp_path):
+    """Stochastic rounding in training still raises (A5); the controller
+    loop (A10) runs a step and the Trainer's checkpoints (A8) save and
+    resume, which raised until they were ported."""
     from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.numerics import PrecisionController, TapConfig
     from repro_torch.optim import make_schedule
     from repro_torch.train import Trainer, init_train_state, make_step
     arch = get_arch("gemma2-2b").smoke()
@@ -122,13 +146,22 @@ def test_unported_training_parts_raise_with_their_roadmap_item():
                           total_steps=1)
     with pytest.raises(NotImplementedError, match="A5"):
         make_step(arch, "8~stochastic", sched, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_step(arch, "8", sched, controller=object(), device="cpu")
-    state = init_train_state(0, arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        Trainer(train_step=make_step(arch, "8", sched, device="cpu"),
-                init_state=state, data_fn=None, ckpt_dir="ckpt",
-                device="cpu")
+    ctrl = PrecisionController(base_bits=8)
+    step = make_step(arch, "8", sched, controller=ctrl,
+                     tap=TapConfig(cadence=1), device="cpu")
+    data = lambda i: batch_for_arch(arch, 2, 8, step=i, device="cpu")
+    state, metrics = step(init_train_state(0, arch, device="cpu"), data(0))
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert len(step.buffer) == 1 and "n_overrides" in metrics
+    d = str(tmp_path / "ckpt")
+    step = make_step(arch, "8", sched, device="cpu")
+    Trainer(train_step=step, init_state=init_train_state(0, arch,
+                                                         device="cpu"),
+            data_fn=data, ckpt_dir=d, device="cpu").run(2, log_fn=None)
+    tr = Trainer(train_step=step, init_state=init_train_state(0, arch,
+                                                              device="cpu"),
+                 data_fn=data, ckpt_dir=d, device="cpu")
+    assert tr.start_step == 2 and tr.state.step == 2
 
 
 def test_policy_resolution_matches_reference():
@@ -158,5 +191,5 @@ def test_chip_smoke_kernel_phase_on_card():
     chip_smoke.phase_device()
     chip_smoke.phase_build()
     cases = (chip_smoke.phase_kernels() + chip_smoke.phase_bwd()
-             + chip_smoke.phase_flash())
+             + chip_smoke.phase_flash() + chip_smoke.phase_quantize())
     assert cases and all(c["ok"] for c in cases)
