@@ -11,9 +11,15 @@ Phases (any failure exits non-zero before the result line):
                 kernel's registers, spill bytes and stack;
   3. bwd      — B1, B2 (dgrad) and B3 (wgrad) against their plain
                 versions at gemma2-2b's training shapes (M = 4096 tokens),
-                timed with CUDA events, a few small cases (m 8/12,
-                stochastic, block 32, narrowed weights) and the adaptive
-                path's weights narrowed at 8 bits in 24 x 24 tiles;
+                timed with CUDA events beside torch.matmul and, on the
+                int8 route, torch._int_mm of the same int8 mantissas
+                (yardsticks only), a few small cases (m 8/12, stochastic,
+                block 32, narrowed weights), the route cases (M 1, 8, 100,
+                4096 on both tensor-core routes, m 4, bk 1024 and 2048
+                with near-full mantissas whose int32 sums pass 2^24, f32
+                raw weights on the CUDA cores), each launch's route
+                checked, and the adaptive path's weights narrowed at 8
+                bits in 24 x 24 tiles;
   4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
                 dv) against their plain versions at yi-9b's training
                 attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
@@ -31,12 +37,15 @@ Phases (any failure exits non-zero before the result line):
   7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
-                fp32, exact launch counts of B1-B6, step time, tokens/s,
-                peak memory, and a profile of one step;
+                fp32, exact launch counts of B1-B6, every B1/B2 launch on
+                the int8 wgmma route, step time, tokens/s, peak memory,
+                and a profile of one step;
   8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
                 controller: 8 steps uninterrupted, and 8 steps preempted
                 at 6 and resumed from the step-4 checkpoint, which must
                 agree bit for bit; exact B7 launches per telemetry step;
+                B1/B2 on int8 wgmma before the first widen and on bf16
+                wgmma after it, never on the CUDA cores;
                 a packed save of the master that loads back bit for bit
                 (needs ~25 GB of free disk under build/);
   9. kernels  — B1 against its plain PyTorch version on the card at the
@@ -46,7 +55,8 @@ Phases (any failure exits non-zero before the result line):
  11. serve    — yi-9b at full width (random seeded bf16 weights) served by
                 the port's ServeEngine: 12 overloading requests, paged and
                 slab, plus one async chunked-prefill request; every
-                projection must have gone through the kernels;
+                projection must have gone through the kernels, on the bf16
+                wgmma route;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -55,6 +65,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -99,6 +110,27 @@ TRAIN_SHAPES = {            # weight: (K, N) at gemma2-2b full width
 BWD_SMALL = (("m8", True, 8, 0, False), ("m12", True, 12, 0, False),
              ("m8_b32", True, 8, 32, False), ("m8_stoch", True, 8, 0, True),
              ("narrow_w", False, 8, 0, False))
+# B1/B2 route cases: (name, M, K, N, quantize_w, mantissa_bits,
+# stochastic, (bk, bn) or None for the default tiles, w dtype, near-full
+# mantissas, route of B1 and B2). Non-quantized weights are narrowed at m
+# bits in 128 x 128 tiles. Near-full mantissas (|q| ~ 122-127 on every
+# element) make bk 2048's int32 K-block sums pass 2^24, where an f32 sum
+# would round; bk 1024 stays just below (127^2 * 1024 < 2^24).
+ROUTE_CASES = (
+    tuple((f"int8_M{M}", M, 2304, 2048, True, 8, False, None, "bfloat16",
+           False, "int8_wgmma") for M in (1, 8, 100))
+    + tuple((f"bf16_M{M}", M, 2304, 2048, False, 8, False, None,
+             "bfloat16", False, "bf16_wgmma") for M in (1, 8, 100, 4096))
+    + (("int8_M4096_m4", 4096, 2304, 2048, True, 4, False, None,
+        "bfloat16", False, "int8_wgmma"),
+       ("int8_m4_stoch", 256, 2304, 2048, True, 4, True, None, "bfloat16",
+        False, "int8_wgmma"),
+       ("int8_bk1024", 256, 4096, 4096, True, 8, False, (1024, 1024),
+        "bfloat16", True, "int8_wgmma"),
+       ("int8_bk2048", 256, 4096, 4096, True, 8, False, (2048, 2048),
+        "bfloat16", True, "int8_wgmma"),
+       ("f32_raw_w", 256, 2304, 2048, False, 8, False, None, "float32",
+        False, "cuda_core")))
 # B3 sums tokens with varying scales in f32 in another order than its
 # plain version: |Δ| <= 2·M·2^-24 · (|x̂|ᵀ|ĝ|) elementwise, twice the f32
 # rounding bound of an M-term sum of those products
@@ -295,6 +327,27 @@ def _reps(fn) -> int:
     return max(3, min(200, int(40.0 / max(est, 1e-3))))
 
 
+def _kernel_split(fn, n: int = 3) -> dict:
+    """Device ms per call of each kernel `fn` launches (torch.profiler
+    over n calls after a warm-up), by demangled name up to its argument
+    list; {} when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if us and e.device_type.name == "CUDA":
+            k = re.sub(r"^void ", "", e.key.split("(")[0])
+            out[k] = out.get(k, 0.0) + us / 1e3 / n
+    return out
+
+
 def _bound(ops: float, nbytes: float, kind: str) -> tuple:
     """(least ms, "operations" or "bytes"): the larger of the operations
     over the type's peak and the bytes over the memory rate."""
@@ -335,9 +388,19 @@ def phase_kernels():
                     seed = 0x5EED if st else 0
                     run = lambda: hm.hbfp_matmul_fwd(x, w, seed, **kw)
                     plain = lambda: hm.hbfp_matmul_plain(x, w, seed, **kw)
+                    route = hm.gemm_route(
+                        "fwd", mantissa_bits=m, quantize_w=qw, block=block,
+                        bk=bk, bn=bn, N=N, w_dtype=w.dtype)
+                    before = hm.hbfp_matmul_fwd.launches_by_route[route]
                     yk = run()
                     yp = plain()
                     torch.cuda.synchronize()
+                    if hm.hbfp_matmul_fwd.launches_by_route[route] != \
+                            before + 1:
+                        fail(f"{wname} M={M} {cname}: not on route {route}")
+                    if cname == "served" and xdt == torch.bfloat16 and \
+                            route != "bf16_wgmma":
+                        fail(f"served {wname} M={M} took {route}")
                     err = float((yk - yp).abs().max())
                     scale = float(yp.abs().max())
                     if not torch.isfinite(yk).all():
@@ -357,16 +420,23 @@ def phase_kernels():
                     kms = _time_ms(run, n)
                     pms = _time_ms(plain, 2)
                     mms = _time_ms(mm, n)
+                    if M == 8 and xdt == torch.bfloat16 and cname in (
+                            "served", "qw_m8") and wname in ("wk", "ffn_wg"):
+                        split = _kernel_split(run)
+                        log(f"[kernel]   {wname} M=8 {cname} device ms by "
+                            f"kernel: " + ", ".join(
+                                f"{k} {v:.4f}" for k, v in split.items()))
                     row = dict(weight=wname, M=M, K=K, N=N,
                                x_dtype=str(xdt).replace("torch.", ""),
-                               config=cname, exact_required=block == 0,
+                               config=cname, route=route,
+                               exact_required=block == 0,
                                ok=bool(ok), max_abs_err=err,
                                max_abs_ref=scale, kernel_ms=kms,
                                bound_ms=bound, bound_by=by, plain_ms=pms,
                                matmul_bf16_ms=mms, reps=n)
                     cases.append(row)
                     log(f"[kernel] {wname} M={M} {row['x_dtype'][:4]} "
-                        f"{cname} {'EQ' if block == 0 else 'TOL'} "
+                        f"{cname} {route} {'EQ' if block == 0 else 'TOL'} "
                         f"err={err:.2g} kernel_ms={kms:.4f} "
                         f"bound_ms={bound:.4f}({by[0]}) plain_ms={pms:.3f} "
                         f"matmul_bf16_ms={mms:.4f}")
@@ -393,29 +463,56 @@ def _wgrad_ok(dw, dwp, xh, gh, M):
     return bool((d <= bound).all()), float(d.max()), ratio
 
 
+def _int8_operands(a, w, op, m, bk, bn):
+    """B1's (op "fwd") or B2's int8 mantissas of the activation rows and
+    the weights as the kernels quantize them, for torch._int_mm: (a8
+    [M, C], b8 [C, O] column-major)."""
+    import torch
+    from repro_torch.kernels.common import STREAM_G, STREAM_X
+    from repro_torch.kernels.ref import _quantize_rows, _quantize_w
+    af = a.float()
+    C = af.shape[1]
+    cblk, stream = (bk, STREAM_X) if op == "fwd" else (bn, STREAM_G)
+    qa, _ = _quantize_rows(af, 0, C, C, m, cblk, False, 0, stream)
+    qw, _ = _quantize_w(w.float(), 0, 0, w.shape[1], bk, bn, m, False, 0)
+    a8 = qa.to(torch.int8)
+    w8 = qw.to(torch.int8)
+    del qa, qw, af
+    b8 = w8.t().contiguous().t() if op == "fwd" else w8.t()
+    return a8, b8
+
+
 def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
-              w_narrow=None):
+              w_narrow=None, tiles=None, w_dtype="bfloat16", full=False,
+              route=None):
     """B1, B2 and B3 at one shape and configuration against their plain
     versions; returns one row per kernel. `w_narrow` = (bits, tile)
     narrows the weights at their own format, as the adaptive path does
     for a layer the controller widened (B1 and B2 then take them as
-    stored)."""
+    stored). `tiles` = (bk, bn) replaces the default tiles; `full` draws
+    every operand from U[1.9, 1.99), so every mantissa is near the top of
+    its range; `route` is the route B1 and B2 must take."""
     import torch
     from repro_torch.core import HBFPConfig, bfp
     from repro_torch.kernels import autotune
     from repro_torch.kernels import hbfp_matmul as hm
     dev = torch.device("cuda")
-    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    draw = (lambda shape: torch.rand(shape, generator=gen, device=dev)
+            * 0.09 + 1.9) if full else \
+        (lambda shape: torch.randn(shape, generator=gen, device=dev))
+    w = draw((K, N)) * (1.0 if full else K ** -0.5)
     if not qw:
         bits, tile = w_narrow or (m, 128)
         w = bfp.quantize_weight(w, HBFPConfig(mantissa_bits=bits, tile=tile))
-    w = w.to(torch.bfloat16)
-    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = w.to(getattr(torch, w_dtype))
+    x = draw((M, K)).to(torch.bfloat16)
     # the backward's g: the bf16 grad of y, cast to f32 by the Function
-    g = (torch.randn((M, N), generator=gen, device=dev) * 1e-3).to(
-        torch.bfloat16).float()
-    bm, bk, bn = autotune.align_tiles(
-        autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N), block)
+    g = (draw((M, N)) * 1e-3).to(torch.bfloat16).float()
+    if tiles is None:
+        bm, bk, bn = autotune.align_tiles(
+            autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N), block)
+    else:
+        bm, (bk, bn) = min(128, M), tiles
     kw = dict(mantissa_bits=m, stochastic=st, block=block, bm=bm, bk=bk,
               bn=bn)
     seed = 0x5EED if st else 0
@@ -426,13 +523,14 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
         "hbfp_matmul_fwd": (
             lambda: hm.hbfp_matmul_fwd(x, w, seed, quantize_w=qw, **kw),
             lambda: hm.hbfp_matmul_plain(x, w, seed, quantize_w=qw, **kw),
-            lambda: torch.matmul(x, w),
-            _bound_ms(M, K, N, 2, 2, exact_kind)),
+            lambda: torch.matmul(x, w.to(torch.bfloat16)),
+            _bound_ms(M, K, N, 2, w.element_size(), exact_kind)),
         "hbfp_dgrad": (
             lambda: hm.hbfp_dgrad(g, w, seed, quantize_w=qw, **kw),
             lambda: hm.hbfp_dgrad_plain(g, w, seed, quantize_w=qw, **kw),
-            lambda: torch.matmul(g.to(torch.bfloat16), w.T),
-            _bound(2.0 * M * K * N, 4 * M * N + 2 * K * N + 4 * M * K,
+            lambda: torch.matmul(g.to(torch.bfloat16), w.to(torch.bfloat16).T),
+            _bound(2.0 * M * K * N,
+                   4 * M * N + w.element_size() * K * N + 4 * M * K,
                    exact_kind)),
         "hbfp_wgrad": (
             lambda: hm.hbfp_wgrad(x, g, seed, **kw),
@@ -443,6 +541,7 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
                    "bf16" if m <= 8 else "f32")),
     }
     for kname, (run, plain, mm, (bound, by)) in calls.items():
+        took = None
         if kname == "hbfp_wgrad":
             yk, xh, gh = hm.hbfp_wgrad(x, g, seed, operands=True, **kw)
             yp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, seed, operands=True,
@@ -453,8 +552,12 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
             exact = "operands EQ, dw TOL"
             del xh, gh, xhp, ghp
         else:
+            before = dict(getattr(hm, kname).launches_by_route)
             yk, yp = run(), plain()
             torch.cuda.synchronize()
+            took = [r for r, n in getattr(hm, kname).launches_by_route.items()
+                    if n != before[r]]
+            took = took[0] if len(took) == 1 else str(took)
             err = float((yk - yp).abs().max())
             ratio = None
             if block == 0 and w_narrow is None:
@@ -464,25 +567,45 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
             else:
                 ok = err <= BLOCK_TOL * float(yp.abs().max())
                 exact = "TOL"
+            if route is not None and took != route:
+                fail(f"{kname} {wname} {timed}: took route {took}, expected "
+                     f"{route}")
         if not torch.isfinite(yk).all():
             fail(f"non-finite {kname} output {wname} {M}x{K}x{N}")
         del yk, yp
         row = dict(kernel=kname, weight=wname, M=M, K=K, N=N,
-                   config=timed, ok=bool(ok), check=exact,
+                   config=timed, route=took, ok=bool(ok), check=exact,
                    max_abs_err=err, err_over_bound=ratio, bound_ms=bound,
                    bound_by=by)
         if timed == "train":
             n = _reps(run)
             row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 2),
                        matmul_bf16_ms=_time_ms(mm, n), reps=n)
+            if wname == "ffn_wg" and kname != "hbfp_wgrad":
+                row["kernel_split_ms"] = _kernel_split(run)
+                log(f"[bwd]   {kname} ffn_wg device ms by kernel: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in
+                                row["kernel_split_ms"].items()))
+            if took == "int8_wgmma":
+                # yardstick only: PyTorch's int8 GEMM on the same int8
+                # mantissas (no scales, no promotion); the port never
+                # calls it
+                op = "fwd" if kname == "hbfp_matmul_fwd" else "dgrad"
+                a8, b8 = _int8_operands(x if op == "fwd" else g, w, op, m,
+                                        bk, bn)
+                row["int_mm_ms"] = _time_ms(lambda: torch._int_mm(a8, b8),
+                                            n)
+                del a8, b8
         rows.append(row)
-        log(f"[bwd] {kname} {wname} {M}x{K}x{N} {timed} {exact} "
-            f"err={err:.3g}" + ("" if ratio is None else
-                                f" err/bound={ratio:.3g}")
+        log(f"[bwd] {kname} {wname} {M}x{K}x{N} {timed} {took or ''} "
+            f"{exact} err={err:.3g}" + ("" if ratio is None else
+                                        f" err/bound={ratio:.3g}")
             + ("" if timed != "train" else
                f" kernel_ms={row['kernel_ms']:.3f} bound_ms={bound:.4f}"
                f"({by[0]}) plain_ms={row['plain_ms']:.2f} "
-               f"matmul_bf16_ms={row['matmul_bf16_ms']:.4f}"))
+               f"matmul_bf16_ms={row['matmul_bf16_ms']:.4f}"
+               + (f" int_mm_ms={row['int_mm_ms']:.4f}"
+                  if "int_mm_ms" in row else "")))
         if not ok:
             fail(f"{kname} != plain: {row}")
     return rows
@@ -490,30 +613,41 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
 
 def phase_bwd():
     """B1/B2/B3 at gemma2-2b's training shapes (the training
-    configuration: quantized bf16 weights, m = 8, nearest) plus small
-    cases of the other configurations."""
+    configuration: quantized bf16 weights, m = 8, nearest; B1 and B2 on
+    the int8 wgmma route) plus small cases of the other configurations
+    and the route cases."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
     for wname, (K, N) in TRAIN_SHAPES.items():
         rows += _bwd_case(wname, TRAIN_M, K, N, True, 8, 0, False, gen,
-                          "train")
+                          "train", route="int8_wgmma")
         torch.cuda.empty_cache()
+    small_routes = {"m8": "int8_wgmma", "m12": "cuda_core",
+                    "m8_b32": "cuda_core", "m8_stoch": "int8_wgmma",
+                    "narrow_w": "bf16_wgmma"}
     for cname, qw, m, block, st in BWD_SMALL:
         rows += _bwd_case("wq", 256, 2304, 2048, qw, m, block, st, gen,
-                          cname)
+                          cname, route=small_routes[cname])
+    for cname, M, K, N, qw, m, st, tiles, wdt, full, route in ROUTE_CASES:
+        rows += _bwd_case("wq", M, K, N, qw, m, 0, st, gen, cname,
+                          tiles=tiles, w_dtype=wdt, full=full, route=route)
+        torch.cuda.empty_cache()
     # the adaptive path after a widen: x at m 4 against yi-9b ffn_wg
     # weights narrowed at 8 bits in 24 x 24 tiles, taken as stored
     rows += _bwd_case("ffn_wg", 4096, 4096, 11008, False, 4, 0, False, gen,
-                      "adaptive_w8_t24", w_narrow=(8, 24))
+                      "adaptive_w8_t24", w_narrow=(8, 24),
+                      route="bf16_wgmma")
     torch.cuda.empty_cache()
     for k in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"):
         tr = [r for r in rows if r["kernel"] == k and r["config"] == "train"]
+        im = [r["int_mm_ms"] for r in tr if "int_mm_ms" in r]
         log(f"[bwd] {k}: one layer + head at M={TRAIN_M}: kernel_ms "
             f"{sum(r['kernel_ms'] for r in tr):.2f}, bound_ms "
             f"{sum(r['bound_ms'] for r in tr):.3f}, plain_ms "
             f"{sum(r['plain_ms'] for r in tr):.1f}, matmul_bf16_ms "
-            f"{sum(r['matmul_bf16_ms'] for r in tr):.3f}")
+            f"{sum(r['matmul_bf16_ms'] for r in tr):.3f}"
+            + (f", int_mm_ms {sum(im):.3f}" if len(im) == len(tr) else ""))
     return rows
 
 
@@ -883,10 +1017,17 @@ def _profile_step(trainer, steps: int):
     total = sum(r[1] for r in rows)
     if not total:
         return None
-    groups = {"B1 gemm (fwd)": r"gemm_kernel<\d+, \d+, false",
-              "B2 gemm (dgrad)": r"gemm_kernel<\d+, \d+, true",
+    groups = {"B1 gemm (fwd)": r"(^|[^_])gemm_kernel<\d+, \d+, false|"
+                               r"tc_gemm_kernel<\d+, \w+, \w+, false>",
+              "B2 gemm (dgrad)": r"(^|[^_])gemm_kernel<\d+, \d+, true|"
+                                 r"tc_gemm_kernel<\d+, \w+, \w+, true>",
+              "B1/B2 split-K fold": r"fold_kernel",
+              "B1/B2 quantize passes (int8, bf16)":
+                  r"quantize_(rows|w)_kernel<\w+, (signed char|"
+                  r"__nv_bfloat16)",
               "B3 gemm (wgrad)": r"wgrad_gemm_kernel",
-              "B1-B3 quantize passes": r"quantize_(rows|w)_kernel",
+              "f32 quantize passes (B3, cuda_core)":
+                  r"quantize_(rows|w)_kernel<\w+, float",
               "B4 flash fwd": r"flash_fwd_kernel",
               "B5 flash dq": r"flash_dq_kernel",
               "B6 flash dkv": r"flash_dkv_kernel"}
@@ -901,6 +1042,20 @@ def _profile_step(trainer, steps: int):
 
 FLASH_KERNELS = ("hbfp_flash_fwd", "hbfp_flash_dq", "hbfp_flash_dkv")
 GEMM_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")
+ROUTED_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad")     # B1, B2
+
+
+def _routes():
+    """B1's and B2's launches by route since the last reset."""
+    from repro_torch.kernels import hbfp_matmul as hm
+    return {k: dict(getattr(hm, k).launches_by_route)
+            for k in ROUTED_KERNELS}
+
+
+def _all_on(routes: dict, route: str) -> bool:
+    """Every counted B1/B2 launch took `route`."""
+    return all(n == 0 for by in routes.values() for r, n in by.items()
+               if r != route)
 
 
 def phase_train_full(card: str, arch_name: str, B: int, S: int,
@@ -962,6 +1117,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     torch.cuda.synchronize()
     counts = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
     counts.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
+    routes = _routes()
     plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) + \
         sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -982,13 +1138,16 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     log(f"{tag} step times {[round(t, 3) for t in step_s]} s, "
         f"{tok_s:.0f} tokens/s, peak {peak:.2f} of {total:.2f} GiB | {card}")
     log(f"{tag} launches over 3 steps {counts} (expected {want}), plain "
-        f"calls {plain}; step-0 loss HBFP {loss0:.4f} vs fp32 "
-        f"{loss_fp32:.4f}")
+        f"calls {plain}; B1/B2 by route {routes}; step-0 loss HBFP "
+        f"{loss0:.4f} vs fp32 {loss_fp32:.4f}")
     if not all(torch.isfinite(torch.tensor(losses))):
         fail(f"{arch_name}: non-finite training loss {losses}")
     if counts != want or plain != 0:
         fail(f"{arch_name}: launch counts {counts} != {want} or plain "
              f"calls {plain}")
+    if not _all_on(routes, "int8_wgmma"):
+        fail(f"{arch_name}: a training B1/B2 launch left the int8 wgmma "
+             f"route: {routes}")
     if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
         fail(f"{arch_name}: step-0 HBFP loss {loss0} not within 2% of fp32 "
              f"{loss_fp32}")
@@ -1002,7 +1161,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     result = dict(arch=arch_name, layers=L, params=n_params, tokens=B * S,
                   losses=losses, loss_fp32_step0=loss_fp32, step_s=step_s,
                   tokens_per_s=tok_s, peak_gib=peak, total_gib=total,
-                  launches=counts, profile=prof)
+                  launches=counts, routes=routes, profile=prof)
     del trainer, state, step
     torch.cuda.empty_cache()
     return result
@@ -1010,7 +1169,8 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
 
 def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
     """Drive one engine over the trace; returns (tokens, stats, launches,
-    stage calls, generate seconds, plain calls)."""
+    stage calls, generate seconds, plain calls, wall seconds, B1 launches
+    by route)."""
     import torch
     from repro_torch.kernels import hbfp_matmul as hm
     from repro_torch.serve import ServeEngine
@@ -1034,6 +1194,31 @@ def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
     eng._prefill = counted("prefill", eng._prefill)
     eng._extend = counted("extend", eng._extend)
     eng._generate = counted("generate", eng._generate)
+    tick = {}
+    gen_fn = eng._generate
+
+    def profiled(*a, **k):
+        # one steady generate tick (the 20th) under torch.profiler: its
+        # kernels' device time against its synchronized wall time
+        if calls["generate"] != 19 or tick:
+            return gen_fn(*a, **k)
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = gen_fn(*a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [(e.key, getattr(e, "device_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+        busy = sum(us for _, us in dev) / 1e3
+        b1 = sum(us for k, us in dev if "gemm_kernel" in k
+                 or "quantize_rows" in k or "fold_kernel" in k) / 1e3
+        tick.update(wall_ms=wall * 1e3, device_ms=busy, b1_ms=b1)
+        return out
+
+    eng._generate = profiled
     torch.cuda.synchronize()
     hm.reset_counts()                      # counts cover the main path only
     t0 = time.perf_counter()
@@ -1044,10 +1229,15 @@ def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
     wall = time.perf_counter() - t0
     launches = hm.hbfp_matmul_fwd.launches
     plain = hm.hbfp_matmul_fwd.plain_calls
+    routes = dict(hm.hbfp_matmul_fwd.launches_by_route)
     stats = dict(eng.request_stats)
-    del eng
+    stats["_tick"] = tick
+    # the counting wrappers above hold the engine in a reference cycle:
+    # collect it, so the next engine does not share the device with it
+    del eng, gen_fn, profiled
+    gc.collect()
     torch.cuda.empty_cache()
-    return res, stats, launches, calls, gen_s[0], plain, wall
+    return res, stats, launches, calls, gen_s[0], plain, wall, routes
 
 
 def phase_serve(card: str):
@@ -1070,21 +1260,29 @@ def phase_serve(card: str):
                for n in lens]
     per_call = 7 * arch.n_layers + 1
     n_new = 32
-    results = {}
+    results, ticks = {}, {}
     for mode, kw in (("paged", dict(paged=True)), ("slab", dict(paged=False))):
-        res, stats, launches, calls, gen_s, plain, wall = _serve_trace(
-            dict(max_batch=8, ctx_len=1024, **kw), arch, params, pol,
-            prompts, n_new)
+        res, stats, launches, calls, gen_s, plain, wall, routes = \
+            _serve_trace(dict(max_batch=8, ctx_len=1024, **kw), arch,
+                         params, pol, prompts, n_new)
         results[mode] = res
         n_calls = sum(calls.values())
         want = per_call * n_calls
+        tick = stats.pop("_tick")
         ttft = sorted(s["ttft_s"] for s in stats.values())
         dec_tokens = sum(len(t) - 1 for t in res.values())
         log(f"[serve] {mode}: {len(res)} requests, stage calls {calls}, "
             f"kernel launches {launches} (expected {want}), plain calls "
             f"{plain}, TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, decode "
             f"{dec_tokens / gen_s:.1f} tok/s over {calls['generate']} "
-            f"generate ticks ({gen_s:.2f} s), wall {wall:.2f} s | {card}")
+            f"generate ticks ({gen_s:.2f} s), wall {wall:.2f} s, B1 by "
+            f"route {routes} | {card}")
+        if tick:
+            log(f"[serve] {mode}: profiled tick {tick['wall_ms']:.1f} ms "
+                f"wall, {tick['device_ms']:.1f} ms of kernels (device idle "
+                f"{1 - tick['device_ms'] / tick['wall_ms']:.1%}), B1 "
+                f"{tick['b1_ms']:.1f} ms")
+        ticks[mode] = tick
         if len(res) != len(prompts) or any(len(t) != n_new
                                             for t in res.values()):
             fail(f"{mode}: not every request completed: "
@@ -1094,24 +1292,28 @@ def phase_serve(card: str):
             fail(f"{mode}: token out of range")
         if launches != want or plain != 0 or launches == 0:
             fail(f"{mode}: launches {launches} != {want} or plain {plain}")
+        if routes["bf16_wgmma"] != launches:
+            fail(f"{mode}: a served B1 launch left the bf16 wgmma route: "
+                 f"{routes}")
         if mode == "paged":
             kernel_launches = launches
     if results["paged"] != results["slab"]:
         fail("paged greedy tokens differ from the slab engine's")
     log("[serve] paged == slab greedy tokens on the same trace")
-    res, stats, launches, calls, gen_s, plain, wall = _serve_trace(
+    res, stats, launches, calls, gen_s, plain, wall, routes = _serve_trace(
         dict(max_batch=8, ctx_len=1024, prefill_chunk=128,
              async_prefill=True), arch, params, pol, [prompts[7]], n_new)
+    stats.pop("_tick")
     want = per_call * sum(calls.values())
     log(f"[serve] async chunked prefill (chunk 128, prompt {lens[7]}): "
         f"stage calls {calls}, launches {launches} (expected {want}), "
         f"tokens {len(res[0])}")
     if len(res[0]) != n_new or launches != want or plain != 0 \
-            or calls["extend"] == 0:
-        fail("async chunked prefill run")
+            or calls["extend"] == 0 or routes["bf16_wgmma"] != launches:
+        fail(f"async chunked prefill run (B1 by route {routes})")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[serve] peak device memory {peak:.2f} GiB | {card}")
-    return kernel_launches
+    return kernel_launches, ticks
 
 
 def _adapt_policy():
@@ -1225,6 +1427,8 @@ def _counts():
     from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
     out = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
+    out.update({f"{k}/{r}": n for k in ROUTED_KERNELS
+                for r, n in getattr(hm, k).launches_by_route.items()})
     out.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
     out["bfp_quantize"] = bq.bfp_quantize.launches
     plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) \
@@ -1392,6 +1596,27 @@ def phase_adaptive_full(card: str):
     if bad_counts:
         fail(f"adaptive-full: B7 launches (step, launches, plain) "
              f"{bad_counts}, expected {taps} per telemetry step")
+    # B1/B2: int8 wgmma while every layer requantizes its weights in the
+    # kernel, bf16 wgmma on the narrowed weights once the first widen
+    # applies (decided at the end of its step), never the CUDA cores
+    widen = min((dd["step"] for dd in meta_a["log"]
+                 if dd["action"] == "widen"), default=None)
+    by_step = {r["step"]: {t: sum(r["launches"][f"{k}/{t}"]
+                                  for k in ROUTED_KERNELS)
+                           for t in ("int8_wgmma", "bf16_wgmma",
+                                     "cuda_core")}
+               for r in rows_a}
+    for st, by in sorted(by_step.items()):
+        log(f"{tag} step {st}: B1+B2 by route {by}")
+    bad_routes = [st for st, by in by_step.items()
+                  if by["cuda_core"] or (by["int8_wgmma"] and
+                                         by["bf16_wgmma"])
+                  or (widen is not None and st <= widen
+                      and by["bf16_wgmma"])]
+    if bad_routes or widen is None or not any(
+            by["bf16_wgmma"] for st, by in by_step.items() if st > widen):
+        fail(f"adaptive-full: B1/B2 routes by step {by_step} (first widen "
+             f"at step {widen})")
     if not any(dd["action"] == "widen" for dd in meta_a["log"]) or not all(
             torch.isfinite(torch.tensor([r["loss"] for r in rows_a]))):
         fail("adaptive-full: no widen or a non-finite loss")
@@ -1463,10 +1688,15 @@ def _bound_by(rows) -> str:
         else "bytes"
 
 
-def _bwd_entry(name, rows, by_path, replaces, source):
+def _bwd_entry(name, rows, by_path, replaces, source, by_route=None):
     """One kernel's JSON entry from the bwd phase: times summed over one
-    gemma2-2b layer's seven projections and the head at M = 4096."""
+    gemma2-2b layer's seven projections and the head at M = 4096; B1/B2
+    also carry their main-path launches by route and torch._int_mm on the
+    same int8 mantissas (a yardstick, never called by the port)."""
     tr = [r for r in rows if r["kernel"] == name and r["config"] == "train"]
+    extra = {} if by_route is None else {
+        "launches_by_route": by_route,
+        "int_mm_ms": sum(r.get("int_mm_ms", 0.0) for r in tr)}
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
@@ -1479,6 +1709,7 @@ def _bwd_entry(name, rows, by_path, replaces, source):
         "bound_by": _bound_by(tr),
         "library_ms": None,
         "matmul_bf16_ms": sum(r["matmul_bf16_ms"] for r in tr),
+        **extra,
     }
 
 
@@ -1554,7 +1785,7 @@ def main() -> int:
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     phase_model()
-    serve_launches = phase_serve(card)
+    serve_launches, serve_ticks = phase_serve(card)
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1562,7 +1793,8 @@ def main() -> int:
                    "cases": cases, "bwd_cases": bwd, "flash_cases": flash,
                    "quantize_cases": quant, "train_smoke": train_smoke,
                    "adaptive_smoke": adapt_smoke, "train_full": train,
-                   "train_full_yi": train_yi, "adaptive_full": adapt},
+                   "train_full_yi": train_yi, "adaptive_full": adapt,
+                   "serve_ticks": serve_ticks},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -1571,6 +1803,15 @@ def main() -> int:
                          "train_yi": train_yi["launches"][k],
                          "adaptive_yi": adapt["launches"][k]}
     b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
+    # main-path launches by route: training and the adaptive run counted
+    # per route; every served launch was checked to be bf16 wgmma
+    by_route = lambda k, served=0: {
+        r: train["routes"][k][r] + train_yi["routes"][k][r]
+        + adapt["launches"][f"{k}/{r}"]
+        + (served if r == "bf16_wgmma" else 0)
+        for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
+    b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
+                          by_route("hbfp_matmul_fwd", serve_launches))
     b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
         "source": src + "hbfp_matmul_fwd.cu",
@@ -1587,10 +1828,15 @@ def main() -> int:
         "bound_by": _bound_by(tick),
         "library_ms": None,
         "matmul_bf16_ms": sum(c["matmul_bf16_ms"] for c in tick),
+        "launches_by_route": b1_train["launches_by_route"],
+        # one gemma2-2b layer + head at M = 4096 (the training forward)
+        "train_ms": b1_train["ms"], "train_bound_ms": b1_train["bound_ms"],
+        "train_plain_ms": b1_train["plain_ms"],
+        "train_int_mm_ms": b1_train["int_mm_ms"],
     }
     b2 = _bwd_entry("hbfp_dgrad", bwd, by_path("hbfp_dgrad"),
                     "src/repro/kernels/hbfp_matmul.py:262",
-                    src + "hbfp_matmul_bwd.cu")
+                    src + "hbfp_matmul_bwd.cu", by_route("hbfp_dgrad"))
     b3 = _bwd_entry("hbfp_wgrad", bwd, by_path("hbfp_wgrad"),
                     "src/repro/kernels/hbfp_matmul.py:352",
                     src + "hbfp_matmul_bwd.cu")

@@ -1,8 +1,9 @@
 // Shared device code of the HBFP GEMM kernels for Hopper (sm_90a): the
 // exponent and rounding helpers, the two quantize passes and the CUDA-core
-// GEMM pass with exact per-block partial sums. hbfp_matmul_fwd.cu (B1) and
-// hbfp_matmul_bwd.cu (B2 dgrad, B3 wgrad) include it; each build hashes
-// this header together with its source.
+// GEMM pass with exact per-block partial sums (the `cuda_core` route; the
+// tensor-core routes are in hbfp_gemm_sm90.cuh). hbfp_matmul_fwd.cu (B1)
+// and hbfp_matmul_bwd.cu (B2 dgrad, B3 wgrad) include it; each build
+// hashes both headers together with its source.
 //
 // Quantization follows repro_torch/kernels/common.py bit for bit:
 // exponent floor(log2 amax) from the f32 bit field, clamped to
@@ -68,13 +69,27 @@ __device__ __forceinline__ float quantize_val(float x, float delta, float lim,
 
 constexpr int kThreads = 256;  // every kernel here runs 256 threads
 
+// Mantissa stores of the quantize passes: f32 as computed, or the
+// integral m <= 8 mantissa as int8 or bf16 (both exact) for the
+// tensor-core GEMMs (hbfp_gemm_sm90.cuh).
+__device__ __forceinline__ void store_q(float* q, size_t i, float v) {
+  q[i] = v;
+}
+__device__ __forceinline__ void store_q(int8_t* q, size_t i, float v) {
+  q[i] = static_cast<int8_t>(__float2int_rn(v));
+}
+__device__ __forceinline__ void store_q(__nv_bfloat16* q, size_t i, float v) {
+  q[i] = __float2bfloat16_rn(v);
+}
+
 // Row pass. One warp per (row, group of gx columns) of a [M, C] operand:
-// amax, exponent, mantissas. q gets integral mantissas, or mantissa *
-// delta when dequant is set; s[row, group] gets delta. `stream` is the
-// operand's offset in the stochastic stream (kStreamX, kStreamG).
-template <typename XT>
+// amax, exponent, mantissas. q gets integral mantissas (f32, or int8/bf16
+// for QT of the tensor-core routes), or mantissa * delta when dequant is
+// set; s[row, group] gets delta. `stream` is the operand's offset in the
+// stochastic stream (kStreamX, kStreamG).
+template <typename XT, typename QT = float>
 __global__ void quantize_rows_kernel(const XT* __restrict__ x,
-                                     float* __restrict__ q,
+                                     QT* __restrict__ q,
                                      float* __restrict__ s, int M, int C,
                                      int gx, int mbits, int stochastic,
                                      uint32_t seed, uint32_t stream,
@@ -98,18 +113,20 @@ __global__ void quantize_rows_kernel(const XT* __restrict__ x,
                          static_cast<uint32_t>(g * gx + c) + stream;
     const float v = quantize_val(to_f(x[base + c]), delta, lim, stochastic,
                                  seed, idx);
-    q[base + c] = dequant ? __fmul_rn(v, delta) : v;
+    store_q(q, base + c, dequant ? __fmul_rn(v, delta) : v);
   }
   if (lane == 0) s[static_cast<size_t>(row) * ngroups + g] = delta;
 }
 
 // Weight pass. One CTA per (gk x gn) group of w [K, N]: amax by block
 // reduction, then the group's mantissas (or dequantized values) into wq
-// and delta into sw [K/gk, N/gn]. The stream index is w's own element
-// index, so the forward and dgrad replay the same draws.
-template <typename WT>
+// and delta into sw [K/gk, N/gn]. TRANS writes wq transposed, [N, K]
+// (the forward's int8 operand, K-major for wgmma), threads running along
+// K. The stream index is w's own element index, so the forward and dgrad
+// replay the same draws.
+template <typename WT, typename QT = float, bool TRANS = false>
 __global__ void quantize_w_kernel(const WT* __restrict__ w,
-                                  float* __restrict__ wq,
+                                  QT* __restrict__ wq,
                                   float* __restrict__ sw, int K, int N,
                                   int gk, int gn, int mbits, int stochastic,
                                   uint32_t seed, int dequant) {
@@ -137,34 +154,35 @@ __global__ void quantize_w_kernel(const WT* __restrict__ w,
   const float delta = pow2i(max_exponent(red[0]) - mbits + 2);
   const float lim = static_cast<float>((1 << (mbits - 1)) - 1);
   for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int r = t / gn, c = t % gn;
+    const int r = TRANS ? t % gk : t / gn, c = TRANS ? t / gk : t % gn;
     const size_t off = static_cast<size_t>(k0 + r) * N + n0 + c;
     const uint32_t idx =
         static_cast<uint32_t>(k0 + r) * static_cast<uint32_t>(N) +
         static_cast<uint32_t>(n0 + c) + kStreamW;
     const float q = quantize_val(to_f(w[off]), delta, lim, stochastic, seed, idx);
-    wq[off] = dequant ? __fmul_rn(q, delta) : q;
+    store_q(wq, TRANS ? static_cast<size_t>(n0 + c) * K + k0 + r : off,
+            dequant ? __fmul_rn(q, delta) : q);
   }
   if (threadIdx.x == 0) sw[static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x] = delta;
 }
 
-template <typename XT>
-void launch_quantize_rows(const void* x, float* q, float* s, int M, int C,
+template <typename XT, typename QT = float>
+void launch_quantize_rows(const void* x, QT* q, float* s, int M, int C,
                           int gx, int mbits, int stochastic, uint32_t seed,
                           uint32_t stream, int dequant, cudaStream_t st) {
   const long long warps = static_cast<long long>(M) * (C / gx);
   const int blocks = static_cast<int>((warps * 32 + kThreads - 1) / kThreads);
-  quantize_rows_kernel<XT><<<blocks, kThreads, 0, st>>>(
+  quantize_rows_kernel<XT, QT><<<blocks, kThreads, 0, st>>>(
       static_cast<const XT*>(x), q, s, M, C, gx, mbits, stochastic, seed,
       stream, dequant);
 }
 
-template <typename WT>
-void launch_quantize_w(const void* w, float* wq, float* sw, int K, int N,
+template <typename WT, typename QT = float, bool TRANS = false>
+void launch_quantize_w(const void* w, QT* wq, float* sw, int K, int N,
                        int gk, int gn, int mbits, int stochastic,
                        uint32_t seed, int dequant, cudaStream_t st) {
   dim3 grid(N / gn, K / gk);
-  quantize_w_kernel<WT><<<grid, kThreads, 0, st>>>(
+  quantize_w_kernel<WT, QT, TRANS><<<grid, kThreads, 0, st>>>(
       static_cast<const WT*>(w), wq, sw, K, N, gk, gn, mbits, stochastic,
       seed, dequant);
 }

@@ -12,10 +12,12 @@
 // replays the forward's draws; quantize_w = 0 takes w as given (narrowed
 // upstream). w is read in its stored [K, N] layout and contracted along its
 // rows: nothing is transposed in memory. The quantize passes and the GEMM
-// pass are B1's (hbfp_common.cuh) with the contraction over N, so B2 keeps
-// B1's exactness: each N-block's partial sum is exact (integral mantissas,
-// f32 at m <= 8, float64 above) and the partial sums are added in
-// ascending N-block order with explicit round-to-nearest multiply and add.
+// passes are B1's (hbfp_common.cuh, hbfp_gemm_sm90.cuh) with the
+// contraction over N, so B2 keeps B1's exactness: each N-block's partial
+// sum is exact (integral mantissas; int32 on the int8 route, f32 on the
+// bf16 and CUDA-core routes at m <= 8, float64 above) and the partial
+// sums are added in ascending N-block order with explicit round-to-nearest
+// multiply and add.
 // For block = 0 B2 equals its plain version (hbfp_dgrad_plain) bit for bit.
 //
 // hbfp_wgrad replaces hbfp_matmul.py: hbfp_wgrad_pallas (body
@@ -39,13 +41,23 @@
 // (m <= 8 mantissas are exact in int8), 0.65 ms for B3 at the bf16 rate
 // (its dequantized m <= 8 operands are exact in bf16).
 //
-// What this simple design leaves on the table: both GEMMs run on CUDA
-// cores in f32 (no mma/wgmma, no TMA, no cp.async pipelining), and the
-// quantized operands make a round trip through device memory. The redesign
-// is int8 wgmma with int32 accumulate per N-block for B2 and bf16 wgmma
-// with f32 accumulate for B3.
+// B2's routes are B1's (hbfp_gemm_sm90.cuh: tc_route). int8_wgmma (the
+// training dgrad): g's int8 mantissas [M, N] against w's int8 mantissas
+// in w's own [K, N] layout, which is K-major for a contraction over N, so
+// nothing is transposed; s8 x s8 -> s32 wgmma, exact per N-block.
+// bf16_wgmma (the adaptive path after a widen: w narrowed upstream, bf16):
+// g's bf16 mantissas against w as stored. cuda_core: the rest, unchanged.
+// At M <= 64 the N-blocks split across CTAs with B1's ordered fold.
+//
+// What the design leaves on the table: B2 shares B1's (the promotion
+// waits for its wgmma group inside a warpgroup, the 128 x 128 tile is
+// bound by L2 bytes before the tensor cores, scalar weight pass).
+// B3 is unchanged: it still runs on CUDA cores in f32 (no mma/wgmma, no
+// TMA), and its quantized operands make an f32 round trip through device
+// memory; its redesign is bf16 wgmma with f32 accumulate.
 
 #include "hbfp_common.cuh"
+#include "hbfp_gemm_sm90.cuh"
 
 using namespace hbfp;
 
@@ -113,15 +125,20 @@ wgrad_gemm_kernel(const float* __restrict__ xq, const float* __restrict__ gq,
 }  // namespace
 
 // Plain C entry point of B2. g: [M,N] f32 or bf16 (g_bf16); w: [K,N] f32
-// or bf16 (w_bf16); dx: [M,K] f32. Scratch, allocated by the caller:
-// gq [M,N] f32, sg [M, N/gg] f32, and when quantize_w is set wq [K,N] f32
-// and sw [K/gk, N/gn] f32. (bk, bn) are the reference's clipped,
-// block-aligned tiles; K and N must be multiples of them. Returns a
-// cudaError_t code.
+// or bf16 (w_bf16); dx: [M,K] f32. Scratch, allocated by the caller for
+// the call's route, the other pointers null. cuda_core: gq [M,N] f32,
+// sg [M, N/gg] f32, and when quantize_w is set wq [K,N] f32 and
+// sw [K/gk, N/gn] f32. int8_wgmma: gq8 [M,N] int8, sg, wq8 [K,N] int8,
+// sw. bf16_wgmma: gq8 [M,N] bf16, sg. Both tensor-core routes at M <= 64
+// take part [N/bn, M, K] f32 when the N-blocks are split. (bk, bn) are
+// the reference's clipped, block-aligned tiles; K and N must be multiples
+// of them. A scratch set that does not match the route is refused.
+// Returns a cudaError_t code.
 extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
                           int w_bf16, float* dx, float* gq, float* sg,
-                          float* wq, float* sw, int M, int K, int N, int bk,
-                          int bn, int mbits, int stochastic, int quantize_w,
+                          float* wq, float* sw, void* gq8, void* wq8,
+                          float* part, int M, int K, int N, int bk, int bn,
+                          int mbits, int stochastic, int quantize_w,
                           int block, int seed, void* stream_ptr) {
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
       N % bn || mbits < 2 || mbits > 12 || block < 0)
@@ -138,26 +155,66 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
   const int dequant = mode == kModeDeq;
   const uint32_t useed = static_cast<uint32_t>(seed);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-
-  if (g_bf16)
-    launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
-                                        stochastic, useed, kStreamG, dequant,
-                                        stream);
-  else
-    launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
-                                useed, kStreamG, dequant, stream);
-  if (quantize_w) {
-    if (w_bf16)
-      launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
-                                       stochastic, useed, dequant, stream);
-    else
-      launch_quantize_w<float>(w, wq, sw, K, N, gk, gn, mbits, stochastic,
-                               useed, dequant, stream);
-  }
   // contraction over N (blocks of bn), output columns over K (tiles of bk)
-  launch_gemm_case<true>(quantize_w, mode, mbits, w_bf16, gq, sg, w, wq, sw,
-                         dx, M, N, K, bn, bk, stream);
-  return static_cast<int>(cudaGetLastError());
+  const int route = sm90::tc_route(quantize_w, mode, mbits, w_bf16, bn, bk, 0);
+  const bool i8 = route == sm90::kRouteInt8;
+
+  if (route == sm90::kRouteCudaCore) {
+    if (gq == nullptr || gq8 != nullptr || (quantize_w && wq == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (g_bf16)
+      launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
+                                          stochastic, useed, kStreamG,
+                                          dequant, stream);
+    else
+      launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
+                                  useed, kStreamG, dequant, stream);
+    if (quantize_w) {
+      if (w_bf16)
+        launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
+                                         stochastic, useed, dequant, stream);
+      else
+        launch_quantize_w<float>(w, wq, sw, K, N, gk, gn, mbits, stochastic,
+                                 useed, dequant, stream);
+    }
+    launch_gemm_case<true>(quantize_w, mode, mbits, w_bf16, gq, sg, w, wq,
+                           sw, dx, M, N, K, bn, bk, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  if (gq8 == nullptr || gq != nullptr || i8 != (wq8 != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (i8) {
+    int8_t* q = static_cast<int8_t*>(gq8);
+    if (g_bf16)
+      launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
+                                          stochastic, useed, kStreamG, 0,
+                                          stream);
+    else
+      launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
+                                  useed, kStreamG, 0, stream);
+    int8_t* qw = static_cast<int8_t*>(wq8);
+    if (w_bf16)
+      launch_quantize_w<__nv_bfloat16, int8_t>(w, qw, sw, K, N, bk, bn,
+                                               mbits, stochastic, useed, 0,
+                                               stream);
+    else
+      launch_quantize_w<float, int8_t>(w, qw, sw, K, N, bk, bn, mbits,
+                                       stochastic, useed, 0, stream);
+  } else {
+    __nv_bfloat16* q = static_cast<__nv_bfloat16*>(gq8);
+    if (g_bf16)
+      launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
+                                          stochastic, useed, kStreamG, 0,
+                                          stream);
+    else
+      launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
+                                  useed, kStreamG, 0, stream);
+  }
+  const cudaError_t e = sm90::tc_gemm<true>(
+      route, false, gq8, sg, i8 ? wq8 : w, sw, dx, part, M, N, K, bn, bk,
+      mbits, stream);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // Plain C entry point of B3. x: [M,K] f32 or bf16 (x_bf16); g: [M,N] f32

@@ -7,14 +7,24 @@ port of `repro.kernels.hbfp_matmul.hbfp_matmul_pallas`) and
     dx[M,K] = Σ_nb Q_row(g)[M,bn] · (Q_tile(w) or narrow w)[bk,bn]ᵀ · δg(·δw)
     dw[K,N] = Σ_m  (Q_row(x)·δx)[m,K]ᵀ (Q_row(g)·δg)[m,N]
 
-Each CUDA source (with the shared `csrc/hbfp_common.cuh`) is compiled
-with `nvcc` at first use into `build/repro_torch/` (a plain C entry point
-loaded with ctypes), never at import, so the CPU tests import this module
-freely. A wrapper launches its kernel for CUDA tensors and raises if it
-cannot; for CPU tensors it computes the plain version (`kernels/ref.py`).
-Nothing falls back from the card to the plain version.
+Each CUDA source (with the shared headers `csrc/hbfp_common.cuh` and
+`csrc/hbfp_gemm_sm90.cuh`) is compiled with `nvcc` at first use into
+`build/repro_torch/` (a plain C entry point loaded with ctypes), never at
+import, so the CPU tests import this module freely. A wrapper launches its
+kernel for CUDA tensors and raises if it cannot; for CPU tensors it
+computes the plain version (`kernels/ref.py`). Nothing falls back from the
+card to the plain version.
 
-Counters: each wrapper's `.launches` counts kernel launches and
+Routes of B1 and B2 (`gemm_route`, which the C side's `tc_route`
+mirrors): "int8_wgmma" (weights quantized in the kernel, no sub-tile
+groups, m <= 8: every training call), "bf16_wgmma" (bf16 weights taken as
+stored, no activation sub-groups, m <= 8: serving, prefill, the adaptive
+path after a widen) and "cuda_core" (everything else: m 9-12, block > 0,
+f32 raw weights). A route is chosen by the call's arithmetic, never
+retried on another; `gemm_scratch` gives each route's scratch.
+
+Counters: each wrapper's `.launches` counts kernel launches,
+`.launches_by_route` (B1, B2) the same launches by route, and
 `.plain_calls` counts CPU calls of its plain version (`reset_counts()`
 zeroes all of them).
 """
@@ -36,7 +46,8 @@ from repro_torch.kernels.ref import hbfp_wgrad_ref as hbfp_wgrad_plain
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-HEADER = os.path.join(_CSRC, "hbfp_common.cuh")
+HEADERS = (os.path.join(_CSRC, "hbfp_common.cuh"),
+           os.path.join(_CSRC, "hbfp_gemm_sm90.cuh"))
 # library name -> source; each library's entry points and their ctypes
 # argument kinds ("p" pointer, "i" int, "f" float)
 SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
@@ -44,8 +55,9 @@ SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
            "hbfp_flash_attn": os.path.join(_CSRC, "hbfp_flash_attn.cu"),
            "bfp_quantize": os.path.join(_CSRC, "bfp_quantize.cu")}
 _ENTRIES = {
-    "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipippppp" + "i" * 10 + "p"},
-    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipippppp" + "i" * 10 + "p",
+    "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipip" + "p" * 7 + "i" * 10
+                        + "p"},
+    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 10 + "p",
                         "hbfp_wgrad": "pipippppp" + "i" * 9 + "p"},
     "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "i" * 8 + "fp",
                         "hbfp_flash_dq": "ppppppip" + "i" * 8 + "fp",
@@ -56,6 +68,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# cuTensorMapEncodeTiled (the TMA descriptors) is a driver-API symbol
+NVCC_LIBS = ("-lcuda",)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,9 +84,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Build output of library `name`, named by the hash of its source and
-    the shared header so an edited source never loads a stale library."""
+    the shared headers so an edited source never loads a stale library."""
     h = hashlib.sha1()
-    for path in (SOURCES[name], HEADER):
+    for path in (SOURCES[name], *HEADERS):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -86,7 +100,8 @@ def build(name: str) -> dict:
     out = library_path(name)
     t0 = time.perf_counter()
     r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp",
-                        SOURCES[name]], capture_output=True, text=True)
+                        SOURCES[name], *NVCC_LIBS], capture_output=True,
+                       text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n"
                            f"{r.stdout}{r.stderr}")
@@ -118,10 +133,86 @@ def load(name: str, path: Optional[str] = None):
     return lib
 
 
+ROUTES = ("int8_wgmma", "bf16_wgmma", "cuda_core")
+SMS = 132          # H100 SXM; the C side's kSMs
+SMALL_M = 64       # M at or below: one warpgroup and split K-blocks
+CTA_N = 128        # output columns of a tensor-core CTA
+
+
 def reset_counts() -> None:
     for fn in (hbfp_matmul_fwd, hbfp_dgrad, hbfp_wgrad):
         fn.launches = 0
         fn.plain_calls = 0
+    for fn in (hbfp_matmul_fwd, hbfp_dgrad):
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def gemm_route(op: str, *, mantissa_bits: int, quantize_w: bool,
+               block: int, bk: int, bn: int, N: int,
+               w_dtype: torch.dtype) -> str:
+    """The route of one B1 (op "fwd") or B2 (op "dgrad") launch at the
+    clipped tiles (bk, bn), as the C side's `tc_route` takes it: the
+    contraction block must be a whole number of the tensor-core kernel's
+    128-byte stages (128 int8 or 64 bf16 values), w's scale groups whole
+    8-column fragments (int8), and the forward's stored bf16 w rows
+    16-byte multiples for TMA."""
+    cblk, oblk = (bk, bn) if op == "fwd" else (bn, bk)
+    a_sub = bool(block) and block < cblk
+    w_sub = bool(block) and (block < bk or block < bn)
+    if mantissa_bits > 8:
+        return "cuda_core"
+    if quantize_w and not (a_sub or w_sub) and cblk % 128 == 0 \
+            and oblk % 8 == 0:
+        return "int8_wgmma"
+    if not quantize_w and not a_sub and w_dtype == torch.bfloat16 \
+            and cblk % 64 == 0 and (op == "dgrad" or N % 8 == 0):
+        return "bf16_wgmma"
+    return "cuda_core"
+
+
+def decode_splits(M: int, n_out: int, n_blocks: int) -> int:
+    """How many CTAs share the contraction of a tensor-core launch (the C
+    side's `decode_splits`): 1 above SMALL_M rows or when the output tiles
+    fill the card, else enough K-range splits of whole blocks for two
+    waves."""
+    if M > SMALL_M:
+        return 1
+    ctas = -(-n_out // CTA_N)
+    if ctas >= SMS:
+        return 1
+    want = min(n_blocks, -(-2 * SMS // ctas))
+    per = -(-n_blocks // want)
+    return -(-n_blocks // per)
+
+
+def gemm_scratch(op: str, route: str, M: int, K: int, N: int, *, bk: int,
+                 bn: int, block: int, quantize_w: bool) -> dict:
+    """Scratch of one B1/B2 launch, {name: (shape, dtype) or None}, in
+    the C entry point's argument order (xq, sx, wq, sw, xq8, wq8, part):
+    the quantized activation rows (x for fwd, g for dgrad) and their
+    scales, w's quantized tiles and scales, and the split partials."""
+    f32 = torch.float32
+    cblk, C, O = (bk, K, N) if op == "fwd" else (bn, N, K)
+    a_sub = bool(block) and block < cblk
+    w_sub = bool(block) and (block < bk or block < bn)
+    ga = block if a_sub else cblk
+    gk, gn = (min(block, bk), min(block, bn)) if w_sub else (bk, bn)
+    out = dict.fromkeys(("xq", "sx", "wq", "sw", "xq8", "wq8", "part"))
+    out["sx"] = ((M, C // ga), f32)
+    if route == "cuda_core":
+        out["xq"] = ((M, C), f32)
+        if quantize_w:
+            out["wq"] = ((K, N), f32)
+            out["sw"] = ((K // gk, N // gn), f32)
+        return out
+    i8 = route == "int8_wgmma"
+    out["xq8"] = ((M, C), torch.int8 if i8 else torch.bfloat16)
+    if i8:
+        out["wq8"] = ((N, K) if op == "fwd" else (K, N), torch.int8)
+        out["sw"] = ((K // bk, N // bn), f32)
+    if decode_splits(M, O, C // cblk) > 1:
+        out["part"] = ((C // cblk, M, O), f32)
+    return out
 
 
 def _seed_int(seed) -> int:
@@ -185,11 +276,27 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def _w_scratch(quantize_w: bool, K: int, N: int, gk: int, gn: int, f32):
-    if not quantize_w:
-        return None, None
-    return (torch.empty((K, N), **f32),
-            torch.empty((K // gk, N // gn), **f32))
+def _gemm_launch(op: str, lib_entry: str, a: torch.Tensor, w: torch.Tensor,
+                 out: torch.Tensor, seed, M: int, K: int, N: int, *,
+                 mantissa_bits: int, stochastic: bool, quantize_w: bool,
+                 block: int, bk: int, bn: int) -> str:
+    """Allocate the route's scratch and launch B1 or B2; returns the
+    route."""
+    route = gemm_route(op, mantissa_bits=mantissa_bits,
+                       quantize_w=quantize_w, block=block, bk=bk, bn=bn, N=N,
+                       w_dtype=w.dtype)
+    scratch = {k: None if v is None else
+               torch.empty(v[0], dtype=v[1], device=a.device)
+               for k, v in gemm_scratch(op, route, M, K, N, bk=bk, bn=bn,
+                                        block=block,
+                                        quantize_w=quantize_w).items()}
+    lib = "hbfp_matmul_fwd" if op == "fwd" else "hbfp_matmul_bwd"
+    _launch(lib, lib_entry, a.device, a.data_ptr(), _is_bf16(a),
+            w.data_ptr(), _is_bf16(w), out.data_ptr(),
+            *(_ptr(t) for t in scratch.values()), M, K, N, bk, bn,
+            mantissa_bits, int(stochastic), int(quantize_w), int(block),
+            _seed_int(seed))
+    return route
 
 
 def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
@@ -212,21 +319,12 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
         hbfp_matmul_fwd.plain_calls += 1
         return hbfp_matmul_plain(x, w, seed, **kw)
     _launchable(x, mantissa_bits, "hbfp_matmul_fwd")
-    x_sub = bool(block) and block < bk
-    w_sub = bool(block) and (block < bk or block < bn)
-    gx = block if x_sub else bk
-    gk, gn = (min(block, bk), min(block, bn)) if w_sub else (bk, bn)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((M, N), **f32)
-    xq = torch.empty((M, K), **f32)
-    sx = torch.empty((M, K // gx), **f32)
-    wq, sw = _w_scratch(quantize_w, K, N, gk, gn, f32)
-    _launch("hbfp_matmul_fwd", "hbfp_matmul_fwd", x.device,
-            x.data_ptr(), _is_bf16(x), w.data_ptr(), _is_bf16(w),
-            y.data_ptr(), xq.data_ptr(), sx.data_ptr(), _ptr(wq), _ptr(sw),
-            M, K, N, bk, bn, mantissa_bits, int(stochastic),
-            int(quantize_w), int(block), _seed_int(seed))
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    route = _gemm_launch("fwd", "hbfp_matmul_fwd", x, w, y, seed, M, K, N,
+                         mantissa_bits=mantissa_bits, stochastic=stochastic,
+                         quantize_w=quantize_w, block=block, bk=bk, bn=bn)
     hbfp_matmul_fwd.launches += 1
+    hbfp_matmul_fwd.launches_by_route[route] += 1
     return y
 
 
@@ -250,21 +348,12 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
         hbfp_dgrad.plain_calls += 1
         return hbfp_dgrad_plain(g, w, seed, **kw)
     _launchable(g, mantissa_bits, "hbfp_dgrad")
-    g_sub = bool(block) and block < bn
-    w_sub = bool(block) and (block < bk or block < bn)
-    gg = block if g_sub else bn
-    gk, gn = (min(block, bk), min(block, bn)) if w_sub else (bk, bn)
-    f32 = dict(dtype=torch.float32, device=g.device)
-    dx = torch.empty((M, K), **f32)
-    gq = torch.empty((M, N), **f32)
-    sg = torch.empty((M, N // gg), **f32)
-    wq, sw = _w_scratch(quantize_w, K, N, gk, gn, f32)
-    _launch("hbfp_matmul_bwd", "hbfp_dgrad", g.device,
-            g.data_ptr(), _is_bf16(g), w.data_ptr(), _is_bf16(w),
-            dx.data_ptr(), gq.data_ptr(), sg.data_ptr(), _ptr(wq), _ptr(sw),
-            M, K, N, bk, bn, mantissa_bits, int(stochastic),
-            int(quantize_w), int(block), _seed_int(seed))
+    dx = torch.empty((M, K), dtype=torch.float32, device=g.device)
+    route = _gemm_launch("dgrad", "hbfp_dgrad", g, w, dx, seed, M, K, N,
+                         mantissa_bits=mantissa_bits, stochastic=stochastic,
+                         quantize_w=quantize_w, block=block, bk=bk, bn=bn)
     hbfp_dgrad.launches += 1
+    hbfp_dgrad.launches_by_route[route] += 1
     return dx
 
 
