@@ -18,13 +18,19 @@ Phases (any failure exits non-zero before the result line):
                 4096 on both tensor-core routes, m 4, bk 1024 and 2048
                 with near-full mantissas whose int32 sums pass 2^24, f32
                 raw weights on the CUDA cores), each launch's route
-                checked, and the adaptive path's weights narrowed at 8
-                bits in 24 x 24 tiles;
+                checked (B3: bf16 wgmma at m <= 8, block 32 and K 64
+                with split M-blocks included, the CUDA cores at m 12 and
+                M below one 64-token stage), and the adaptive path's
+                weights narrowed at 8 bits in 24 x 24 tiles; the device
+                time of one B1, B2 and B3 call by kernel (passes vs GEMM);
   4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
                 dv) against their plain versions at yi-9b's training
                 attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
-                timed, beside SDPA as a yardstick, and small cases (m 12,
-                m_qk != m_pv, non-causal, S 96 in f32);
+                timed, beside SDPA as a yardstick, with B4's device time
+                by kernel (pre-pass vs main) and its softmax bound, and
+                small cases (m 12, m_qk != m_pv, non-causal in bf16 and
+                f32, hd 64 with 64-blocks, hd 96 at m 4, S 96 and
+                32-blocks in f32), each B4 launch's route checked;
   5. quantize — B7 against its plain version, bit for bit in all five
                 outputs, at yi-9b's tapped and packed shapes (m 8/16 at
                 tile 128, m 4 at tile 24), the whole-matrix tile, a bf16
@@ -37,15 +43,17 @@ Phases (any failure exits non-zero before the result line):
   7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
-                fp32, exact launch counts of B1-B6, every B1/B2 launch on
-                the int8 wgmma route, step time, tokens/s, peak memory,
-                and a profile of one step;
+                fp32, exact launch counts of B1-B6, every B1/B2 and B4
+                launch on the int8 wgmma route and every B3 launch on
+                bf16 wgmma, step time, tokens/s, peak memory, and a
+                profile of one step;
   8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
                 controller: 8 steps uninterrupted, and 8 steps preempted
                 at 6 and resumed from the step-4 checkpoint, which must
                 agree bit for bit; exact B7 launches per telemetry step;
                 B1/B2 on int8 wgmma before the first widen and on bf16
-                wgmma after it, never on the CUDA cores;
+                wgmma after it, never on the CUDA cores; B3 on bf16 and
+                B4 on int8 wgmma on every step;
                 a packed save of the master that loads back bit for bit
                 (needs ~25 GB of free disk under build/);
   9. kernels  — B1 against its plain PyTorch version on the card at the
@@ -150,13 +158,34 @@ FLASH_SHAPE = (32, 4096, 128)
 # yi-9b trains at full width and 16 of its 48 layers: 3.29 B parameters,
 # ~53 GB of f32 master, AdamW moments and grads (all 48 would need ~140 GB)
 YI_LAYERS = 16
-# (name, BH, S, hd, dtype, m_bits, m_qk, m_pv, causal) of the small cases
-FLASH_SMALL = (("m12", 4, 512, 128, "bfloat16", 12, 0, 0, True),
-               ("qk10", 4, 512, 128, "bfloat16", 8, 10, 0, True),
-               ("pv6", 4, 512, 128, "bfloat16", 8, 0, 6, True),
-               ("qk12_pv6", 4, 512, 128, "bfloat16", 8, 12, 6, True),
-               ("noncausal", 4, 512, 128, "bfloat16", 8, 0, 0, False),
-               ("s96_f32", 4, 96, 64, "float32", 8, 0, 0, True))
+# (name, BH, S, hd, dtype, m_bits, m_qk, m_pv, causal, block or None for
+# the largest power of two up to 128 dividing S) of the small cases; B4's
+# route follows from them (`flash_route`): int8 wgmma at m_qk, m_pv <= 8
+# and the tiles it takes, the CUDA cores otherwise
+FLASH_SMALL = (("m12", 4, 512, 128, "bfloat16", 12, 0, 0, True, None),
+               ("qk10", 4, 512, 128, "bfloat16", 8, 10, 0, True, None),
+               ("pv6", 4, 512, 128, "bfloat16", 8, 0, 6, True, None),
+               ("qk12_pv6", 4, 512, 128, "bfloat16", 8, 12, 6, True, None),
+               ("noncausal", 4, 512, 128, "bfloat16", 8, 0, 0, False, None),
+               ("s96_f32", 4, 96, 64, "float32", 8, 0, 0, True, None),
+               ("f32_noncausal", 4, 512, 128, "float32", 8, 0, 0, False,
+                None),
+               ("hd64_b64", 4, 512, 64, "bfloat16", 8, 0, 0, True, 64),
+               ("hd96_m4_f32", 4, 384, 96, "float32", 4, 0, 0, True, None),
+               ("b32_f32", 4, 256, 64, "float32", 8, 0, 0, True, 32))
+# H100 SXM special-function unit: 16 results per clock per SM (the CUDA
+# programming guide's throughput table, compute capability 9.0) at the
+# 1.98 GHz the data sheet's 67 TFLOP/s f32 implies (132 SMs x 128 lanes x
+# 2 flops per FMA): expf's ex2 issues at this rate
+SFU_OPS_S = 132 * 16 * 1.98e9
+# f32 ops per kept score of B4's int8 route, counted from its code
+# (csrc/hbfp_flash_fwd_sm90.cuh): int32 -> f32 (2), scale (2), mask (1),
+# row max (1), s - m (1), row sum (1), max |p| (1), the p quantize (divide,
+# round, two clamps, convert: 5), plus the PV promotion per output element
+# and k-block (convert 2, scale 2, acc * alpha 1, add 1: 6 per (row, d),
+# i.e. 6·hd/bk per score)
+FLASH_F32_PER_SCORE = 13
+FLASH_F32_PER_PV = 6
 # B4's scores, probabilities, quantized operands, o and lse equal the
 # plain version's bit for bit (the same f32 ops, expf/logf, and the row sum
 # of p in the kernel's order). B5/B6 sum dq, dk, dv (exact products with
@@ -543,13 +572,25 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
     for kname, (run, plain, mm, (bound, by)) in calls.items():
         took = None
         if kname == "hbfp_wgrad":
+            before = dict(hm.hbfp_wgrad.launches_by_route)
             yk, xh, gh = hm.hbfp_wgrad(x, g, seed, operands=True, **kw)
             yp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, seed, operands=True,
                                                **kw)
             torch.cuda.synchronize()
+            took = [r for r, n in hm.hbfp_wgrad.launches_by_route.items()
+                    if n != before[r]]
+            took = took[0] if len(took) == 1 else str(took)
+            want_route = hm.wgrad_route(mantissa_bits=m, M=M, K=K, N=N,
+                                        bm=bm)
+            if took != want_route or (timed == "train"
+                                      and took != "bf16_wgmma"):
+                fail(f"hbfp_wgrad {wname} {timed}: took route {took}, "
+                     f"expected {want_route}")
             ok_w, err, ratio = _wgrad_ok(yk, yp, xh, gh, M)
             ok = ok_w and torch.equal(xh, xhp) and torch.equal(gh, ghp)
             exact = "operands EQ, dw TOL"
+            if torch.equal(yk, yp):
+                exact += " (bit-equal)"
             del xh, gh, xhp, ghp
         else:
             before = dict(getattr(hm, kname).launches_by_route)
@@ -581,9 +622,10 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
             n = _reps(run)
             row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 2),
                        matmul_bf16_ms=_time_ms(mm, n), reps=n)
-            if wname == "ffn_wg" and kname != "hbfp_wgrad":
+            if wname == "ffn_wg" or (wname == "head"
+                                     and kname == "hbfp_wgrad"):
                 row["kernel_split_ms"] = _kernel_split(run)
-                log(f"[bwd]   {kname} ffn_wg device ms by kernel: "
+                log(f"[bwd]   {kname} {wname} device ms by kernel: "
                     + ", ".join(f"{k} {v:.3f}" for k, v in
                                 row["kernel_split_ms"].items()))
             if took == "int8_wgmma":
@@ -633,6 +675,10 @@ def phase_bwd():
         rows += _bwd_case("wq", M, K, N, qw, m, 0, st, gen, cname,
                           tiles=tiles, w_dtype=wdt, full=full, route=route)
         torch.cuda.empty_cache()
+    # B3 with K <= 64: one warpgroup, the M-blocks split across CTAs and
+    # folded in ascending order (B1/B2's routes are not checked here)
+    rows += _bwd_case("k64", 4096, 64, 2048, True, 8, 0, False, gen,
+                      "wgrad_k64_split")
     # the adaptive path after a widen: x at m 4 against yi-9b ffn_wg
     # weights narrowed at 8 bits in 24 x 24 tiles, taken as stored
     rows += _bwd_case("ffn_wg", 4096, 4096, 11008, False, 4, 0, False, gen,
@@ -698,33 +744,50 @@ def _flash_grad_ok(got, want, bound, S, bf16):
             bool(torch.equal(g, w)))
 
 
-def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, gen, timed):
+def _flash_softmax_bound(BH, S, hd, bk, causal):
+    """B4's second bound: the f32 softmax work around its int8 products,
+    per kept score an expf at the special-function rate and the f32 ops
+    of FLASH_F32_PER_SCORE (+ the PV promotion) at the f32 rate; the
+    larger of the two times, in ms."""
+    _, n_exp = _flash_work(BH, S, hd, causal)
+    f32_ops = n_exp * (FLASH_F32_PER_SCORE + FLASH_F32_PER_PV * hd / bk)
+    return max(n_exp / SFU_OPS_S, f32_ops / PEAK_OPS_S["f32"]) * 1e3
+
+
+def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
+                timed):
     """B4, B5 and B6 at one shape against their plain versions on the
-    same inputs; returns one row per kernel (and, timed, the SDPA
-    yardstick)."""
+    same inputs, B4's route checked; returns one row per kernel (and,
+    timed, the SDPA yardstick and B4's device time by kernel)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels.ref import flash_delta
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
-    blk = min(128, S & -S)
+    blk = blk or min(128, S & -S)
     q, k, v = (torch.randn((BH, S, hd), generator=gen, device=dev).to(dt)
                for _ in range(3))
     do = (torch.randn((BH, S, hd), generator=gen, device=dev) * 1e-2).to(dt)
     kw = dict(m_bits=m, m_qk=m_qk, m_pv=m_pv, bq=blk, bk=blk, causal=causal)
     mq, mp = m_qk or m, m_pv or m
     rows, bf16 = [], dt == torch.bfloat16
+    route = fa.flash_route(m_qk=mq, m_pv=mp, S=S, hd=hd, bq=blk, bk=blk)
+    before = fa.hbfp_flash_fwd.launches_by_route[route]
     ok_k, lse_k = fa.hbfp_flash_fwd(q, k, v, with_lse=True, **kw)
     o_nolse = fa.hbfp_flash_fwd(q, k, v, **kw)
     o_p, lse_p = fa.hbfp_flash_fwd_plain(q, k, v, with_lse=True, **kw)
     torch.cuda.synchronize()
+    if fa.hbfp_flash_fwd.launches_by_route[route] != before + 2:
+        fail(f"flash {name}: B4 not on route {route}")
     fwd_ok = (torch.equal(ok_k, o_p) and torch.equal(lse_k, lse_p)
               and torch.equal(o_nolse, ok_k))
     err = max(float((ok_k.float() - o_p.float()).abs().max()),
               float((lse_k - lse_p).abs().max()))
     rows.append(dict(kernel="hbfp_flash_fwd", ok=fwd_ok, check="EQ",
-                     max_abs_err=err, bit_equal=fwd_ok))
+                     max_abs_err=err, bit_equal=fwd_ok, route=route,
+                     bound_softmax_ms=_flash_softmax_bound(BH, S, hd, blk,
+                                                           causal)))
     del ok_k, o_nolse
     delta = flash_delta(o_p, do)
     args = (q, k, v, do, lse_p, delta)
@@ -787,13 +850,21 @@ def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, gen, timed):
             n = _reps(run)
             row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 1),
                        reps=n)
+            if name_k == "hbfp_flash_fwd":
+                row["kernel_split_ms"] = _kernel_split(run)
+                log(f"[flash]   B4 {name} device ms by kernel: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in
+                    row["kernel_split_ms"].items()))
         log(f"[flash] {name_k} {name} BH={BH} S={S} hd={hd} {dtype[:4]} "
+            f"blk={blk} {row.get('route', '')} "
             f"m={m}/{mq}/{mp} causal={causal} {row['check']} "
             f"bit_equal={row['bit_equal']} err={row['max_abs_err']:.3g}"
             + (f" err/tol={row['err_over_tol']:.3g}"
                if "err_over_tol" in row else "")
             + (f" kernel_ms={row['kernel_ms']:.3f} bound_ms={bound:.4f}"
-               f"({by[0]}) plain_ms={row['plain_ms']:.1f}" if timed else ""))
+               f"({by[0]}) plain_ms={row['plain_ms']:.1f}" if timed else "")
+            + (f" bound_softmax_ms={row['bound_softmax_ms']:.4f}"
+               if "bound_softmax_ms" in row else ""))
         if not finite:
             row["ok"] = False
     if sdpa:
@@ -811,8 +882,10 @@ def phase_flash():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(2468)
     BH, S, hd = FLASH_SHAPE
-    rows = _flash_case("yi_train", BH, S, hd, "bfloat16", 8, 0, 0, True, gen,
-                       timed=True)
+    rows = _flash_case("yi_train", BH, S, hd, "bfloat16", 8, 0, 0, True,
+                       None, gen, timed=True)
+    if rows[0]["route"] != "int8_wgmma":
+        fail(f"yi-9b's training attention took B4 route {rows[0]['route']}")
     torch.cuda.empty_cache()
     for case in FLASH_SMALL:
         rows += _flash_case(*case, gen, timed=False)
@@ -1018,17 +1091,22 @@ def _profile_step(trainer, steps: int):
     if not total:
         return None
     groups = {"B1 gemm (fwd)": r"(^|[^_])gemm_kernel<\d+, \d+, false|"
-                               r"tc_gemm_kernel<\d+, \w+, \w+, false>",
+                               r"tc_gemm_kernel<\d+, \w+, \w+, false, "
+                               r"false>",
               "B2 gemm (dgrad)": r"(^|[^_])gemm_kernel<\d+, \d+, true|"
-                                 r"tc_gemm_kernel<\d+, \w+, \w+, true>",
-              "B1/B2 split-K fold": r"fold_kernel",
-              "B1/B2 quantize passes (int8, bf16)":
-                  r"quantize_(rows|w)_kernel<\w+, (signed char|"
-                  r"__nv_bfloat16)",
-              "B3 gemm (wgrad)": r"wgrad_gemm_kernel",
-              "f32 quantize passes (B3, cuda_core)":
+                                 r"tc_gemm_kernel<\d+, \w+, \w+, true, "
+                                 r"false>",
+              "B1/B2/B3 split-K fold": r"fold_kernel",
+              "B1/B2 quantize passes (int8)":
+                  r"quantize_(rows|w)_kernel<\w+, signed char",
+              "B3 gemm (wgrad)": r"wgrad_gemm_kernel|"
+                                 r"tc_gemm_kernel<\d+, \w+, \w+, \w+, true>",
+              "B3 quantize passes (bf16; B1 bf16 x pass)":
+                  r"quantize_rows_kernel<\w+, __nv_bfloat16",
+              "f32 quantize passes (cuda_core)":
                   r"quantize_(rows|w)_kernel<\w+, float",
-              "B4 flash fwd": r"flash_fwd_kernel",
+              "B4 flash fwd (main)": r"flash_fwd_kernel|flash_tc_kernel",
+              "B4 flash fwd (pre-pass)": r"flash_(rows|vt)_prepass",
               "B5 flash dq": r"flash_dq_kernel",
               "B6 flash dkv": r"flash_dkv_kernel"}
     share = {g: sum(us for k, us, _ in rows if re.search(p, k)) / total
@@ -1043,19 +1121,30 @@ def _profile_step(trainer, steps: int):
 FLASH_KERNELS = ("hbfp_flash_fwd", "hbfp_flash_dq", "hbfp_flash_dkv")
 GEMM_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")
 ROUTED_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad")     # B1, B2
+# every training launch of B3 and B4 takes its tensor-core route
+TRAIN_ROUTES = {"hbfp_wgrad": "bf16_wgmma", "hbfp_flash_fwd": "int8_wgmma"}
 
 
 def _routes():
-    """B1's and B2's launches by route since the last reset."""
+    """B1's, B2's, B3's and B4's launches by route since the last
+    reset."""
+    from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
-    return {k: dict(getattr(hm, k).launches_by_route)
-            for k in ROUTED_KERNELS}
+    out = {k: dict(getattr(hm, k).launches_by_route)
+           for k in GEMM_KERNELS}
+    out["hbfp_flash_fwd"] = dict(fa.hbfp_flash_fwd.launches_by_route)
+    return out
 
 
 def _all_on(routes: dict, route: str) -> bool:
-    """Every counted B1/B2 launch took `route`."""
+    """Every counted launch of these kernels took `route`."""
     return all(n == 0 for by in routes.values() for r, n in by.items()
                if r != route)
+
+
+def _train_routes_ok(routes: dict) -> bool:
+    """B3 and B4 launches all on their tensor-core routes."""
+    return all(_all_on({k: routes[k]}, r) for k, r in TRAIN_ROUTES.items())
 
 
 def phase_train_full(card: str, arch_name: str, B: int, S: int,
@@ -1138,16 +1227,19 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     log(f"{tag} step times {[round(t, 3) for t in step_s]} s, "
         f"{tok_s:.0f} tokens/s, peak {peak:.2f} of {total:.2f} GiB | {card}")
     log(f"{tag} launches over 3 steps {counts} (expected {want}), plain "
-        f"calls {plain}; B1/B2 by route {routes}; step-0 loss HBFP "
+        f"calls {plain}; B1-B4 by route {routes}; step-0 loss HBFP "
         f"{loss0:.4f} vs fp32 {loss_fp32:.4f}")
     if not all(torch.isfinite(torch.tensor(losses))):
         fail(f"{arch_name}: non-finite training loss {losses}")
     if counts != want or plain != 0:
         fail(f"{arch_name}: launch counts {counts} != {want} or plain "
              f"calls {plain}")
-    if not _all_on(routes, "int8_wgmma"):
+    if not _all_on({k: routes[k] for k in ROUTED_KERNELS}, "int8_wgmma"):
         fail(f"{arch_name}: a training B1/B2 launch left the int8 wgmma "
              f"route: {routes}")
+    if not _train_routes_ok(routes):
+        fail(f"{arch_name}: a training B3 launch left bf16 wgmma or a B4 "
+             f"launch left int8 wgmma: {routes}")
     if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
         fail(f"{arch_name}: step-0 HBFP loss {loss0} not within 2% of fp32 "
              f"{loss_fp32}")
@@ -1427,9 +1519,11 @@ def _counts():
     from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
     out = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
-    out.update({f"{k}/{r}": n for k in ROUTED_KERNELS
+    out.update({f"{k}/{r}": n for k in GEMM_KERNELS
                 for r, n in getattr(hm, k).launches_by_route.items()})
     out.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
+    out.update({f"hbfp_flash_fwd/{r}": n for r, n in
+                fa.hbfp_flash_fwd.launches_by_route.items()})
     out["bfp_quantize"] = bq.bfp_quantize.launches
     plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) \
         + sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS) \
@@ -1608,6 +1702,17 @@ def phase_adaptive_full(card: str):
                for r in rows_a}
     for st, by in sorted(by_step.items()):
         log(f"{tag} step {st}: B1+B2 by route {by}")
+    # B3 and B4: their tensor-core routes on every step (wgrad at m 8
+    # under "4; wgrad+4", flash at m 4)
+    off = [(r["step"], k, rt, n) for r in rows_a + rows_b1 + rows_c
+           for k, want in TRAIN_ROUTES.items()
+           for rt in ("int8_wgmma", "bf16_wgmma", "cuda_core")
+           if rt != want and (n := r["launches"].get(f"{k}/{rt}", 0))]
+    log(f"{tag} B3 by route {_route_sum(rows_a, 'hbfp_wgrad')}, B4 by "
+        f"route {_route_sum(rows_a, 'hbfp_flash_fwd')}")
+    if off:
+        fail(f"adaptive-full: B3/B4 launches off their tensor-core routes "
+             f"(step, kernel, route, launches): {off}")
     bad_routes = [st for st, by in by_step.items()
                   if by["cuda_core"] or (by["int8_wgmma"] and
                                          by["bf16_wgmma"])
@@ -1664,6 +1769,12 @@ def phase_adaptive_full(card: str):
                 launches=_sum_counts(rows_a))
 
 
+def _route_sum(rows, kernel: str) -> dict:
+    """A kernel's launches by route summed over the recorded steps."""
+    return {rt: sum(r["launches"].get(f"{kernel}/{rt}", 0) for r in rows)
+            for rt in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
+
+
 def _sum_counts(rows) -> dict:
     out = {}
     for r in rows:
@@ -1694,9 +1805,13 @@ def _bwd_entry(name, rows, by_path, replaces, source, by_route=None):
     also carry their main-path launches by route and torch._int_mm on the
     same int8 mantissas (a yardstick, never called by the port)."""
     tr = [r for r in rows if r["kernel"] == name and r["config"] == "train"]
-    extra = {} if by_route is None else {
-        "launches_by_route": by_route,
-        "int_mm_ms": sum(r.get("int_mm_ms", 0.0) for r in tr)}
+    extra = {} if by_route is None else {"launches_by_route": by_route}
+    if any("int_mm_ms" in r for r in tr):
+        extra["int_mm_ms"] = sum(r.get("int_mm_ms", 0.0) for r in tr)
+    split = {r["weight"]: r["kernel_split_ms"] for r in tr
+             if "kernel_split_ms" in r}
+    if split:
+        extra["kernel_split_ms"] = split
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
@@ -1713,13 +1828,19 @@ def _bwd_entry(name, rows, by_path, replaces, source, by_route=None):
     }
 
 
-def _flash_entry(name, rows, by_path, replaces, source):
+def _flash_entry(name, rows, by_path, replaces, source, by_route=None):
     """One flash kernel's JSON entry: times at the yi-9b training shape;
     max_abs_err over every flash case. No PyTorch call computes the HBFP
     attention, so library_ms is null; SDPA on the same bf16 q/k/v is a
-    yardstick of another function, never called by the port."""
+    yardstick of another function, never called by the port. B4 also
+    carries its launches by route, its softmax bound and its device time
+    by kernel (pre-pass, main)."""
     main = next(r for r in rows
                 if r["kernel"] == name and r["case"] == "yi_train")
+    extra = {} if by_route is None else {
+        "launches_by_route": by_route,
+        "bound_softmax_ms": main["bound_softmax_ms"],
+        "kernel_split_ms": main.get("kernel_split_ms")}
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
@@ -1730,6 +1851,7 @@ def _flash_entry(name, rows, by_path, replaces, source):
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "sdpa_ms": main["sdpa"],
+        **extra,
     }
 
 
@@ -1839,12 +1961,18 @@ def main() -> int:
                     src + "hbfp_matmul_bwd.cu", by_route("hbfp_dgrad"))
     b3 = _bwd_entry("hbfp_wgrad", bwd, by_path("hbfp_wgrad"),
                     "src/repro/kernels/hbfp_matmul.py:352",
-                    src + "hbfp_matmul_bwd.cu")
+                    src + "hbfp_matmul_bwd.cu", by_route("hbfp_wgrad"))
     fsrc = src + "hbfp_flash_attn.cu"
     fref = "src/repro/kernels/hbfp_flash_attn.py:"
+    b4_route = {r: train_yi["routes"]["hbfp_flash_fwd"][r]
+                + adapt["launches"][f"hbfp_flash_fwd/{r}"]
+                for r in ("int8_wgmma", "cuda_core")}
     b456 = [_flash_entry(k, flash, {"train_yi": train_yi["launches"][k],
                                     "adaptive_yi": adapt["launches"][k]},
-                         fref + line, fsrc)
+                         fref + line,
+                         fsrc if k != "hbfp_flash_fwd" else
+                         src + "hbfp_flash_fwd_sm90.cuh",
+                         b4_route if k == "hbfp_flash_fwd" else None)
             for k, line in (("hbfp_flash_fwd", "128"),
                             ("hbfp_flash_dq", "205"),
                             ("hbfp_flash_dkv", "241"))]

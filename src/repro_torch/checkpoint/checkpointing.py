@@ -99,10 +99,18 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def _from_host(arr: np.ndarray, like):
-    """A loaded array as the type, dtype and device of `like`'s leaf."""
+    """A loaded array as the type, dtype and device of `like`'s leaf. The
+    reference snapshots a bf16 leaf with `np.asarray`, which numpy saves
+    as 2-byte void (`|V2`): its bytes are bf16 bits, read through int16."""
     if isinstance(like, torch.Tensor):
-        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(arr))
+        if isinstance(arr, torch.Tensor):
+            t = arr
+        elif arr.dtype.kind == "V" and arr.dtype.itemsize == 2 \
+                and like.dtype == torch.bfloat16:
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(
+                np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
         return t.to(device=like.device, dtype=like.dtype)
     if isinstance(like, (bool, int)):
         return type(like)(np.asarray(arr).item())

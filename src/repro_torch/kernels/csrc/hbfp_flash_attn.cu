@@ -1,16 +1,19 @@
-// HBFP flash attention for Hopper (sm_90a), CUDA cores: the forward (B4,
-// replaces repro/kernels/hbfp_flash_attn.py `hbfp_flash_attention` /
+// HBFP flash attention for Hopper (sm_90a): the forward (B4, replaces
+// repro/kernels/hbfp_flash_attn.py `hbfp_flash_attention` /
 // `_flash_kernel`), the dQ pass (B5, `hbfp_flash_attention_bwd` /
-// `_flash_dq_kernel`) and the dK/dV pass (B6, `_flash_dkv_kernel`).
+// `_flash_dq_kernel`) and the dK/dV pass (B6, `_flash_dkv_kernel`). B4
+// takes int8 wgmma where m_qk, m_pv <= 8 and the shapes fit its tiles
+// (hbfp_flash_fwd_sm90.cuh, route `int8_wgmma`); the CUDA-core kernels
+// below run B4's other calls (route `cuda_core`) and all of B5 and B6.
 //
 // What bounds them on this card: per causal (q-block, k-block) pair the
 // integral contractions QKᵀ, PV and dp = do·vᵀ are int8 work (1,979 TOP/s
 // at m <= 8) and dq, dk, dv are f32 sums of exact products (bf16 rate,
 // their m <= 8 operands being exact in bf16); q, k, v, do are read and the
 // outputs written once, a few MB, so all three are bound by operations.
-// This first version runs every contraction on CUDA cores (f32 FMAs on
-// integral mantissas, exact below 2^24, or int32 above m = 8), far from
-// that bound; tensor cores (int8 mma / wgmma) are later work.
+// The CUDA-core kernels run every contraction as f32 FMAs on integral
+// mantissas (exact below 2^24) or int32 above m = 8, far from that bound;
+// B5 and B6 on tensor cores are later work.
 //
 // Design. The [S×S] score matrix never reaches device memory: a CTA keeps
 // its q rows (B4, B5) or its whole k-block (B6) in shared memory and
@@ -628,6 +631,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace flash
 }  // namespace hbfp
 
+// B4's int8 wgmma route; it uses the helpers above (store, kNegInf)
+#include "hbfp_flash_fwd_sm90.cuh"
+
 // Picks the instantiation: storage type by `bf16`, and for each of the QK
 // and PV sides an f32 contraction (exact at m <= 8) or an int32 one.
 #define HBFP_FLASH_DISPATCH(FN, ...)                                        \
@@ -649,14 +655,33 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // q, k, v: [BH, S, hd] (bf16 when `bf16`, else f32), contiguous. Writes o
-// (same type) and, when lse is not null, lse [BH, S] f32. Returns the CUDA
-// error of the launch (0 on success), or cudaErrorInvalidValue for shapes
-// the kernel does not take.
+// (same type) and, when lse is not null, lse [BH, S] f32. The route is
+// decided here (flash_tc_route) and the caller allocates its scratch, the
+// other pointers null: int8_wgmma takes q8, k8 [BH*S, 128] int8, vt8
+// [BH*128, S] int8, qsc, ksc [BH*S] f32 and vsc [BH, S/bk, 128] f32;
+// cuda_core takes none. Returns the CUDA error of the launch (0 on
+// success), or cudaErrorInvalidValue for shapes the kernels do not take or
+// a scratch set that does not match the route.
 int hbfp_flash_fwd(const void* q, const void* k, const void* v, int bf16,
-                   void* o, void* lse, int BH, int S, int hd, int bq, int bk,
-                   int mqk, int mpv, int causal, float scale, void* stream) {
-  if (!hbfp::flash::shapes_ok(S, hd, bq, bk, mqk, mpv))
+                   void* o, void* lse, void* q8, void* k8, void* vt8,
+                   void* qsc, void* ksc, void* vsc, int BH, int S, int hd,
+                   int bq, int bk, int mqk, int mpv, int causal, float scale,
+                   void* stream) {
+  using namespace hbfp::flash;
+  if (!shapes_ok(S, hd, bq, bk, mqk, mpv))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = flash_tc_route(S, hd, bq, bk, mqk, mpv) == kFlashInt8;
+  void* scratch[] = {q8, k8, vt8, qsc, ksc, vsc};
+  for (void* p : scratch)
+    if ((p != nullptr) != tc) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc) {
+    auto fn = bf16 ? launch_fwd_tc<__nv_bfloat16> : launch_fwd_tc<float>;
+    return fn(q, k, v, o, static_cast<float*>(lse), static_cast<int8_t*>(q8),
+              static_cast<int8_t*>(k8), static_cast<int8_t*>(vt8),
+              static_cast<float*>(qsc), static_cast<float*>(ksc),
+              static_cast<float*>(vsc), BH, S, hd, bq, bk, mqk, mpv, causal,
+              scale, static_cast<cudaStream_t>(stream));
+  }
   HBFP_FLASH_DISPATCH(launch_fwd, q, k, v, o, static_cast<float*>(lse), BH, S,
                       hd, bq, bk, mqk, mpv, causal, scale,
                       static_cast<cudaStream_t>(stream));

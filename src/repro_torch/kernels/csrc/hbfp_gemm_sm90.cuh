@@ -1,11 +1,14 @@
-// Tensor-core GEMM pass of B1 (hbfp_matmul_fwd) and B2 (hbfp_dgrad) for
-// Hopper (sm_90a): TMA loads into a 4-stage shared-memory ring, wgmma on
-// int8 mantissas (int32 sums) or bf16 mantissas (f32 sums), and the
+// Tensor-core GEMM pass of B1 (hbfp_matmul_fwd), B2 (hbfp_dgrad) and B3's
+// bf16 route (hbfp_wgrad, hbfp_matmul_bwd.cu: tc_wgrad) for Hopper
+// (sm_90a): TMA loads into a 4-stage shared-memory ring, wgmma on int8
+// mantissas (int32 sums) or bf16 mantissas (f32 sums), and the
 // reference's per-K-block promotion in ascending K-block order.
 //
 //     y[M, O] = sum over contraction blocks kb, ascending, of
 //               part_kb * (s_a * s_w)        (kRouteInt8)
 //               part_kb * s_a                (kRouteBf16)
+//               part_kb                      (B3: s_a null, the scales
+//                                             inside the operands)
 //
 // Routes. kRouteInt8 takes integral m <= 8 mantissas of both operands
 // (quantize_w set, no sub-tile groups): the int32 sum of a K-block is
@@ -196,17 +199,18 @@ __device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d[64] (+)= A[64 x 16] . B[16 x 128], bf16 -> f32; A K-major, B K-major
+// d[64] (+)= A[64 x 16] . B[16 x 128], bf16 -> f32; A K-major (TA = 0)
+// or MN-major (TA = 1, B3's x^ read in its stored [M, K]), B K-major
 // (TB = 0) or MN-major (TB = 1)
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da,
                                            uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HBFP_D64
-      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
       : HBFP_OP64(HBFP_RW_F)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 // int32 -> f32, exact below 2^22 in magnitude: the integer lands in the
@@ -217,7 +221,8 @@ __device__ __forceinline__ float small_int_to_float(int v) {
 }
 
 // The scales of K-block kb for this thread's two rows and sixteen column
-// pairs: s_a per row, s_w per column pair's weight group (I8 only).
+// pairs: s_a per row (1.0 where sa is null: B3's operands carry their
+// scales), s_w per column pair's weight group (I8 only).
 template <bool I8, bool W_T>
 __device__ __forceinline__ void load_scales(const float* __restrict__ sa,
                                             const float* __restrict__ sw,
@@ -226,7 +231,9 @@ __device__ __forceinline__ void load_scales(const float* __restrict__ sa,
                                             float (&s_a)[2], float (&s_w)[16]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    s_a[h] = sa[static_cast<size_t>(min(r_lo + 8 * h, M - 1)) * ncb + kb];
+    s_a[h] = sa == nullptr
+                 ? 1.0f
+                 : sa[static_cast<size_t>(min(r_lo + 8 * h, M - 1)) * ncb + kb];
 #pragma unroll
   for (int j = 0; j < 16; ++j)
     s_w[j] = !I8 ? 1.0f
@@ -286,8 +293,9 @@ __device__ __forceinline__ void promote_any(bool fast, const Acc (&pt)[64],
 
 // I8: int8 operands (kRouteInt8), else bf16 (kRouteBf16). B_MN: B is w's
 // stored [C, O] (the forward's bf16 route), read MN-major; else B is
-// [O, C], K-major. W_T: w's scales are [O/oblk, C/cblk] (dgrad), else
-// [C/cblk, O/oblk]. part: f32 scratch [nkb, M, O] of scaled K-block partials when
+// [O, C], K-major. A_MN: A is stored [C, M] and read MN-major (B3's x^,
+// bf16 only), else [M, C], K-major. W_T: w's scales are [O/oblk, C/cblk]
+// (dgrad), else [C/cblk, O/oblk]. part: f32 scratch [nkb, M, O] of scaled K-block partials when
 // grid.z > 1, folded afterwards; else y is written. fast_cvt: every int32
 // partial is below 2^22 (lim^2 * cblk).
 //
@@ -295,7 +303,7 @@ __device__ __forceinline__ void promote_any(bool fast, const Acc (&pt)[64],
 // first thread issues every TMA load. With two consumer warpgroups the
 // producer gives up registers (setmaxnreg) so the consumers hold their
 // partial and accumulator fragments (2 x 64) without spilling.
-template <int NWG, bool I8, bool B_MN, bool W_T>
+template <int NWG, bool I8, bool B_MN, bool W_T, bool A_MN>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 tc_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                const __grid_constant__ CUtensorMap tma_b,
@@ -346,7 +354,14 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
         uint8_t* b_dst = a_dst + kABytes;
         const int kc = t0 * kStep + s * kStageK;
         mbar_expect_tx(&full[st], kStageBytes);
-        tma_load(a_dst, &tma_a, &full[st], kc, m0);
+        if (A_MN) {
+#pragma unroll
+          for (int w = 0; w < NWG; ++w)
+            tma_load(a_dst + w * 64 * kRowBytes, &tma_a, &full[st],
+                     m0 + w * 64, kc);
+        } else {
+          tma_load(a_dst, &tma_a, &full[st], kc, m0);
+        }
         if (B_MN) {
           tma_load(b_dst, &tma_b, &full[st], o0, kc);
           tma_load(b_dst + kBTileBytes / 2, &tma_b, &full[st], o0 + 64, kc);
@@ -389,7 +404,9 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       wgmma_fence();
 #pragma unroll
       for (int u = 0; u < kSteps; ++u) {
-        const uint64_t da = make_desc(a_addr + u * 32, 16, 1024);
+        const uint64_t da =
+            A_MN ? make_desc(a_addr + u * 16 * kRowBytes, kBTileBytes / 2, 1024)
+                 : make_desc(a_addr + u * 32, 16, 1024);
         const uint64_t db =
             B_MN ? make_desc(b_addr + u * 16 * kRowBytes, kBTileBytes / 2, 1024)
                  : make_desc(b_addr + u * 32, 16, 1024);
@@ -397,7 +414,7 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
         if constexpr (I8)
           wgmma_step(pt, da, db, accumulate);
         else
-          wgmma_step<B_MN ? 1 : 0>(pt, da, db, accumulate);
+          wgmma_step<A_MN ? 1 : 0, B_MN ? 1 : 0>(pt, da, db, accumulate);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -452,14 +469,14 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, bool bytes1,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NWG, bool I8, bool B_MN, bool W_T>
+template <int NWG, bool I8, bool B_MN, bool W_T, bool A_MN = false>
 cudaError_t launch_tc(const CUtensorMap& ta, const CUtensorMap& tb,
                       const float* sa, const float* sw, float* y,
                       float* part, int M, int C, int O, int cblk, int oblk,
                       int splits, int fast_cvt, cudaStream_t st) {
   constexpr int smem = kStages * (NWG * 64 * kRowBytes + kBTileBytes) +
                        1024 + 2 * kStages * 8;
-  auto kern = tc_gemm_kernel<NWG, I8, B_MN, W_T>;
+  auto kern = tc_gemm_kernel<NWG, I8, B_MN, W_T, A_MN>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

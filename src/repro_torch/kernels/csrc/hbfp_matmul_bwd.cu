@@ -28,11 +28,28 @@
 // with x^ = Q_row(x) * dx per (row, bk-wide K-block) on STREAM_X (B1's x
 // pass, so the forward's quantization is replayed when the tiles match)
 // and g^ = Q_row(g) * dg per (row, bn-wide N-block) on STREAM_G, both
-// dequantized in scratch (exact in f32 for m <= 12). The per-token scales
-// ride the contraction, so the f32 sum depends on its order: the kernel
-// adds tokens in ascending order with f32 FMA, the reference adds M-blocks
-// of its own dot products; B3 is held to its plain version at a stated f32
-// tolerance, and its quantized operands bit for bit.
+// dequantized in scratch. The per-token scales ride the contraction, so
+// the f32 sum depends on its order; the reference and the plain version
+// add one f32 product per M-block of bm tokens, in ascending order. B3 is
+// held to its plain version within 2·M·2^-24·(|x^|^T|g^|), and its
+// quantized operands bit for bit.
+//
+// B3's routes (wgrad_route below; the wrapper's `wgrad_route` mirrors
+// it). bf16_wgmma (m <= 8: every training call): the row passes write x^
+// and g^ in bf16, which is exact. Each value is q * delta with |q| <= 127
+// (seven significant bits of bf16's eight) and delta = 2^(e - m + 2),
+// e in [-100, 126], so |q * delta| lies in [2^-106, 127 * 2^120]: always
+// a normal bf16, never a subnormal, whatever the exponent groups (block >
+// 0 included). Each product of two such values has at most 14 significant
+// bits and is exact in f32 unless it falls below f32's normal range
+// (2^-126, products of two operands near their floors, which this
+// argument leaves out). The GEMM (tc_wgrad below, on the engine of
+// hbfp_gemm_sm90.cuh) reads x^ [M, K] and g^ [M, N] as stored, both
+// MN-major, and contracts over tokens: each M-block of bm tokens runs in its own f32 fragment (the
+// tensor core's accumulation inside one block is its own) and is added
+// in ascending M-block order with __fadd_rn, the plain version's order of
+// blocks. cuda_core (m 9-12, or tiles the tensor cores do not take): f32
+// scratch and the CUDA-core GEMM below, tokens in ascending order.
 //
 // Bound at gemma2-2b's training shapes (M = 4096 tokens, H100 SXM):
 // every projection does 2MKN operations over a few hundred MB, far above
@@ -51,10 +68,10 @@
 //
 // What the design leaves on the table: B2 shares B1's (the promotion
 // waits for its wgmma group inside a warpgroup, the 128 x 128 tile is
-// bound by L2 bytes before the tensor cores, scalar weight pass).
-// B3 is unchanged: it still runs on CUDA cores in f32 (no mma/wgmma, no
-// TMA), and its quantized operands make an f32 round trip through device
-// memory; its redesign is bf16 wgmma with f32 accumulate.
+// bound by L2 bytes before the tensor cores, scalar weight pass). B3's
+// bf16 operands still make a round trip through device memory (half the
+// former f32 scratch), and its M-block promotion waits for the block's
+// wgmma group as B1's does.
 
 #include "hbfp_common.cuh"
 #include "hbfp_gemm_sm90.cuh"
@@ -62,6 +79,37 @@
 using namespace hbfp;
 
 namespace {
+
+// B3's route (the wrapper's `wgrad_route` mirrors it): bf16 wgmma where
+// the dequantized operands are exact in bf16 (m <= 8), the M-block is a
+// whole number of 64-token stages and both operands' rows are 16-byte
+// multiples for TMA; else the CUDA cores.
+int wgrad_route(int mbits, int M, int K, int N, int bm) {
+  if (mbits <= 8 && bm % 64 == 0 && M % bm == 0 && K % 8 == 0 && N % 8 == 0)
+    return sm90::kRouteBf16;
+  return sm90::kRouteCudaCore;
+}
+
+// B3's GEMM on the bf16 route: dw[K, N] = sum over M-blocks mb of bm
+// tokens, ascending, of part_mb = xh[mb, K]^T . gh[mb, N], with xh [M, K]
+// and gh [M, N] the dequantized bf16 operands as stored, both read
+// MN-major (the contraction runs down their rows), promoted with scale
+// 1.0: acc = __fadd_rn(acc, part_mb), as the plain version adds one f32
+// product per M-block. part: [M/bm, K, N] f32 when decode_splits() > 1
+// (K <= 64), folded in ascending order.
+cudaError_t tc_wgrad(const void* xh, const void* gh, float* dw, float* part,
+                     int M, int K, int N, int bm, cudaStream_t st) {
+  const int nwg = K <= sm90::kSmallM ? 1 : 2;
+  const int splits = sm90::decode_splits(K, N, M / bm);
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!sm90::encode_map(&ta, xh, false, M, K, 64, 64) ||
+      !sm90::encode_map(&tb, gh, false, M, N, 64, 64))
+    return cudaErrorInvalidValue;
+  return nwg == 1
+      ? sm90::launch_tc<1, false, true, false, true>(ta, tb, nullptr, nullptr, dw, part, K, M, N, bm, N, splits, 0, st)
+      : sm90::launch_tc<2, false, true, false, true>(ta, tb, nullptr, nullptr, dw, part, K, M, N, bm, N, splits, 0, st);
+}
 
 // dw[K, N] = xq[M, K]^T . gq[M, N] over dequantized operands. CTA tile
 // 64 x 64 of dw; thread (tx, ty) owns rows ty + 16 i and columns tx + 16 j
@@ -218,17 +266,22 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
 }
 
 // Plain C entry point of B3. x: [M,K] f32 or bf16 (x_bf16); g: [M,N] f32
-// or bf16 (g_bf16); dw: [K,N] f32. Scratch, allocated by the caller:
-// xq [M,K] f32 and gq [M,N] f32 (dequantized operands, readable after the
-// call), sx [M, K/gx] f32, sg [M, N/gg] f32. K and N must be multiples of
-// (bk, bn). Returns a cudaError_t code.
+// or bf16 (g_bf16); dw: [K,N] f32. Scratch, allocated by the caller for
+// the call's route, the other pointers null; the dequantized operands are
+// readable after the call. cuda_core: xq [M,K] f32, gq [M,N] f32.
+// bf16_wgmma: xh [M,K] bf16, gh [M,N] bf16, and part [M/bm, K, N] f32
+// when the M-blocks are split (K <= 64). Both: sx [M, K/gx] f32,
+// sg [M, N/gg] f32. K and N must be multiples of (bk, bn), M of bm. A
+// scratch set that does not match the route is refused. Returns a
+// cudaError_t code.
 extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
                           int g_bf16, float* dw, float* xq, float* sx,
-                          float* gq, float* sg, int M, int K, int N, int bk,
+                          float* gq, float* sg, void* xh, void* gh,
+                          float* part, int M, int K, int N, int bm, int bk,
                           int bn, int mbits, int stochastic, int block,
                           int seed, void* stream_ptr) {
-  if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
-      N % bn || mbits < 2 || mbits > 12 || block < 0)
+  if (M <= 0 || K <= 0 || N <= 0 || bm <= 0 || bk <= 0 || bn <= 0 ||
+      M % bm || K % bk || N % bn || mbits < 2 || mbits > 12 || block < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int gx = (block > 0 && block < bk) ? block : bk;
   const int gg = (block > 0 && block < bn) ? block : bn;
@@ -236,6 +289,32 @@ extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
   const uint32_t useed = static_cast<uint32_t>(seed);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 
+  if (wgrad_route(mbits, M, K, N, bm) == sm90::kRouteBf16) {
+    if (xh == nullptr || gh == nullptr || xq != nullptr || gq != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    __nv_bfloat16* xb = static_cast<__nv_bfloat16*>(xh);
+    __nv_bfloat16* gb = static_cast<__nv_bfloat16*>(gh);
+    if (x_bf16)
+      launch_quantize_rows<__nv_bfloat16>(x, xb, sx, M, K, gx, mbits,
+                                          stochastic, useed, kStreamX, 1,
+                                          stream);
+    else
+      launch_quantize_rows<float>(x, xb, sx, M, K, gx, mbits, stochastic,
+                                  useed, kStreamX, 1, stream);
+    if (g_bf16)
+      launch_quantize_rows<__nv_bfloat16>(g, gb, sg, M, N, gg, mbits,
+                                          stochastic, useed, kStreamG, 1,
+                                          stream);
+    else
+      launch_quantize_rows<float>(g, gb, sg, M, N, gg, mbits, stochastic,
+                                  useed, kStreamG, 1, stream);
+    const cudaError_t e = tc_wgrad(xh, gh, dw, part, M, K, N, bm,
+                                         stream);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }
+
+  if (xq == nullptr || gq == nullptr || xh != nullptr || gh != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (x_bf16)
     launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
                                         stochastic, useed, kStreamX, 1,

@@ -10,6 +10,14 @@
         dk = Σ Q(ds)ᵀ·q̂.
 
 q, k, v, do are [BH, S, hd] (batch × heads flattened); α = 1/√hd in f32.
+
+B4's routes (`flash_route`, which the C side's `flash_tc_route` mirrors):
+"int8_wgmma" where m_qk, m_pv <= 8, hd a multiple of 32 up to 128, the
+blocks multiples of 64 and S of 128 (yi-9b's training attention): a
+pre-pass writes int8 q·α, k and vᵀ with their steps (`flash_scratch`),
+and the main kernel runs both contractions as int8 wgmma, bit-equal to
+the plain version; "cuda_core" takes every other call. A route is chosen
+by the call's arithmetic and shape, never retried on another.
 D = rowsum(do ∘ o) is an elementwise torch op outside the kernels, on the
 saved o, as in the reference. `FlashAttention` is the autograd Function
 of the training path (the reference's `flash_attention_vjp`): its forward
@@ -19,8 +27,9 @@ The library is built with `nvcc` at first use (`hbfp_matmul.build`), never
 at import. A wrapper launches its kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain version (`kernels/ref.py`).
 Nothing falls back from the card to the plain version. Each wrapper's
-`.launches` counts kernel launches and `.plain_calls` CPU calls of its
-plain version; `reset_counts()` zeroes them.
+`.launches` counts kernel launches (B4's `.launches_by_route` the same
+launches by route) and `.plain_calls` CPU calls of its plain version;
+`reset_counts()` zeroes them.
 """
 from __future__ import annotations
 
@@ -36,6 +45,8 @@ from repro_torch.kernels.ref import hbfp_flash_dq_ref as hbfp_flash_dq_plain
 
 _LIB = "hbfp_flash_attn"
 _DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("int8_wgmma", "cuda_core")
+HP = 128          # the int8 route pads hd to one 128-byte row
 
 
 def _check(what: str, *ts: torch.Tensor) -> None:
@@ -88,6 +99,34 @@ def reset_counts() -> None:
     for fn in (hbfp_flash_fwd, hbfp_flash_dq, hbfp_flash_dkv):
         fn.launches = 0
         fn.plain_calls = 0
+    hbfp_flash_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def flash_route(*, m_qk: int, m_pv: int, S: int, hd: int, bq: int,
+                bk: int) -> str:
+    """The route of one B4 launch at the clipped blocks, as the C side's
+    `flash_tc_route` takes it: int8 wgmma where both contractions are
+    integral at m <= 8, hd fits one padded 128-byte row in multiples of
+    32, the blocks are whole 64-row warpgroup tiles and S whole 128-row
+    CTAs; else the CUDA cores."""
+    if m_qk <= 8 and m_pv <= 8 and hd % 32 == 0 and hd <= HP \
+            and bq % 64 == 0 and bk % 64 == 0 and S % 128 == 0:
+        return "int8_wgmma"
+    return "cuda_core"
+
+
+def flash_scratch(route: str, BH: int, S: int, bk: int) -> dict:
+    """Scratch of one B4 launch, {name: (shape, dtype) or None}, in the C
+    entry point's argument order: int8 q·α and k mantissas [BH·S, 128], vᵀ
+    mantissas [BH·128, S] (quantized per column over each k-block), and
+    their f32 steps; none on the CUDA cores."""
+    names = ("q8", "k8", "vt8", "qsc", "ksc", "vsc")
+    if route == "cuda_core":
+        return dict.fromkeys(names)
+    i8, f32 = torch.int8, torch.float32
+    return dict(zip(names, (((BH * S, HP), i8), ((BH * S, HP), i8),
+                            ((BH * HP, S), i8), ((BH * S,), f32),
+                            ((BH * S,), f32), ((BH, S // bk, HP), f32))))
 
 
 def hbfp_flash_fwd(q, k, v, *, m_bits: int = 8, m_qk: int = 0,
@@ -106,13 +145,19 @@ def hbfp_flash_fwd(q, k, v, *, m_bits: int = 8, m_qk: int = 0,
         hbfp_flash_fwd.plain_calls += 1
         return hbfp_flash_fwd_plain(q, k, v, **kw)
     BH, S, hd, scale = _cuda_args("hbfp_flash_fwd", q, m_qk, m_pv, bq, bk)
+    route = flash_route(m_qk=m_qk, m_pv=m_pv, S=S, hd=hd, bq=bq, bk=bk)
+    scratch = [None if v_ is None else
+               torch.empty(v_[0], dtype=v_[1], device=q.device)
+               for v_ in flash_scratch(route, BH, S, bk).values()]
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
     _launch(_LIB, "hbfp_flash_fwd", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), int(q.dtype == torch.bfloat16), o.data_ptr(),
-            _ptr(lse), BH, S, hd, bq, bk, m_qk, m_pv, int(causal), scale)
+            _ptr(lse), *(_ptr(t) for t in scratch), BH, S, hd, bq, bk, m_qk,
+            m_pv, int(causal), scale)
     hbfp_flash_fwd.launches += 1
+    hbfp_flash_fwd.launches_by_route[route] += 1
     return (o, lse) if with_lse else o
 
 

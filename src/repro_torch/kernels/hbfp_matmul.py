@@ -23,8 +23,15 @@ path after a widen) and "cuda_core" (everything else: m 9-12, block > 0,
 f32 raw weights). A route is chosen by the call's arithmetic, never
 retried on another; `gemm_scratch` gives each route's scratch.
 
+Routes of B3 (`wgrad_route`, which the C side's `wgrad_route` in
+`csrc/hbfp_matmul_bwd.cu` mirrors): "bf16_wgmma" (m <= 8, M-blocks of
+64-token multiples, 16-byte rows: every training call, block > 0
+included, since the dequantized operands are exact in bf16 whatever
+their exponent groups) and "cuda_core" (m 9-12, other tiles);
+`wgrad_scratch` gives their scratch.
+
 Counters: each wrapper's `.launches` counts kernel launches,
-`.launches_by_route` (B1, B2) the same launches by route, and
+`.launches_by_route` the same launches by route, and
 `.plain_calls` counts CPU calls of its plain version (`reset_counts()`
 zeroes all of them).
 """
@@ -47,7 +54,8 @@ from repro_torch.kernels.ref import hbfp_wgrad_ref as hbfp_wgrad_plain
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 HEADERS = (os.path.join(_CSRC, "hbfp_common.cuh"),
-           os.path.join(_CSRC, "hbfp_gemm_sm90.cuh"))
+           os.path.join(_CSRC, "hbfp_gemm_sm90.cuh"),
+           os.path.join(_CSRC, "hbfp_flash_fwd_sm90.cuh"))
 # library name -> source; each library's entry points and their ctypes
 # argument kinds ("p" pointer, "i" int, "f" float)
 SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
@@ -58,8 +66,9 @@ _ENTRIES = {
     "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipip" + "p" * 7 + "i" * 10
                         + "p"},
     "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 10 + "p",
-                        "hbfp_wgrad": "pipippppp" + "i" * 9 + "p"},
-    "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "i" * 8 + "fp",
+                        "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 10 + "p"},
+    "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "p" * 6 + "i" * 8
+                        + "fp",
                         "hbfp_flash_dq": "ppppppip" + "i" * 8 + "fp",
                         "hbfp_flash_dkv": "ppppppipp" + "i" * 8 + "fp"},
     "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 10 + "p"},
@@ -84,7 +93,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Build output of library `name`, named by the hash of its source and
-    the shared headers so an edited source never loads a stale library."""
+    every shared header so an edited source never loads a stale
+    library."""
     h = hashlib.sha1()
     for path in (SOURCES[name], *HEADERS):
         with open(path, "rb") as f:
@@ -143,7 +153,6 @@ def reset_counts() -> None:
     for fn in (hbfp_matmul_fwd, hbfp_dgrad, hbfp_wgrad):
         fn.launches = 0
         fn.plain_calls = 0
-    for fn in (hbfp_matmul_fwd, hbfp_dgrad):
         fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
@@ -212,6 +221,42 @@ def gemm_scratch(op: str, route: str, M: int, K: int, N: int, *, bk: int,
         out["sw"] = ((K // bk, N // bn), f32)
     if decode_splits(M, O, C // cblk) > 1:
         out["part"] = ((C // cblk, M, O), f32)
+    return out
+
+
+def wgrad_route(*, mantissa_bits: int, M: int, K: int, N: int,
+                bm: int) -> str:
+    """The route of one B3 launch at the clipped M-block bm, as the C
+    side's `wgrad_route` takes it: bf16 wgmma where the dequantized
+    operands are exact in bf16 (m <= 8), the M-block is a whole number of
+    the tensor-core kernel's 64-token stages and x̂'s and ĝ's rows are
+    16-byte multiples for TMA; else the CUDA cores."""
+    if mantissa_bits <= 8 and bm % 64 == 0 and M % bm == 0 and K % 8 == 0 \
+            and N % 8 == 0:
+        return "bf16_wgmma"
+    return "cuda_core"
+
+
+def wgrad_scratch(route: str, M: int, K: int, N: int, *, bm: int, bk: int,
+                  bn: int, block: int) -> dict:
+    """Scratch of one B3 launch, {name: (shape, dtype) or None}, in the C
+    entry point's argument order (xq, sx, gq, sg, xh, gh, part): the
+    dequantized operands in f32 (cuda_core) or bf16 (bf16_wgmma), their
+    group scales, and the split partials of an M-block split (K <= 64)."""
+    f32 = torch.float32
+    gx = block if (block and block < bk) else bk
+    gg = block if (block and block < bn) else bn
+    out = dict.fromkeys(("xq", "sx", "gq", "sg", "xh", "gh", "part"))
+    out["sx"] = ((M, K // gx), f32)
+    out["sg"] = ((M, N // gg), f32)
+    if route == "cuda_core":
+        out["xq"] = ((M, K), f32)
+        out["gq"] = ((M, N), f32)
+        return out
+    out["xh"] = ((M, K), torch.bfloat16)
+    out["gh"] = ((M, N), torch.bfloat16)
+    if decode_splits(K, N, M // bm) > 1:
+        out["part"] = ((M // bm, K, N), f32)
     return out
 
 
@@ -364,7 +409,8 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
     """B3, dw[K,N] = (Q(x)·δx)[M,K]ᵀ · (Q(g)·δg)[M,N]. x: [M,K], g: [M,N],
     f32/bf16, contiguous, divisible by the clipped tiles (bm over the
     contracted M, bk over K, bn over N). Returns dw [K,N] f32, or
-    (dw, x̂, ĝ) with the dequantized operands when `operands` is set."""
+    (dw, x̂, ĝ) with the dequantized operands (f32) when `operands` is
+    set."""
     _check(x, g, "hbfp_wgrad")
     if x.shape[0] != g.shape[0]:
         raise ValueError(f"wgrad: bad shapes {tuple(x.shape)}, "
@@ -378,21 +424,24 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
         hbfp_wgrad.plain_calls += 1
         return hbfp_wgrad_plain(x, g, seed, **kw)
     _launchable(x, mantissa_bits, "hbfp_wgrad")
-    gx = block if (block and block < bk) else bk
-    gg = block if (block and block < bn) else bn
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dw = torch.empty((K, N), **f32)
-    xq = torch.empty((M, K), **f32)
-    sx = torch.empty((M, K // gx), **f32)
-    gq = torch.empty((M, N), **f32)
-    sg = torch.empty((M, N // gg), **f32)
+    route = wgrad_route(mantissa_bits=mantissa_bits, M=M, K=K, N=N, bm=bm)
+    scratch = {k: None if v is None else
+               torch.empty(v[0], dtype=v[1], device=x.device)
+               for k, v in wgrad_scratch(route, M, K, N, bm=bm, bk=bk,
+                                         bn=bn, block=block).items()}
+    dw = torch.empty((K, N), dtype=torch.float32, device=x.device)
     _launch("hbfp_matmul_bwd", "hbfp_wgrad", x.device,
             x.data_ptr(), _is_bf16(x), g.data_ptr(), _is_bf16(g),
-            dw.data_ptr(), xq.data_ptr(), sx.data_ptr(), gq.data_ptr(),
-            sg.data_ptr(), M, K, N, bk, bn, mantissa_bits, int(stochastic),
-            int(block), _seed_int(seed))
+            dw.data_ptr(), *(_ptr(t) for t in scratch.values()), M, K, N,
+            bm, bk, bn, mantissa_bits, int(stochastic), int(block),
+            _seed_int(seed))
     hbfp_wgrad.launches += 1
-    return (dw, xq, gq) if operands else dw
+    hbfp_wgrad.launches_by_route[route] += 1
+    if not operands:
+        return dw
+    xh, gh = (scratch["xq"], scratch["gq"]) if route == "cuda_core" else \
+        (scratch["xh"].float(), scratch["gh"].float())
+    return dw, xh, gh
 
 
 reset_counts()

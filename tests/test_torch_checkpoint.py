@@ -288,6 +288,21 @@ def test_port_checkpoint_loads_in_reference(tmp_path, jstate, packed):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def test_reference_bf16_leaf_loads_in_port(tmp_path):
+    """The reference writes a bf16 leaf as 2-byte void (`|V2`); the port
+    reads its bytes back as bf16, bit for bit."""
+    rng = np.random.default_rng(11)
+    src = jnp.asarray(rng.standard_normal((3, 4)).astype(np.float32),
+                      jnp.bfloat16)
+    jsave(str(tmp_path), 2, {"w": src})
+    like = {"w": torch.zeros((3, 4), dtype=torch.bfloat16)}
+    restored, _ = load_checkpoint(str(tmp_path), like)
+    got = restored["w"]
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 4)
+    want = np.asarray(src).view(np.int16)
+    assert np.array_equal(got.view(torch.int16).numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # schedules and policies through meta; packing at the resolved width
 # ---------------------------------------------------------------------------
