@@ -26,11 +26,12 @@ Phases (any failure exits non-zero before the result line):
   4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
                 dv) against their plain versions at yi-9b's training
                 attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
-                timed, beside SDPA as a yardstick, with B4's device time
-                by kernel (pre-pass vs main) and its softmax bound, and
-                small cases (m 12, m_qk != m_pv, non-causal in bf16 and
-                f32, hd 64 with 64-blocks, hd 96 at m 4, S 96 and
-                32-blocks in f32), each B4 launch's route checked;
+                timed, beside SDPA as a yardstick, with each kernel's
+                device time by kernel (pre-pass vs main) and its softmax
+                bound, and small cases (m 12, m_qk != m_pv, non-causal in
+                bf16 and f32, hd 64 with 64-blocks, hd 96 at m 4, S 96 and
+                32-blocks in f32), each B4, B5 and B6 launch's route
+                checked (yi-9b's must be int8 wgmma);
   5. quantize — B7 against its plain version, bit for bit in all five
                 outputs, at yi-9b's tapped and packed shapes (m 8/16 at
                 tile 128, m 4 at tile 24), the whole-matrix tile, a bf16
@@ -43,9 +44,9 @@ Phases (any failure exits non-zero before the result line):
   7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
-                fp32, exact launch counts of B1-B6, every B1/B2 and B4
-                launch on the int8 wgmma route and every B3 launch on
-                bf16 wgmma, step time, tokens/s, peak memory, and a
+                fp32, exact launch counts of B1-B6, every B1/B2 and
+                B4-B6 launch on the int8 wgmma route and every B3 launch
+                on bf16 wgmma, step time, tokens/s, peak memory, and a
                 profile of one step;
   8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
                 controller: 8 steps uninterrupted, and 8 steps preempted
@@ -53,7 +54,7 @@ Phases (any failure exits non-zero before the result line):
                 agree bit for bit; exact B7 launches per telemetry step;
                 B1/B2 on int8 wgmma before the first widen and on bf16
                 wgmma after it, never on the CUDA cores; B3 on bf16 and
-                B4 on int8 wgmma on every step;
+                B4-B6 on int8 wgmma on every step;
                 a packed save of the master that loads back bit for bit
                 (needs ~25 GB of free disk under build/);
   9. kernels  — B1 against its plain PyTorch version on the card at the
@@ -186,6 +187,16 @@ SFU_OPS_S = 132 * 16 * 1.98e9
 # i.e. 6·hd/bk per score)
 FLASH_F32_PER_SCORE = 13
 FLASH_F32_PER_PV = 6
+# the same count for B5's and B6's int8 routes (csrc/hbfp_flash_bwd_sm90.
+# cuh), per kept score: s as above (int32 -> f32 2, scale 2, mask 1,
+# s - lse 1), dp (int32 -> f32 2, scale 2, dp - D 1), ds = p·(dp - D) (1),
+# a row max per quantized operand (1 each), and each quantize (multiply
+# by the reciprocal, round, two clamps, times the step: 5) and its bf16
+# conversion (1): B5 quantizes ds (20 ops), and promotes dq per output
+# element and k-block (multiply by α, add: 2 per (row, d), 2·hd/bk per
+# score); B6 quantizes p and ds (28 ops)
+FLASH_F32_PER_SCORE_BWD = {"hbfp_flash_dq": 20, "hbfp_flash_dkv": 28}
+FLASH_F32_PER_PROMOTE = {"hbfp_flash_dq": 2, "hbfp_flash_dkv": 0}
 # B4's scores, probabilities, quantized operands, o and lse equal the
 # plain version's bit for bit (the same f32 ops, expf/logf, and the row sum
 # of p in the kernel's order). B5/B6 sum dq, dk, dv (exact products with
@@ -744,21 +755,27 @@ def _flash_grad_ok(got, want, bound, S, bf16):
             bool(torch.equal(g, w)))
 
 
-def _flash_softmax_bound(BH, S, hd, bk, causal):
-    """B4's second bound: the f32 softmax work around its int8 products,
-    per kept score an expf at the special-function rate and the f32 ops
-    of FLASH_F32_PER_SCORE (+ the PV promotion) at the f32 rate; the
-    larger of the two times, in ms."""
+def _flash_softmax_bound(BH, S, hd, bk, causal, kernel="hbfp_flash_fwd"):
+    """A flash kernel's second bound: the f32 work around its int8
+    products, per kept score an expf at the special-function rate and the
+    f32 ops counted from its code (FLASH_F32_PER_SCORE and the PV
+    promotion for B4, FLASH_F32_PER_SCORE_BWD and the dq promotion for
+    B5/B6) at the f32 rate; the larger of the two times, in ms."""
     _, n_exp = _flash_work(BH, S, hd, causal)
-    f32_ops = n_exp * (FLASH_F32_PER_SCORE + FLASH_F32_PER_PV * hd / bk)
-    return max(n_exp / SFU_OPS_S, f32_ops / PEAK_OPS_S["f32"]) * 1e3
+    if kernel == "hbfp_flash_fwd":
+        per = FLASH_F32_PER_SCORE + FLASH_F32_PER_PV * hd / bk
+    else:
+        per = (FLASH_F32_PER_SCORE_BWD[kernel]
+               + FLASH_F32_PER_PROMOTE[kernel] * hd / bk)
+    return max(n_exp / SFU_OPS_S, n_exp * per / PEAK_OPS_S["f32"]) * 1e3
 
 
 def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
                 timed):
     """B4, B5 and B6 at one shape against their plain versions on the
-    same inputs, B4's route checked; returns one row per kernel (and,
-    timed, the SDPA yardstick and B4's device time by kernel)."""
+    same inputs, each launch's route checked; returns one row per kernel
+    (and, timed, the SDPA yardstick and each kernel's device time by
+    kernel: pre-pass vs main)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import hbfp_flash_attn as fa
@@ -785,18 +802,20 @@ def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
     err = max(float((ok_k.float() - o_p.float()).abs().max()),
               float((lse_k - lse_p).abs().max()))
     rows.append(dict(kernel="hbfp_flash_fwd", ok=fwd_ok, check="EQ",
-                     max_abs_err=err, bit_equal=fwd_ok, route=route,
-                     bound_softmax_ms=_flash_softmax_bound(BH, S, hd, blk,
-                                                           causal)))
+                     max_abs_err=err, bit_equal=fwd_ok, route=route))
     del ok_k, o_nolse
     delta = flash_delta(o_p, do)
     args = (q, k, v, do, lse_p, delta)
+    route = fa.flash_bwd_route(m_qk=mq, m_pv=mp, S=S, hd=hd, bq=blk, bk=blk)
+    before = {k_: getattr(fa, k_).launches_by_route[route]
+              for k_ in ("hbfp_flash_dq", "hbfp_flash_dkv")}
     dq_k = fa.hbfp_flash_dq(*args, **kw)
     dq_p, bq_ = fa.hbfp_flash_dq_plain(*args, with_bound=True, **kw)
     torch.cuda.synchronize()
     ok, err, ratio, eq = _flash_grad_ok(dq_k, dq_p, bq_, S, bf16)
     rows.append(dict(kernel="hbfp_flash_dq", ok=ok, check="TOL",
-                     max_abs_err=err, err_over_tol=ratio, bit_equal=eq))
+                     max_abs_err=err, err_over_tol=ratio, bit_equal=eq,
+                     route=route))
     del dq_k, dq_p, bq_
     dk_k, dv_k = fa.hbfp_flash_dkv(*args, **kw)
     dk_p, dv_p, bk_, bv_ = fa.hbfp_flash_dkv_plain(*args, with_bound=True,
@@ -807,7 +826,13 @@ def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
     rows.append(dict(kernel="hbfp_flash_dkv", ok=rk[0] and rv[0],
                      check="TOL", max_abs_err=max(rk[1], rv[1]),
                      err_over_tol=max(rk[2], rv[2]),
-                     bit_equal=rk[3] and rv[3]))
+                     bit_equal=rk[3] and rv[3], route=route))
+    for k_, n in before.items():
+        if getattr(fa, k_).launches_by_route[route] != n + 1:
+            fail(f"flash {name}: {k_} not on route {route}")
+    for row in rows:
+        row["bound_softmax_ms"] = _flash_softmax_bound(
+            BH, S, hd, blk, causal, row["kernel"])
     del dk_k, dv_k, dk_p, dv_p, bk_, bv_
     finite = all(bool(torch.isfinite(t).all()) for t in (o_p, lse_p))
     bounds = _flash_bounds(BH, S, hd, q.element_size(), causal, mq, mp)
@@ -850,11 +875,10 @@ def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
             n = _reps(run)
             row.update(kernel_ms=_time_ms(run, n), plain_ms=_time_ms(plain, 1),
                        reps=n)
-            if name_k == "hbfp_flash_fwd":
-                row["kernel_split_ms"] = _kernel_split(run)
-                log(f"[flash]   B4 {name} device ms by kernel: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in
-                    row["kernel_split_ms"].items()))
+            row["kernel_split_ms"] = _kernel_split(run)
+            log(f"[flash]   {name_k} {name} device ms by kernel: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            row["kernel_split_ms"].items()))
         log(f"[flash] {name_k} {name} BH={BH} S={S} hd={hd} {dtype[:4]} "
             f"blk={blk} {row.get('route', '')} "
             f"m={m}/{mq}/{mp} causal={causal} {row['check']} "
@@ -863,8 +887,7 @@ def _flash_case(name, BH, S, hd, dtype, m, m_qk, m_pv, causal, blk, gen,
                if "err_over_tol" in row else "")
             + (f" kernel_ms={row['kernel_ms']:.3f} bound_ms={bound:.4f}"
                f"({by[0]}) plain_ms={row['plain_ms']:.1f}" if timed else "")
-            + (f" bound_softmax_ms={row['bound_softmax_ms']:.4f}"
-               if "bound_softmax_ms" in row else ""))
+            + f" bound_softmax_ms={row['bound_softmax_ms']:.4f}")
         if not finite:
             row["ok"] = False
     if sdpa:
@@ -884,8 +907,10 @@ def phase_flash():
     BH, S, hd = FLASH_SHAPE
     rows = _flash_case("yi_train", BH, S, hd, "bfloat16", 8, 0, 0, True,
                        None, gen, timed=True)
-    if rows[0]["route"] != "int8_wgmma":
-        fail(f"yi-9b's training attention took B4 route {rows[0]['route']}")
+    off = [r["kernel"] for r in rows if r["route"] != "int8_wgmma"]
+    if off:
+        fail(f"yi-9b's training attention took another route than int8 "
+             f"wgmma in {off}")
     torch.cuda.empty_cache()
     for case in FLASH_SMALL:
         rows += _flash_case(*case, gen, timed=False)
@@ -1106,9 +1131,10 @@ def _profile_step(trainer, steps: int):
               "f32 quantize passes (cuda_core)":
                   r"quantize_(rows|w)_kernel<\w+, float",
               "B4 flash fwd (main)": r"flash_fwd_kernel|flash_tc_kernel",
-              "B4 flash fwd (pre-pass)": r"flash_(rows|vt)_prepass",
-              "B5 flash dq": r"flash_dq_kernel",
-              "B6 flash dkv": r"flash_dkv_kernel"}
+              "B4-B6 flash pre-passes": r"flash_(rows|vt)_prepass",
+              "B5 flash dq (main)": r"flash_dq_kernel|flash_dq_tc_kernel",
+              "B6 flash dkv (main)": r"flash_dkv_kernel|"
+                                     r"flash_dkv_tc_kernel"}
     share = {g: sum(us for k, us, _ in rows if re.search(p, k)) / total
              for g, p in groups.items()}
     share["everything else"] = 1.0 - sum(share.values())
@@ -1121,18 +1147,20 @@ def _profile_step(trainer, steps: int):
 FLASH_KERNELS = ("hbfp_flash_fwd", "hbfp_flash_dq", "hbfp_flash_dkv")
 GEMM_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")
 ROUTED_KERNELS = ("hbfp_matmul_fwd", "hbfp_dgrad")     # B1, B2
-# every training launch of B3 and B4 takes its tensor-core route
-TRAIN_ROUTES = {"hbfp_wgrad": "bf16_wgmma", "hbfp_flash_fwd": "int8_wgmma"}
+# every training launch of B3 and of B4-B6 takes its tensor-core route
+TRAIN_ROUTES = {"hbfp_wgrad": "bf16_wgmma", "hbfp_flash_fwd": "int8_wgmma",
+                "hbfp_flash_dq": "int8_wgmma",
+                "hbfp_flash_dkv": "int8_wgmma"}
 
 
 def _routes():
-    """B1's, B2's, B3's and B4's launches by route since the last
-    reset."""
+    """B1-B6's launches by route since the last reset."""
     from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
     out = {k: dict(getattr(hm, k).launches_by_route)
            for k in GEMM_KERNELS}
-    out["hbfp_flash_fwd"] = dict(fa.hbfp_flash_fwd.launches_by_route)
+    out.update({k: dict(getattr(fa, k).launches_by_route)
+                for k in FLASH_KERNELS})
     return out
 
 
@@ -1143,7 +1171,7 @@ def _all_on(routes: dict, route: str) -> bool:
 
 
 def _train_routes_ok(routes: dict) -> bool:
-    """B3 and B4 launches all on their tensor-core routes."""
+    """B3 and B4-B6 launches all on their tensor-core routes."""
     return all(_all_on({k: routes[k]}, r) for k, r in TRAIN_ROUTES.items())
 
 
@@ -1227,7 +1255,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     log(f"{tag} step times {[round(t, 3) for t in step_s]} s, "
         f"{tok_s:.0f} tokens/s, peak {peak:.2f} of {total:.2f} GiB | {card}")
     log(f"{tag} launches over 3 steps {counts} (expected {want}), plain "
-        f"calls {plain}; B1-B4 by route {routes}; step-0 loss HBFP "
+        f"calls {plain}; B1-B6 by route {routes}; step-0 loss HBFP "
         f"{loss0:.4f} vs fp32 {loss_fp32:.4f}")
     if not all(torch.isfinite(torch.tensor(losses))):
         fail(f"{arch_name}: non-finite training loss {losses}")
@@ -1238,8 +1266,8 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
         fail(f"{arch_name}: a training B1/B2 launch left the int8 wgmma "
              f"route: {routes}")
     if not _train_routes_ok(routes):
-        fail(f"{arch_name}: a training B3 launch left bf16 wgmma or a B4 "
-             f"launch left int8 wgmma: {routes}")
+        fail(f"{arch_name}: a training B3 launch left bf16 wgmma or a "
+             f"B4-B6 launch left int8 wgmma: {routes}")
     if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
         fail(f"{arch_name}: step-0 HBFP loss {loss0} not within 2% of fp32 "
              f"{loss_fp32}")
@@ -1522,8 +1550,8 @@ def _counts():
     out.update({f"{k}/{r}": n for k in GEMM_KERNELS
                 for r, n in getattr(hm, k).launches_by_route.items()})
     out.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
-    out.update({f"hbfp_flash_fwd/{r}": n for r, n in
-                fa.hbfp_flash_fwd.launches_by_route.items()})
+    out.update({f"{k}/{r}": n for k in FLASH_KERNELS
+                for r, n in getattr(fa, k).launches_by_route.items()})
     out["bfp_quantize"] = bq.bfp_quantize.launches
     plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) \
         + sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS) \
@@ -1702,16 +1730,17 @@ def phase_adaptive_full(card: str):
                for r in rows_a}
     for st, by in sorted(by_step.items()):
         log(f"{tag} step {st}: B1+B2 by route {by}")
-    # B3 and B4: their tensor-core routes on every step (wgrad at m 8
+    # B3 and B4-B6: their tensor-core routes on every step (wgrad at m 8
     # under "4; wgrad+4", flash at m 4)
     off = [(r["step"], k, rt, n) for r in rows_a + rows_b1 + rows_c
            for k, want in TRAIN_ROUTES.items()
            for rt in ("int8_wgmma", "bf16_wgmma", "cuda_core")
            if rt != want and (n := r["launches"].get(f"{k}/{rt}", 0))]
-    log(f"{tag} B3 by route {_route_sum(rows_a, 'hbfp_wgrad')}, B4 by "
-        f"route {_route_sum(rows_a, 'hbfp_flash_fwd')}")
+    log(f"{tag} B3 by route {_route_sum(rows_a, 'hbfp_wgrad')}, B4-B6 by "
+        f"route " + ", ".join(f"{k} {_route_sum(rows_a, k)}"
+                              for k in FLASH_KERNELS))
     if off:
-        fail(f"adaptive-full: B3/B4 launches off their tensor-core routes "
+        fail(f"adaptive-full: B3-B6 launches off their tensor-core routes "
              f"(step, kernel, route, launches): {off}")
     bad_routes = [st for st, by in by_step.items()
                   if by["cuda_core"] or (by["int8_wgmma"] and
@@ -1828,19 +1857,23 @@ def _bwd_entry(name, rows, by_path, replaces, source, by_route=None):
     }
 
 
-def _flash_entry(name, rows, by_path, replaces, source, by_route=None):
+def _flash_entry(name, rows, by_path, replaces, source, by_route):
     """One flash kernel's JSON entry: times at the yi-9b training shape;
     max_abs_err over every flash case. No PyTorch call computes the HBFP
     attention, so library_ms is null; SDPA on the same bf16 q/k/v is a
-    yardstick of another function, never called by the port. B4 also
-    carries its launches by route, its softmax bound and its device time
-    by kernel (pre-pass, main)."""
+    yardstick of another function, never called by the port. Each also
+    carries its main-path launches by route, the flash phase's cases by
+    the route each took, its softmax bound and its device time by kernel
+    (pre-pass, main)."""
     main = next(r for r in rows
                 if r["kernel"] == name and r["case"] == "yi_train")
-    extra = {} if by_route is None else {
-        "launches_by_route": by_route,
-        "bound_softmax_ms": main["bound_softmax_ms"],
-        "kernel_split_ms": main.get("kernel_split_ms")}
+    cases = {}
+    for r in rows:
+        if r["kernel"] == name:
+            cases.setdefault(r["route"], []).append(r["case"])
+    extra = {"launches_by_route": by_route, "cases_by_route": cases,
+             "bound_softmax_ms": main["bound_softmax_ms"],
+             "kernel_split_ms": main.get("kernel_split_ms")}
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
@@ -1962,17 +1995,17 @@ def main() -> int:
     b3 = _bwd_entry("hbfp_wgrad", bwd, by_path("hbfp_wgrad"),
                     "src/repro/kernels/hbfp_matmul.py:352",
                     src + "hbfp_matmul_bwd.cu", by_route("hbfp_wgrad"))
-    fsrc = src + "hbfp_flash_attn.cu"
     fref = "src/repro/kernels/hbfp_flash_attn.py:"
-    b4_route = {r: train_yi["routes"]["hbfp_flash_fwd"][r]
-                + adapt["launches"][f"hbfp_flash_fwd/{r}"]
-                for r in ("int8_wgmma", "cuda_core")}
+    flash_route = lambda k: {r: train_yi["routes"][k][r]
+                             + adapt["launches"][f"{k}/{r}"]
+                             for r in ("int8_wgmma", "cuda_core")}
     b456 = [_flash_entry(k, flash, {"train_yi": train_yi["launches"][k],
                                     "adaptive_yi": adapt["launches"][k]},
                          fref + line,
-                         fsrc if k != "hbfp_flash_fwd" else
-                         src + "hbfp_flash_fwd_sm90.cuh",
-                         b4_route if k == "hbfp_flash_fwd" else None)
+                         src + ("hbfp_flash_fwd_sm90.cuh"
+                                if k == "hbfp_flash_fwd"
+                                else "hbfp_flash_bwd_sm90.cuh"),
+                         flash_route(k))
             for k, line in (("hbfp_flash_fwd", "128"),
                             ("hbfp_flash_dq", "205"),
                             ("hbfp_flash_dkv", "241"))]

@@ -1,24 +1,29 @@
 // HBFP flash attention for Hopper (sm_90a): the forward (B4, replaces
 // repro/kernels/hbfp_flash_attn.py `hbfp_flash_attention` /
 // `_flash_kernel`), the dQ pass (B5, `hbfp_flash_attention_bwd` /
-// `_flash_dq_kernel`) and the dK/dV pass (B6, `_flash_dkv_kernel`). B4
+// `_flash_dq_kernel`) and the dK/dV pass (B6, `_flash_dkv_kernel`). Each
 // takes int8 wgmma where m_qk, m_pv <= 8 and the shapes fit its tiles
-// (hbfp_flash_fwd_sm90.cuh, route `int8_wgmma`); the CUDA-core kernels
-// below run B4's other calls (route `cuda_core`) and all of B5 and B6.
+// (route `int8_wgmma`: B4 in hbfp_flash_fwd_sm90.cuh, B5 and B6 in
+// hbfp_flash_bwd_sm90.cuh); the CUDA-core kernels below run every other
+// call (route `cuda_core`: m > 8, head dims and blocks the tiles do not
+// take).
 //
 // What bounds them on this card: per causal (q-block, k-block) pair the
 // integral contractions QKᵀ, PV and dp = do·vᵀ are int8 work (1,979 TOP/s
 // at m <= 8) and dq, dk, dv are f32 sums of exact products (bf16 rate,
 // their m <= 8 operands being exact in bf16); q, k, v, do are read and the
 // outputs written once, a few MB, so all three are bound by operations.
-// The CUDA-core kernels run every contraction as f32 FMAs on integral
-// mantissas (exact below 2^24) or int32 above m = 8, far from that bound;
-// B5 and B6 on tensor cores are later work.
+// The tensor-core routes run the integral products as s8 wgmma and dq,
+// dk, dv as bf16 wgmma; the CUDA-core kernels below run every contraction
+// as f32 FMAs on integral mantissas (exact below 2^24) or int32 above
+// m = 8, far from that bound.
 //
-// Design. The [S×S] score matrix never reaches device memory: a CTA keeps
-// its q rows (B4, B5) or its whole k-block (B6) in shared memory and
-// loops over the other operand's blocks in ascending order, skipping the
-// blocks the causal mask hides, exactly as the reference's grid does.
+// Design (the CUDA-core kernels; the tensor-core routes keep the same
+// groups and block order, see their headers). The [S×S] score matrix
+// never reaches device memory: a CTA keeps its q rows (B4, B5) or its
+// whole k-block (B6) in shared memory and loops over the other operand's
+// blocks in ascending order, skipping the blocks the causal mask hides,
+// exactly as the reference's grid does.
 // Quantization groups are the reference's, whatever the CTA tile:
 //   forward:  q·α and k per row over hd at m_qk; p per row over bk and
 //             v per column over bk at m_pv;
@@ -631,8 +636,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace flash
 }  // namespace hbfp
 
-// B4's int8 wgmma route; it uses the helpers above (store, kNegInf)
+// The int8 wgmma routes of B4 and of B5/B6; they use the helpers above
+// (store, kNegInf)
 #include "hbfp_flash_fwd_sm90.cuh"
+#include "hbfp_flash_bwd_sm90.cuh"
 
 // Picks the instantiation: storage type by `bf16`, and for each of the QK
 // and PV sides an f32 contraction (exact at m <= 8) or an int32 one.
@@ -651,6 +658,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     if (ip) return FN<float, float, int>(__VA_ARGS__);                      \
     return FN<float, float, float>(__VA_ARGS__);                            \
   } while (0)
+
+// The scratch of B5's and B6's int8 route, or none (all null) on the CUDA
+// cores: int8 q·α, k, do, v [BH*S, 128]; their f32 row steps [BH*S]; bf16
+// h0 (B5: k̂; B6: q̂) and h1 (B6: dô) [BH*S, 128].
+static bool bwd_scratch(bool tc, void* const* p, int n,
+                        hbfp::flash::BwdScratch* w) {
+  for (int i = 0; i < n; ++i)
+    if ((p[i] != nullptr) != tc) return false;
+  *w = {static_cast<int8_t*>(p[0]), static_cast<int8_t*>(p[1]),
+        static_cast<int8_t*>(p[2]), static_cast<int8_t*>(p[3]),
+        static_cast<float*>(p[4]), static_cast<float*>(p[5]),
+        static_cast<float*>(p[6]), static_cast<float*>(p[7]),
+        static_cast<__nv_bfloat16*>(p[8]),
+        static_cast<__nv_bfloat16*>(n > 9 ? p[9] : nullptr)};
+  return true;
+}
 
 extern "C" {
 
@@ -688,13 +711,29 @@ int hbfp_flash_fwd(const void* q, const void* k, const void* v, int bf16,
 }
 
 // dq [BH, S, hd] from q, k, v, do (one type) and the forward's lse and
-// D = rowsum(do ∘ o), both [BH, S] f32.
+// D = rowsum(do ∘ o), both [BH, S] f32. The route is decided here
+// (flash_bwd_tc_route); int8_wgmma takes the scratch q8, k8, do8, v8, qsc,
+// ksc, dosc, vsc and kh, cuda_core none.
 int hbfp_flash_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  int bf16, void* dq, int BH, int S, int hd, int bq, int bk,
-                  int mqk, int mpv, int causal, float scale, void* stream) {
-  if (!hbfp::flash::shapes_ok(S, hd, bq, bk, mqk, mpv))
+                  int bf16, void* dq, void* q8, void* k8, void* do8,
+                  void* v8, void* qsc, void* ksc, void* dosc, void* vsc,
+                  void* kh, int BH, int S, int hd, int bq, int bk, int mqk,
+                  int mpv, int causal, float scale, void* stream) {
+  using namespace hbfp::flash;
+  if (!shapes_ok(S, hd, bq, bk, mqk, mpv))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = flash_bwd_tc_route(S, hd, bq, bk, mqk, mpv) == kFlashInt8;
+  void* scratch[] = {q8, k8, do8, v8, qsc, ksc, dosc, vsc, kh};
+  BwdScratch w;
+  if (!bwd_scratch(tc, scratch, 9, &w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tc) {
+    auto fn = bf16 ? launch_dq_tc<__nv_bfloat16> : launch_dq_tc<float>;
+    return fn(q, k, v, dout, static_cast<const float*>(lse),
+              static_cast<const float*>(delta), dq, w, BH, S, hd, bq, bk,
+              mqk, mpv, causal, scale, static_cast<cudaStream_t>(stream));
+  }
   HBFP_FLASH_DISPATCH(launch_dq, q, k, v, dout,
                       static_cast<const float*>(lse),
                       static_cast<const float*>(delta), dq, BH, S, hd, bq, bk,
@@ -702,14 +741,29 @@ int hbfp_flash_dq(const void* q, const void* k, const void* v,
                       static_cast<cudaStream_t>(stream));
 }
 
-// dk, dv [BH, S, hd] from the same inputs.
+// dk, dv [BH, S, hd] from the same inputs; int8_wgmma takes the scratch
+// q8, k8, do8, v8, qsc, ksc, dosc, vsc, qh and doh, cuda_core none.
 int hbfp_flash_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   int bf16, void* dk, void* dv, int BH, int S, int hd,
+                   int bf16, void* dk, void* dv, void* q8, void* k8,
+                   void* do8, void* v8, void* qsc, void* ksc, void* dosc,
+                   void* vsc, void* qh, void* doh, int BH, int S, int hd,
                    int bq, int bk, int mqk, int mpv, int causal, float scale,
                    void* stream) {
-  if (!hbfp::flash::shapes_ok(S, hd, bq, bk, mqk, mpv))
+  using namespace hbfp::flash;
+  if (!shapes_ok(S, hd, bq, bk, mqk, mpv))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = flash_bwd_tc_route(S, hd, bq, bk, mqk, mpv) == kFlashInt8;
+  void* scratch[] = {q8, k8, do8, v8, qsc, ksc, dosc, vsc, qh, doh};
+  BwdScratch w;
+  if (!bwd_scratch(tc, scratch, 10, &w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tc) {
+    auto fn = bf16 ? launch_dkv_tc<__nv_bfloat16> : launch_dkv_tc<float>;
+    return fn(q, k, v, dout, static_cast<const float*>(lse),
+              static_cast<const float*>(delta), dk, dv, w, BH, S, hd, bq, bk,
+              mqk, mpv, causal, scale, static_cast<cudaStream_t>(stream));
+  }
   HBFP_FLASH_DISPATCH(launch_dkv, q, k, v, dout,
                       static_cast<const float*>(lse),
                       static_cast<const float*>(delta), dk, dv, BH, S, hd, bq,

@@ -27,8 +27,9 @@
 // is commutative, so both partners of a shuffle hold the same bits.
 //
 // Design.
-//   pre-pass   flash_rows_prepass: q*alpha and k per row over hd into int8
-//              [BH*S, 128] (zero past hd) with their f32 row steps;
+//   pre-pass   flash_rows_prepass (operands q, k): q*alpha and k per row
+//              over hd into int8 [BH*S, 128] (zero past hd) with their f32
+//              row steps;
 //              flash_vt_prepass: v per column over each k-block into int8
 //              v^T [BH*128, S] (rows past hd zero) with steps
 //              [BH, S/bk, 128]. Both depend on no q-block, so they replace
@@ -103,45 +104,67 @@ __device__ __forceinline__ float flash_q(float x, float inv_step, float lim) {
   return fminf(fmaxf(rintf(__fmul_rn(x, inv_step)), -lim), lim);
 }
 
-// One warp per row of x [rows, hd] (times `mul` in f32 when use_mul: q*alpha),
-// quantized per row at mbits: int8 mantissas to out [rows, 128] (zero past
-// hd), the step to sc[row]. blockIdx.y selects (q, k).
+// Up to four [rows, hd] operands, one per blockIdx.y, each quantized per
+// row over hd at its own width, one warp per row; operand 0 is first
+// multiplied by `scale` in f32 (q*alpha). Each writes its int8 mantissas
+// to x8 [rows, 128] (zero past hd) and its f32 row steps to sc, and, where
+// xh is set, the dequantized rows in bf16 to xh [rows, 128] (exact: an
+// integer |q| <= 127 times a power-of-two step >= 2^-106). B4 passes
+// (q, k); B5 and B6 (hbfp_flash_bwd_sm90.cuh) pass (q, k, do, v).
+// Two f32 values (exact in bf16) as one register of bf16, lo in the low
+// half: a column pair of a fragment row.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct FlashRows {
+  const void* x[4];
+  int8_t* x8[4];
+  float* sc[4];
+  __nv_bfloat16* xh[4];
+  int mbits[4];
+};
+
 template <typename XT>
 __global__ void __launch_bounds__(256)
-flash_rows_prepass(const XT* __restrict__ q, const XT* __restrict__ k,
-                   int8_t* __restrict__ q8, int8_t* __restrict__ k8,
-                   float* __restrict__ qsc, float* __restrict__ ksc,
-                   int rows, int hd, float scale, int mqk) {
+flash_rows_prepass(const FlashRows a, int rows, int hd, float scale) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const bool is_q = blockIdx.y == 0;
-  const XT* x = is_q ? q : k;
+  const int op = blockIdx.y;
+  const XT* x = static_cast<const XT*>(a.x[op]);
+  const int mbits = a.mbits[op];
   float vals[4];
   float amax = 0.0f;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int d = 4 * lane + t;
     float v = d < hd ? to_f(x[static_cast<size_t>(row) * hd + d]) : 0.0f;
-    if (is_q) v = __fmul_rn(v, scale);
+    if (op == 0) v = __fmul_rn(v, scale);
     vals[t] = v;
     amax = fmaxf(amax, fabsf(v));
   }
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float delta = flash_step(amax, mqk);
-  const float inv = flash_inv_step(amax, mqk);
-  const float lim = static_cast<float>((1 << (mqk - 1)) - 1);
+  const float delta = flash_step(amax, mbits);
+  const float inv = flash_inv_step(amax, mbits);
+  const float lim = static_cast<float>((1 << (mbits - 1)) - 1);
+  float mq[4];
   uint32_t packed = 0;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    const int m = __float2int_rn(flash_q(vals[t], inv, lim));
-    packed |= (static_cast<uint32_t>(m) & 0xFFu) << (8 * t);
+    mq[t] = flash_q(vals[t], inv, lim);
+    packed |= (static_cast<uint32_t>(__float2int_rn(mq[t])) & 0xFFu) << (8 * t);
   }
-  int8_t* out = is_q ? q8 : k8;
-  reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * kFlashHP)[lane] =
-      packed;
-  if (lane == 0) (is_q ? qsc : ksc)[row] = delta;
+  const size_t off = static_cast<size_t>(row) * kFlashHP;
+  reinterpret_cast<uint32_t*>(a.x8[op] + off)[lane] = packed;
+  if (lane == 0) a.sc[op][row] = delta;
+  if (a.xh[op] != nullptr) {
+    reinterpret_cast<uint2*>(a.xh[op] + off)[lane] =
+        make_uint2(pack_bf16(__fmul_rn(mq[0], delta), __fmul_rn(mq[1], delta)),
+                   pack_bf16(__fmul_rn(mq[2], delta), __fmul_rn(mq[3], delta)));
+  }
 }
 
 // v [BH, S, hd] per column over each k-block of bk rows, quantized at mpv
@@ -197,9 +220,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// bar.sync over one warpgroup's 128 threads
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+// bar.sync `id` over one warpgroup's 128 threads, or over `threads`
+__device__ __forceinline__ void wg_sync(int id, int threads = 128) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Byte offset of (row r, byte c) in a [rows x 128] int8 tile with the
@@ -432,9 +455,10 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
                   int mqk, int mpv, int causal, float scale, cudaStream_t st) {
   const int rows = BH * S;
   dim3 g1((rows * 32 + 255) / 256, 2);
-  flash_rows_prepass<XT><<<g1, 256, 0, st>>>(
-      static_cast<const XT*>(q), static_cast<const XT*>(k), q8, k8, qsc, ksc,
-      rows, hd, scale, mqk);
+  const FlashRows rw = {{q, k, nullptr, nullptr}, {q8, k8, nullptr, nullptr},
+                        {qsc, ksc, nullptr, nullptr},
+                        {nullptr, nullptr, nullptr, nullptr}, {mqk, mqk, 0, 0}};
+  flash_rows_prepass<XT><<<g1, 256, 0, st>>>(rw, rows, hd, scale);
   dim3 g2(S / bk, BH, kFlashHP / 32);
   flash_vt_prepass<XT><<<g2, 256, 0, st>>>(static_cast<const XT*>(v), vt8,
                                            vsc, S, hd, bk, mpv);

@@ -162,14 +162,24 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Keeps the compiler from moving reads of the fragment across a wait.
-__device__ __forceinline__ void fence_frag(int (&d)[64]) {
+// Keeps the compiler from moving reads or writes of a fragment (an
+// accumulator, or B5's register-A slices [T][4]) across a wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_frag(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_frag(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_frag(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int T>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[T][4]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[t][r])::"memory");
 }
 
 #define HBFP_D64                                                  \

@@ -11,13 +11,19 @@
 
 q, k, v, do are [BH, S, hd] (batch × heads flattened); α = 1/√hd in f32.
 
-B4's routes (`flash_route`, which the C side's `flash_tc_route` mirrors):
+Routes (`flash_route` for B4 and `flash_bwd_route` for B5 and B6, which
+the C side's `flash_tc_route` and `flash_bwd_tc_route` mirror):
 "int8_wgmma" where m_qk, m_pv <= 8, hd a multiple of 32 up to 128, the
-blocks multiples of 64 and S of 128 (yi-9b's training attention): a
-pre-pass writes int8 q·α, k and vᵀ with their steps (`flash_scratch`),
-and the main kernel runs both contractions as int8 wgmma, bit-equal to
-the plain version; "cuda_core" takes every other call. A route is chosen
-by the call's arithmetic and shape, never retried on another.
+blocks multiples of 64 and S of 128 (yi-9b's training attention and the
+adaptive path at m 4); "cuda_core" takes every other call. On the int8
+route a pre-pass writes int8 q·α and k (B4 also vᵀ; B5 and B6 do and v)
+with their steps (`flash_scratch`, `flash_bwd_scratch`), and the main
+kernel runs the integral products (QKᵀ, PV; dp = Q(do)·Q(v)ᵀ) as int8
+wgmma, bit-equal to the plain version's, and B5's and B6's f32
+contractions (dq, dk, dv) as bf16 wgmma over the dequantized operands,
+exact in bf16, so only their order of f32 additions differs from the
+plain version. A route is chosen by the call's arithmetic and shape,
+never retried on another.
 D = rowsum(do ∘ o) is an elementwise torch op outside the kernels, on the
 saved o, as in the reference. `FlashAttention` is the autograd Function
 of the training path (the reference's `flash_attention_vjp`): its forward
@@ -27,9 +33,10 @@ The library is built with `nvcc` at first use (`hbfp_matmul.build`), never
 at import. A wrapper launches its kernel for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain version (`kernels/ref.py`).
 Nothing falls back from the card to the plain version. Each wrapper's
-`.launches` counts kernel launches (B4's `.launches_by_route` the same
-launches by route) and `.plain_calls` CPU calls of its plain version;
-`reset_counts()` zeroes them.
+`.launches` counts kernel launches (a route's pre-pass and main kernel
+count as one), `.launches_by_route` the same launches by route, and
+`.plain_calls` CPU calls of its plain version; `reset_counts()` zeroes
+them.
 """
 from __future__ import annotations
 
@@ -99,7 +106,7 @@ def reset_counts() -> None:
     for fn in (hbfp_flash_fwd, hbfp_flash_dq, hbfp_flash_dkv):
         fn.launches = 0
         fn.plain_calls = 0
-    hbfp_flash_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flash_route(*, m_qk: int, m_pv: int, S: int, hd: int, bq: int,
@@ -129,6 +136,40 @@ def flash_scratch(route: str, BH: int, S: int, bk: int) -> dict:
                             ((BH * S,), f32), ((BH, S // bk, HP), f32))))
 
 
+def flash_bwd_route(*, m_qk: int, m_pv: int, S: int, hd: int, bq: int,
+                    bk: int) -> str:
+    """The route of one B5 or B6 launch, as the C side's
+    `flash_bwd_tc_route` takes it: B4's tiles (B6's 64-row q chunks then
+    lie in one q-block, and its 128 k rows hold one or two whole
+    k-blocks)."""
+    return flash_route(m_qk=m_qk, m_pv=m_pv, S=S, hd=hd, bq=bq, bk=bk)
+
+
+_BWD_SCRATCH = {"hbfp_flash_dq": ("kh",), "hbfp_flash_dkv": ("qh", "doh")}
+
+
+def flash_bwd_scratch(route: str, entry: str, BH: int, S: int) -> dict:
+    """Scratch of one B5 (`entry` "hbfp_flash_dq") or B6 ("hbfp_flash_dkv")
+    launch, {name: (shape, dtype) or None}, in the C entry point's
+    argument order: int8 q·α, k, do, v mantissas [BH·S, 128], their f32
+    row steps, and the dequantized operands in bf16 [BH·S, 128] that the
+    bf16 products read (B5: k̂; B6: q̂, dô); none on the CUDA cores."""
+    names = ("q8", "k8", "do8", "v8", "qsc", "ksc", "dosc", "vsc",
+             *_BWD_SCRATCH[entry])
+    if route == "cuda_core":
+        return dict.fromkeys(names)
+    rows = BH * S
+    return {n: ((rows, HP), torch.int8) if n.endswith("8") else
+            ((rows,), torch.float32) if n.endswith("sc") else
+            ((rows, HP), torch.bfloat16) for n in names}
+
+
+def _alloc(spec: dict, device) -> list:
+    return [None if v_ is None else torch.empty(v_[0], dtype=v_[1],
+                                                device=device)
+            for v_ in spec.values()]
+
+
 def hbfp_flash_fwd(q, k, v, *, m_bits: int = 8, m_qk: int = 0,
                    m_pv: int = 0, bq: int = 128, bk: int = 128,
                    causal: bool = True, with_lse: bool = False):
@@ -146,9 +187,7 @@ def hbfp_flash_fwd(q, k, v, *, m_bits: int = 8, m_qk: int = 0,
         return hbfp_flash_fwd_plain(q, k, v, **kw)
     BH, S, hd, scale = _cuda_args("hbfp_flash_fwd", q, m_qk, m_pv, bq, bk)
     route = flash_route(m_qk=m_qk, m_pv=m_pv, S=S, hd=hd, bq=bq, bk=bk)
-    scratch = [None if v_ is None else
-               torch.empty(v_[0], dtype=v_[1], device=q.device)
-               for v_ in flash_scratch(route, BH, S, bk).values()]
+    scratch = _alloc(flash_scratch(route, BH, S, bk), q.device)
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -166,12 +205,17 @@ hbfp_flash_attention = hbfp_flash_fwd
 
 
 def _bwd_launch(entry: str, q, k, v, do, lse, delta, outs, m_qk, m_pv, bq,
-                bk, causal) -> None:
+                bk, causal) -> str:
+    """Launch B5 or B6 on its route; returns the route."""
     BH, S, hd, scale = _cuda_args(entry, q, m_qk, m_pv, bq, bk)
+    route = flash_bwd_route(m_qk=m_qk, m_pv=m_pv, S=S, hd=hd, bq=bq, bk=bk)
+    scratch = _alloc(flash_bwd_scratch(route, entry, BH, S), q.device)
     _launch(_LIB, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             int(q.dtype == torch.bfloat16), *(t.data_ptr() for t in outs),
-            BH, S, hd, bq, bk, m_qk, m_pv, int(causal), scale)
+            *(_ptr(t) for t in scratch), BH, S, hd, bq, bk, m_qk, m_pv,
+            int(causal), scale)
+    return route
 
 
 def hbfp_flash_dq(q, k, v, do, lse, delta, *, m_bits: int = 8,
@@ -188,9 +232,10 @@ def hbfp_flash_dq(q, k, v, do, lse, delta, *, m_bits: int = 8,
         return hbfp_flash_dq_plain(q, k, v, do, lse, delta, m_qk=m_qk,
                                    m_pv=m_pv, bq=bq, bk=bk, causal=causal)
     dq = torch.empty_like(q)
-    _bwd_launch("hbfp_flash_dq", q, k, v, do, lse, delta, (dq,), m_qk, m_pv,
-                bq, bk, causal)
+    route = _bwd_launch("hbfp_flash_dq", q, k, v, do, lse, delta, (dq,),
+                        m_qk, m_pv, bq, bk, causal)
     hbfp_flash_dq.launches += 1
+    hbfp_flash_dq.launches_by_route[route] += 1
     return dq
 
 
@@ -207,9 +252,10 @@ def hbfp_flash_dkv(q, k, v, do, lse, delta, *, m_bits: int = 8,
         return hbfp_flash_dkv_plain(q, k, v, do, lse, delta, m_qk=m_qk,
                                     m_pv=m_pv, bq=bq, bk=bk, causal=causal)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _bwd_launch("hbfp_flash_dkv", q, k, v, do, lse, delta, (dk, dv), m_qk,
-                m_pv, bq, bk, causal)
+    route = _bwd_launch("hbfp_flash_dkv", q, k, v, do, lse, delta, (dk, dv),
+                        m_qk, m_pv, bq, bk, causal)
     hbfp_flash_dkv.launches += 1
+    hbfp_flash_dkv.launches_by_route[route] += 1
     return dk, dv
 
 

@@ -55,7 +55,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 HEADERS = (os.path.join(_CSRC, "hbfp_common.cuh"),
            os.path.join(_CSRC, "hbfp_gemm_sm90.cuh"),
-           os.path.join(_CSRC, "hbfp_flash_fwd_sm90.cuh"))
+           os.path.join(_CSRC, "hbfp_flash_fwd_sm90.cuh"),
+           os.path.join(_CSRC, "hbfp_flash_bwd_sm90.cuh"))
 # library name -> source; each library's entry points and their ctypes
 # argument kinds ("p" pointer, "i" int, "f" float)
 SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
@@ -69,8 +70,10 @@ _ENTRIES = {
                         "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 10 + "p"},
     "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "p" * 6 + "i" * 8
                         + "fp",
-                        "hbfp_flash_dq": "ppppppip" + "i" * 8 + "fp",
-                        "hbfp_flash_dkv": "ppppppipp" + "i" * 8 + "fp"},
+                        "hbfp_flash_dq": "ppppppip" + "p" * 9 + "i" * 8
+                        + "fp",
+                        "hbfp_flash_dkv": "ppppppipp" + "p" * 10 + "i" * 8
+                        + "fp"},
     "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 10 + "p"},
 }
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
