@@ -2,6 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on the card.
 
     python3 chip_smoke.py            # one CUDA device; builds the kernels
+    python3 chip_smoke.py --b7-times TREE   # B7 of another checkout, timed
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -34,9 +35,14 @@ Phases (any failure exits non-zero before the result line):
                 checked (yi-9b's must be int8 wgmma);
   5. quantize — B7 against its plain version, bit for bit in all five
                 outputs, at yi-9b's tapped and packed shapes (m 8/16 at
-                tile 128, m 4 at tile 24), the whole-matrix tile, a bf16
-                activation row tap, stochastic rounding and small cases;
-                timed beside a clone() of x;
+                tile 128, m 4 at tile 24, and its bf16 gradients at m 8,
+                tile 24), the whole-matrix tile, a bf16
+                activation row tap, stochastic rounding, small cases and
+                edge cases (exponent clamp, subnormals, zero and padded
+                tiles, m 2/16, an unaligned x); each launch's route
+                checked against the route table (yi-9b's shapes banded,
+                whole-matrix tiles split); timed beside a clone() of x,
+                with each case's time over its bound;
   6. train    — one gemma2 and one yi-9b smoke training step on the card
                 agree with the same step on the CPU (yi-9b through flash),
                 and the closed adaptive-precision loop on yi-9b smoke
@@ -51,12 +57,16 @@ Phases (any failure exits non-zero before the result line):
   8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
                 controller: 8 steps uninterrupted, and 8 steps preempted
                 at 6 and resumed from the step-4 checkpoint, which must
-                agree bit for bit; exact B7 launches per telemetry step;
+                agree bit for bit; exact B7 launches per telemetry step,
+                all on the banded route (split for whole-matrix tiles);
+                one telemetry and one plain step profiled, B7's device
+                time by kernel against the kernels the telemetry adds;
                 B1/B2 on int8 wgmma before the first widen and on bf16
                 wgmma after it, never on the CUDA cores; B3 on bf16 and
                 B4-B6 on int8 wgmma on every step;
-                a packed save of the master that loads back bit for bit
-                (needs ~25 GB of free disk under build/);
+                a packed save of the master that loads back bit for bit,
+                its B7 launches banded (needs ~25 GB of free disk under
+                build/);
   9. kernels  — B1 against its plain PyTorch version on the card at the
                 yi-9b serving shapes;
  10. model    — the yi-9b smoke model served on the card (kernel path)
@@ -71,6 +81,13 @@ Phases (any failure exits non-zero before the result line):
 
 Per-case kernel numbers and the training results also go to
 chiprun_out/chip_smoke.json.
+
+`--b7-times TREE` runs only B7, as the checkout at TREE builds it (its own
+sources into its own build/), at phase 5's timed cases: each call held
+bit for bit against that tree's plain version, then timed in the launch
+loop and on the device alone (a CUDA-graph replay), one JSON line a case.
+Run on two checkouts in turns in one call (parent, change, change,
+parent) it compares them on one card.
 """
 from __future__ import annotations
 
@@ -211,12 +228,16 @@ QUANT_SHAPES = {"wq": (4096, 4096), "wk": (4096, 512),
                 "head": (4096, 64000)}
 # B7 cases: (name, R, C, dtype, m, tile_r, tile_c, stochastic, seed,
 # block_r, block_c, timed); the "t24" rows are the adaptive path's weight
-# taps (HBFPConfig(4, 16, tile=24)), the main-path cost of B7
+# taps (HBFPConfig(4, 16, tile=24)), the main-path cost of B7, and the
+# "g_t24" rows its gradient taps (bf16 weight gradients at the wgrad
+# width, 4 + 4 bits, ADAPT_SPEC)
 QUANT_CASES = tuple(
     [(f"{w}_m{m}", R, C, "float32", m, 128, 128, False, 0, 256, 512, True)
      for w, (R, C) in QUANT_SHAPES.items() for m in (8, 16)]
     + [(f"{w}_t24_m4", R, C, "float32", 4, 24, 24, False, 0, 256, 512, True)
        for w, (R, C) in QUANT_SHAPES.items()]
+    + [(f"{w}_g_t24_m8", R, C, "bfloat16", 8, 24, 24, False, 0, 256, 512,
+        True) for w, (R, C) in QUANT_SHAPES.items()]
     + [("ffn_wg_whole_m16", 4096, 11008, "float32", 16, None, None, False, 0,
         256, 512, True),
        ("act_row_m4", 4096, 4096, "bfloat16", 4, 1, 4096, False, 0, 256,
@@ -233,6 +254,26 @@ QUANT_CASES = tuple(
         96, False),
        ("small_blocks_32x128", 128, 256, "float32", 4, 32, 64, False, 0, 32,
         128, False)])
+
+# B7 edge cases, bit for bit with edge inputs (_edge_input): (name, R, C,
+# dtype, m, tile_r, tile_c, stochastic, seed, x offset in elements);
+# 4096 = 170·24 + 16 and 50 = 2·24 + 2 pad the last tiles; the offset
+# puts x one element past a 16-byte boundary (split's scalar passes)
+QUANT_EDGE_CASES = (
+    ("edge_t24_m2", 50, 4096, "float32", 2, 24, 24, False, 0, 0),
+    ("edge_t24_m16", 50, 4096, "float32", 16, 24, 24, False, 0, 0),
+    ("edge_t24_stoch_s7", 50, 4096, "float32", 8, 24, 24, True, 7, 0),
+    ("edge_t24_stoch_sneg", 50, 4096, "float32", 4, 24, 24, True, -123457,
+     0),
+    ("edge_t24_bf16_m4", 50, 4096, "bfloat16", 4, 24, 24, False, 0, 0),
+    ("edge_t128_m16_stoch", 200, 392, "float32", 16, 128, 128, True, 99, 0),
+    ("edge_rows_bf16_m4", 10, 4096, "bfloat16", 4, 1, None, False, 0, 0),
+    ("edge_whole_m8", 300, 2048, "float32", 8, None, None, False, 0, 0),
+    ("edge_whole_c130_m8", 300, 130, "float32", 8, None, None, False, 0, 0),
+    ("edge_unaligned_t24_m4", 50, 4096, "float32", 4, 24, 24, False, 0, 1))
+# B7 routes: every launch of the adaptive path and the packed save takes one
+# of these (split only for tiles larger than a CTA)
+B7_MAIN_ROUTES = ("banded", "split")
 
 # the closed adaptive-precision loop (tests/test_numerics.py loop_setup):
 # HBFPConfig(4, 16, tile=24), ControllerConfig(patience=1, cooldown=1),
@@ -367,24 +408,64 @@ def _reps(fn) -> int:
     return max(3, min(200, int(40.0 / max(est, 1e-3))))
 
 
+def _graph_ms(fn, k: int = 16, reps: int = 3) -> float:
+    """Device ms of one call of fn: k calls captured in one CUDA graph and
+    replayed, so the kernels run back to back with no host time between
+    them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(k):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
+    return a.elapsed_time(b) / (reps * k)
+
+
 def _kernel_split(fn, n: int = 3) -> dict:
     """Device ms per call of each kernel `fn` launches (torch.profiler
     over n calls after a warm-up), by demangled name up to its argument
     list; {} when the profiler sees no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    out = {}
+    for k, (ms, _) in _device_ms_by_kernel(
+            lambda: [fn() for _ in range(n)]).items():
+        k = re.sub(r"^void ", "", k.split("(")[0])
+        out[k] = out.get(k, 0.0) + ms / n
+    return out
+
+
+def _device_ms_by_kernel(fn) -> dict:
+    """{kernel: (device ms, calls)} over one call of fn, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
         if us and e.device_type.name == "CUDA":
-            k = re.sub(r"^void ", "", e.key.split("(")[0])
-            out[k] = out.get(k, 0.0) + us / 1e3 / n
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + us / 1e3, n + e.count)
     return out
 
 
@@ -933,26 +1014,68 @@ def _quant_bound(R, C, m, tile_r, tile_c, block_r, block_c, x_bytes):
     return _bound(0.0, nbytes, "f32")
 
 
+def _edge_input(R, C, tr, tc, dtype, seed):
+    """x with, tile by tile in turn: normal values, an all-zero tile, amax
+    below 2^-100 (exponent clamped at -100), amax near 2^127, only
+    subnormal inputs, and one 1.5·2^127 element (clamped at 126) over unit
+    values (subnormal quotients at m 2)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((R, C), generator=g) * 2.5
+    n_tc = -(-C // tc)
+    for ti in range(-(-R // tr)):
+        for tj in range(n_tc):
+            s = x[ti * tr:(ti + 1) * tr, tj * tc:(tj + 1) * tc]
+            u = torch.rand(s.shape, generator=g) * 2 - 1
+            kind = (ti * n_tc + tj) % 7
+            if kind == 1:
+                s.zero_()
+            elif kind in (2, 3, 4):
+                s.copy_(u * {2: 2.0 ** -103, 3: 1.7e38, 4: 1e-39}[kind])
+            elif kind == 5:
+                s.copy_(u)
+                s[0, 0] = 1.5 * 2.0 ** 127
+    return x.to(getattr(torch, dtype))
+
+
 def phase_quantize():
     """B7 against its plain version on the card, bit for bit in all five
     outputs (mantissas, exponents, clip counts, exponent min and max), at
     yi-9b's tapped and packed shapes, the whole-matrix tile, tile 24 with
-    padding, an activation row tap in bf16, stochastic rounding and the
-    small cases; timed with the plain version and a clone() of x (one read
-    and one write of x) as the yardstick."""
+    padding, an activation row tap in bf16, stochastic rounding, the small
+    cases and the edge cases (exponent clamp, subnormals, zero tiles, m 2
+    and 16, an unaligned x); each launch's route is counted and must be
+    the route table's (every yi-9b shape and row tap banded); timed with
+    the plain version and a clone() of x (one read and one write of x) as
+    the yardstick, and the kernels' device time alone (`_graph_ms`)."""
     import torch
     from repro_torch.kernels import bfp_quantize as bq
     gen = torch.Generator(device="cuda").manual_seed(97)
+    cases = [(*c, "randn", 0) for c in QUANT_CASES] + [
+        (n, R, C, dt, m, tr, tc, st, sd, 256, 512, False, "edge", off)
+        for n, R, C, dt, m, tr, tc, st, sd, off in QUANT_EDGE_CASES]
     rows = []
-    for (name, R, C, dtype, m, tr, tc, st, seed, br, bc,
-         timed) in QUANT_CASES:
-        x = (torch.randn((R, C), generator=gen, device="cuda")
-             * 2.5).to(getattr(torch, dtype))
+    for (name, R, C, dtype, m, tr, tc, st, seed, br, bc, timed, kind,
+         off) in cases:
+        if kind == "edge":
+            xe = _edge_input(R, C, tr or R, tc or C, dtype, R + C + m)
+            buf = torch.zeros(R * C + off, dtype=xe.dtype, device="cuda")
+            buf[off:] = xe.reshape(-1).cuda()
+            x = buf[off:].view(R, C)
+        else:
+            x = (torch.randn((R, C), generator=gen, device="cuda")
+                 * 2.5).to(getattr(torch, dtype))
         kw = dict(mantissa_bits=m, tile_r=tr, tile_c=tc, stochastic=st,
                   block_r=br, block_c=bc, with_stats=True)
         run = lambda: bq.bfp_quantize(x, seed, **kw)
         plain = lambda: bq.bfp_quantize_plain(x, seed, **kw)
-        got, want = run(), plain()
+        want_route = bq.bfp_quantize_route(R, C, tr, tc, x.dtype, m,
+                                           x.data_ptr() % 16 == 0)
+        bq.reset_counts()
+        got = run()
+        route = [r for r, n in bq.bfp_quantize.launches_by_route.items()
+                 if n]
+        want = plain()
         torch.cuda.synchronize()
         ok = all(a.dtype == b.dtype and torch.equal(a, b)
                  for a, b in zip(got, want)) and len(got) == 5
@@ -960,25 +1083,80 @@ def phase_quantize():
         bound, by = _quant_bound(R, C, m, tr, tc, br, bc, x.element_size())
         row = dict(kernel="bfp_quantize", case=name, R=R, C=C, dtype=dtype,
                    m=m, tile=[tr, tc], stochastic=st, seed=seed,
-                   block=[br, bc], ok=bool(ok), check="EQ (5 outputs)",
-                   max_abs_err=err, bound_ms=bound, bound_by=by)
+                   block=[br, bc], input=kind, offset=off, ok=bool(ok),
+                   route=route[0] if len(route) == 1 else route,
+                   check="EQ (5 outputs)", max_abs_err=err, bound_ms=bound,
+                   bound_by=by)
         del got, want
         if timed:
             n = _reps(run)
             row.update(kernel_ms=_time_ms(run, n),
                        plain_ms=_time_ms(plain, 2),
                        clone_ms=_time_ms(lambda: x.clone(), n), reps=n)
+            row["x_bound"] = row["kernel_ms"] / bound
+            # device time alone: the launch loop above also waits on the
+            # host's wrapper where the kernel is shorter
+            row["device_ms"] = _graph_ms(run)
         rows.append(row)
         log(f"[quantize] {name} {R}x{C} {dtype[:4]} m={m} tile={tr}x{tc} "
-            f"stoch={st} EQ={ok}" + (
+            f"stoch={st} route={row['route']} EQ={ok}" + (
                 f" kernel_ms={row['kernel_ms']:.4f} bound_ms={bound:.4f}"
-                f"({by[0]}) plain_ms={row['plain_ms']:.2f} "
-                f"clone_ms={row['clone_ms']:.4f}" if timed else ""))
+                f"({by[0]}) x_bound={row['x_bound']:.2f} device_ms="
+                f"{row['device_ms']:.4f} plain_ms="
+                f"{row['plain_ms']:.2f} clone_ms={row['clone_ms']:.4f}"
+                if timed else ""))
         del x
         if not ok:
             fail(f"bfp_quantize != plain: {row}")
+        if route != [want_route]:
+            fail(f"bfp_quantize launched on {route}, its route table says "
+                 f"{want_route}: {row}")
+        if kind == "randn" and R >= 4096 and (tr is not None) != (
+                route == ["banded"]):
+            fail(f"bfp_quantize: a yi-9b shape off the banded route, or a "
+                 f"whole-matrix tile on it: {row}")
     torch.cuda.empty_cache()
     return rows
+
+
+def b7_times(tree: str) -> int:
+    """`--b7-times TREE`: B7 of the checkout at TREE (its
+    `repro_torch.kernels.bfp_quantize`) at phase 5's timed cases, each
+    call bit-equal to its plain version, ms a call in the launch loop and
+    on the device alone; one JSON line a case, then the card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import bfp_quantize as bq
+    if not bq.__file__.startswith(tree + os.sep):
+        fail(f"--b7-times: imported {bq.__file__}, not from {tree}")
+    _, card = phase_device()
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    for (name, R, C, dtype, m, tr, tc, st, seed, br, bc,
+         timed) in QUANT_CASES:
+        x = (torch.randn((R, C), generator=gen, device="cuda")
+             * 2.5).to(getattr(torch, dtype))
+        if not timed:
+            continue
+        kw = dict(mantissa_bits=m, tile_r=tr, tile_c=tc, stochastic=st,
+                  block_r=br, block_c=bc, with_stats=True)
+        run = lambda: bq.bfp_quantize(x, seed, **kw)
+        got, want = run(), bq.bfp_quantize_plain(x, seed, **kw)
+        ok = len(got) == 5 and all(a.dtype == b.dtype and torch.equal(a, b)
+                                   for a, b in zip(got, want))
+        del got, want
+        if not ok:
+            fail(f"--b7-times: {name} != plain in {tree}")
+        bound, _ = _quant_bound(R, C, m, tr, tc, br, bc, x.element_size())
+        print(json.dumps({"tree": tree, "case": name, "bound_ms": bound,
+                          "kernel_ms": _time_ms(run, _reps(run)),
+                          "device_ms": _graph_ms(run)}), flush=True)
+        del x
+    print(card)
+    return 0
 
 
 def phase_model():
@@ -1499,17 +1677,19 @@ def phase_adaptive_smoke():
                                    base_bits=4)
         step = make_step(arch, _adapt_policy(), lrs, controller=ctrl,
                          tap=TapConfig(cadence=2), device=dev)
-        losses, b7, snaps = [], [], []
+        losses, b7, snaps, b7_routes = [], [], [], {}
         for i in range(ADAPT_STEPS):
             bq.reset_counts()
             batch = {k: v.to(dev) for k, v in pipe.batch(i).items()}
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
             b7.append((bq.bfp_quantize.launches, bq.bfp_quantize.plain_calls))
+            for r, n in bq.bfp_quantize.launches_by_route.items():
+                b7_routes[r] = b7_routes.get(r, 0) + n
             if i % 2 == 0:
                 snaps.append(step.buffer.latest()[1])
         runs[dev] = dict(losses=losses, b7=b7, snaps=snaps, log=ctrl.log,
-                         variants=len(step.variants),
+                         variants=len(step.variants), b7_routes=b7_routes,
                          n_overrides=float(m["n_overrides"]))
     c, g = runs["cpu"], runs["cuda"]
     dec = lambda r: [(d["step"], d["layer"], d["action"], d["from"], d["to"])
@@ -1525,20 +1705,24 @@ def phase_adaptive_smoke():
         f"{[round(v, 5) for v in c['losses']]} (max rel {loss_err:.3g}); "
         f"decisions equal {dec(c) == dec(g)}: {dec(g)}; variants card "
         f"{g['variants']} cpu {c['variants']}; B7 (launches, plain calls) "
-        f"per step card {g['b7']} (expected {want}); stats outside "
-        f"tolerance {len(bad)}")
+        f"per step card {g['b7']} (expected {want}), by route "
+        f"{g['b7_routes']}; stats outside tolerance {len(bad)}")
     if dec(c) != dec(g) or not any(d[2] == "widen" for d in dec(g)):
         fail(f"adaptive smoke: decisions differ or no widen: cpu {dec(c)} "
              f"card {dec(g)}")
     if g["b7"] != want or g["variants"] != c["variants"]:
         fail(f"adaptive smoke: B7 launches {g['b7']} != {want} or variants "
              f"{g['variants']} != {c['variants']}")
+    if any(n for r, n in g["b7_routes"].items() if r not in B7_MAIN_ROUTES):
+        fail(f"adaptive smoke: B7 launches off {B7_MAIN_ROUTES}: "
+             f"{g['b7_routes']}")
     if bad or loss_err > ADAPT_TOL["loss"]:
         fail(f"adaptive smoke: stats or losses disagree: {bad[:4]} "
              f"loss rel {loss_err}")
     return dict(decisions=dec(g), losses_card=g["losses"],
                 losses_cpu=c["losses"], b7_per_step=g["b7"],
-                variants=g["variants"], loss_rel_err=loss_err)
+                b7_routes=g["b7_routes"], variants=g["variants"],
+                loss_rel_err=loss_err)
 
 
 def _counts():
@@ -1553,6 +1737,8 @@ def _counts():
     out.update({f"{k}/{r}": n for k in FLASH_KERNELS
                 for r, n in getattr(fa, k).launches_by_route.items()})
     out["bfp_quantize"] = bq.bfp_quantize.launches
+    out.update({f"bfp_quantize/{r}": n
+                for r, n in bq.bfp_quantize.launches_by_route.items()})
     plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS) \
         + sum(getattr(fa, k).plain_calls for k in FLASH_KERNELS) \
         + bq.bfp_quantize.plain_calls
@@ -1566,6 +1752,27 @@ def _reset_counts():
     hm.reset_counts()
     fa.reset_counts()
     bq.reset_counts()
+
+
+# B7's kernels (csrc/bfp_quantize.cu) by name in a profile
+B7_KERNEL_RE = (r"banded_kernel|split_(amax|convert|clip)_kernel|"
+                r"quantize_tile_kernel|block_minmax_kernel")
+
+
+def _telemetry_split(tel: dict, pln: dict) -> dict:
+    """A telemetry step's kernels against a plain step's: B7's device ms by
+    kernel, and the other kernels' net added ms, the largest first."""
+    b7 = {k: v[0] for k, v in tel.items() if re.search(B7_KERNEL_RE, k)}
+    delta = {k: (tel.get(k, (0.0, 0))[0] - pln.get(k, (0.0, 0))[0],
+                 tel.get(k, (0.0, 0))[1], pln.get(k, (0.0, 0))[1])
+             for k in set(tel) | set(pln) if k not in b7}
+    top = sorted(delta.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(telemetry_ms=sum(v[0] for v in tel.values()),
+                plain_ms=sum(v[0] for v in pln.values()),
+                b7_ms=sum(b7.values()), b7_by_kernel=b7,
+                other_added_ms=sum(d[0] for d in delta.values()),
+                top_added=[dict(kernel=k, ms=d[0], calls_tel=d[1],
+                                calls_plain=d[2]) for k, d in top])
 
 
 def _adapt_trainer(arch, pipe, state, rows, ckpt_dir=None, rec=None,
@@ -1649,6 +1856,30 @@ def phase_adaptive_full(card: str):
     params_a = {n: t.clone() for n, t in named_leaves(tr_a.state.params)}
     meta_a = json.loads(json.dumps(ctrl_a.to_meta()))
     variants_a = len(step_a.variants)
+    # where a telemetry step's extra time goes: device ms by kernel over
+    # one more telemetry step (8) and one plain step (9), B7 by name
+    # against the kernels the telemetry adds (numerics/stats.py's torch
+    # reductions, less the plain step's sim narrowing)
+    n_rows = len(rows_a)
+    tel_k = _device_ms_by_kernel(
+        lambda: tr_a.run(ADAPT_FULL_STEPS + 1, log_every=0))
+    pln_k = _device_ms_by_kernel(
+        lambda: tr_a.run(ADAPT_FULL_STEPS + 2, log_every=0))
+    prof_rows = rows_a[n_rows:]
+    del rows_a[n_rows:]
+    tsplit = _telemetry_split(tel_k, pln_k)
+    tsplit["wall_s"] = [r["seconds"] for r in prof_rows]
+    log(f"{tag} profiled telemetry step {tsplit['telemetry_ms']:.2f} ms "
+        f"of kernels vs plain step {tsplit['plain_ms']:.2f} ms (wall "
+        f"{tsplit['wall_s'][0]:.3f} vs {tsplit['wall_s'][1]:.3f} s under "
+        f"the profiler): B7 {tsplit['b7_ms']:.3f} ms "
+        f"({len(tsplit['b7_by_kernel'])} kernels), the other kernels the "
+        f"telemetry adds {tsplit['other_added_ms']:.2f} ms | {card}")
+    for k, v in tsplit["b7_by_kernel"].items():
+        log(f"{tag}   B7 {v:.3f} ms  {k[:160]}")
+    for d in tsplit["top_added"]:
+        log(f"{tag}   +{d['ms']:.3f} ms ({d['calls_tel']} vs "
+            f"{d['calls_plain']} calls)  {d['kernel'][:160]}")
     del tr_a, state, step_a
     torch.cuda.empty_cache()
     # (b) checkpointed, preempted at 6, resumed at 4 by fresh objects
@@ -1718,6 +1949,15 @@ def phase_adaptive_full(card: str):
     if bad_counts:
         fail(f"adaptive-full: B7 launches (step, launches, plain) "
              f"{bad_counts}, expected {taps} per telemetry step")
+    off_b7 = [(r["step"], rt, n) for r in rows_a + rows_b1 + rows_c
+              + prof_rows for rt in bq.ROUTES if rt not in B7_MAIN_ROUTES
+              and (n := r["launches"][f"bfp_quantize/{rt}"])]
+    log(f"{tag} B7 by route " + str({rt: sum(
+        r["launches"][f"bfp_quantize/{rt}"] for r in rows_a)
+        for rt in bq.ROUTES}))
+    if off_b7:
+        fail(f"adaptive-full: B7 launches off {B7_MAIN_ROUTES} (step, "
+             f"route, launches): {off_b7}")
     # B1/B2: int8 wgmma while every layer requantizes its weights in the
     # kernel, bf16 wgmma on the narrowed weights once the first widen
     # applies (decided at the end of its step), never the CUDA cores
@@ -1763,6 +2003,7 @@ def phase_adaptive_full(card: str):
                            hbfp=_adapt_policy(), packed=True)
     save_s = time.perf_counter() - t0
     packed_launches = bq.bfp_quantize.launches
+    packed_routes = dict(bq.bfp_quantize.launches_by_route)
     t0 = time.perf_counter()
     back, _ = load_checkpoint(packed_dir, tr_c.state.params)
     torch.cuda.synchronize()
@@ -1777,12 +2018,14 @@ def phase_adaptive_full(card: str):
     want_packed = 7 * L + 1
     log(f"{tag} packed save of the master: {b_packed / 1e9:.3f} GB on disk "
         f"vs {b_plain / 1e9:.3f} GB unpacked ({b_plain / b_packed:.2f}x), "
-        f"B7 launches {packed_launches} (expected {want_packed}), save "
+        f"B7 launches {packed_launches} (expected {want_packed}) by route "
+        f"{packed_routes}, save "
         f"{save_s:.2f} s, load {load_s:.2f} s, loads back bit for bit "
         f"{exact}")
-    if not exact or packed_launches != want_packed:
+    if not exact or packed_launches != want_packed or any(
+            n for r, n in packed_routes.items() if r not in B7_MAIN_ROUTES):
         fail("adaptive-full: packed save does not load back bit for bit or "
-             "B7 launches differ")
+             "B7 launches differ or leave the banded/split routes")
     del tr_c, back
     shutil.rmtree(base, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1791,8 +2034,10 @@ def phase_adaptive_full(card: str):
                 variants=variants_a, telemetry_s=t_tel, plain_s=t_pln,
                 saves=saves, loads=loads, peak_gib=peak,
                 packed=dict(bytes=b_packed, unpacked_bytes=b_plain,
-                            launches=packed_launches, save_s=save_s,
+                            launches=packed_launches,
+                            launches_by_route=packed_routes, save_s=save_s,
                             load_s=load_s),
+                telemetry_split=tsplit,
                 launches_telemetry=sum(
                     r["launches"]["bfp_quantize"] for r in rows_a),
                 launches=_sum_counts(rows_a))
@@ -1894,9 +2139,16 @@ def _quant_entry(rows, adapt):
     stats); max_abs_err over every quantize case; launches by path on the
     adaptive run. No PyTorch call packs BFP, so library_ms is null; a
     clone() of the same x (one read, one write) is the yardstick."""
-    main = [r for r in rows if r["case"].endswith("_t24_m4")]
+    main = [r for r in rows
+            if r["input"] == "randn" and r["case"].endswith("_t24_m4")]
     by_path = {"telemetry": adapt["launches_telemetry"],
                "packed_save": adapt["packed"]["launches"]}
+    by_route = {r: adapt["launches"][f"bfp_quantize/{r}"]
+                + adapt["packed"]["launches_by_route"][r]
+                for r in adapt["packed"]["launches_by_route"]}
+    cases = {}
+    for r in rows:
+        cases.setdefault(r["route"], []).append(r["case"])
     return {
         "name": "bfp_quantize", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bfp_quantize.cu",
@@ -1909,11 +2161,17 @@ def _quant_entry(rows, adapt):
         "bound_ms": sum(r["bound_ms"] for r in main),
         "bound_by": "bytes", "library_ms": None,
         "clone_ms": sum(r["clone_ms"] for r in main),
+        "launches_by_route": by_route, "cases_by_route": cases,
+        "telemetry_split": {k: adapt["telemetry_split"][k] for k in
+                            ("telemetry_ms", "plain_ms", "b7_ms",
+                             "other_added_ms")},
     }
 
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--b7-times"] and len(sys.argv) == 3:
+        return b7_times(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)

@@ -44,6 +44,15 @@ __device__ __forceinline__ float pow2i(int e) {
   return __uint_as_float(static_cast<uint32_t>(e + 127) << 23);
 }
 
+// The reciprocal 2^(m - 2 - e) of a group's step 2^(e - m + 2), e the
+// clamped exponent of amax: a normal f32 for every e in [-100, 126] and
+// 2 <= m <= 16, so x * inv_step is the same real as x / step and rounds
+// to the same f32, subnormal quotients included. The quantizers multiply
+// by it where the CUDA-core kernels divide, bit for bit alike.
+__device__ __forceinline__ float inv_step(float amax, int mbits) {
+  return pow2i(mbits - 2 - max_exponent(amax));
+}
+
 __device__ __forceinline__ uint32_t xorshift32(uint32_t x) {
   x ^= x << 13;
   x ^= x >> 17;

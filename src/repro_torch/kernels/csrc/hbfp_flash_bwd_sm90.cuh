@@ -298,7 +298,7 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
         dmax[h] = fmaxf(dmax[h], __shfl_xor_sync(0xffffffffu, dmax[h], 1));
         dmax[h] = fmaxf(dmax[h], __shfl_xor_sync(0xffffffffu, dmax[h], 2));
         dd[h] = flash_step(dmax[h], mqk);
-        dinv[h] = flash_inv_step(dmax[h], mqk);
+        dinv[h] = inv_step(dmax[h], mqk);
       }
       // ds^ = Q(ds) * step in bf16, as the A fragment of each k16 slice:
       // register r of slice t holds fragment elements 8t + 2r, 8t + 2r + 1
@@ -523,9 +523,9 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tk,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       pd[h] = flash_step(pmax[h], mpv);
-      pinv[h] = flash_inv_step(pmax[h], mpv);
+      pinv[h] = inv_step(pmax[h], mpv);
       dd[h] = flash_step(dmax[h], mqk);
-      dinv[h] = flash_inv_step(dmax[h], mqk);
+      dinv[h] = inv_step(dmax[h], mqk);
     }
     // p^ and ds^ in bf16 into this warpgroup's swizzled [q x k] tiles
 #pragma unroll

@@ -89,19 +89,13 @@ inline int flash_tc_route(int S, int hd, int bq, int bk, int mqk, int mpv) {
 }
 
 // The step 2^e of a group (e = floor(log2 amax) - m + 2, in [-106, 126]
-// at m <= 8) and its reciprocal 2^-e, exact in f32: x * 2^-e is then the
-// correctly rounded x / 2^e, so nearest quantization multiplies where the
-// CUDA-core kernel divides, with the same result bit for bit.
+// at m <= 8); its reciprocal is `inv_step` (hbfp_common.cuh).
 __device__ __forceinline__ float flash_step(float amax, int mbits) {
   return pow2i(max_exponent(amax) - mbits + 2);
 }
 
-__device__ __forceinline__ float flash_inv_step(float amax, int mbits) {
-  return pow2i(mbits - 2 - max_exponent(amax));
-}
-
-__device__ __forceinline__ float flash_q(float x, float inv_step, float lim) {
-  return fminf(fmaxf(rintf(__fmul_rn(x, inv_step)), -lim), lim);
+__device__ __forceinline__ float flash_q(float x, float inv, float lim) {
+  return fminf(fmaxf(rintf(__fmul_rn(x, inv)), -lim), lim);
 }
 
 // Up to four [rows, hd] operands, one per blockIdx.y, each quantized per
@@ -148,7 +142,7 @@ flash_rows_prepass(const FlashRows a, int rows, int hd, float scale) {
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   const float delta = flash_step(amax, mbits);
-  const float inv = flash_inv_step(amax, mbits);
+  const float inv = inv_step(amax, mbits);
   const float lim = static_cast<float>((1 << (mbits - 1)) - 1);
   float mq[4];
   uint32_t packed = 0;
@@ -196,7 +190,7 @@ flash_vt_prepass(const XT* __restrict__ v, int8_t* __restrict__ vt8,
     float amax = red[0][tid];
 #pragma unroll
     for (int p = 1; p < 8; ++p) amax = fmaxf(amax, red[p][tid]);
-    inv[tid] = flash_inv_step(amax, mpv);
+    inv[tid] = inv_step(amax, mpv);
     vsc[(static_cast<size_t>(bh) * (S / bk) + kb) * kFlashHP + d0 + tid] =
         flash_step(amax, mpv);
   }
@@ -393,7 +387,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         pmax[h] = fmaxf(pmax[h], __shfl_xor_sync(0xffffffffu, pmax[h], 1));
         pmax[h] = fmaxf(pmax[h], __shfl_xor_sync(0xffffffffu, pmax[h], 2));
         dp[h] = flash_step(pmax[h], mpv);
-        dp_inv[h] = flash_inv_step(pmax[h], mpv);
+        dp_inv[h] = inv_step(pmax[h], mpv);
       }
       // Q(p) per row into this warpgroup's swizzled p tile
 #pragma unroll

@@ -74,7 +74,7 @@ _ENTRIES = {
                         + "fp",
                         "hbfp_flash_dkv": "ppppppipp" + "p" * 10 + "i" * 8
                         + "fp"},
-    "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 10 + "p"},
+    "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 21 + "p"},
 }
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")
