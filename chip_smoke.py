@@ -73,9 +73,18 @@ Phases (any failure exits non-zero before the result line):
                 agrees with the same model on the CPU (plain path);
  11. serve    — yi-9b at full width (random seeded bf16 weights) served by
                 the port's ServeEngine: 12 overloading requests, paged and
-                slab, plus one async chunked-prefill request; every
-                projection must have gone through the kernels, on the bf16
-                wgmma route;
+                slab, each with the generate tick captured as a CUDA graph
+                (the default) and eager (cuda_graph=False): equal tokens,
+                every tick after the first a replay, B1's launches per
+                replay recorded at capture (7L+1, bf16 wgmma) and matched
+                by the profiler on one replayed tick, one serve/step span
+                a tick; tick wall and device ms, idle share, decode
+                tokens/s, TTFT p50/p95 and peak memory of each; graphed
+                and eager stepped in lockstep (every tick's logits and the
+                KV cache bit for bit); a top-k/top-p sampled trace under
+                the graph, each request solo == crowded; one async
+                chunked-prefill request; the run-log through the port's
+                JSONLSink into chiprun_out/serve_run.jsonl;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -1259,22 +1268,6 @@ def phase_train(arch_name: str):
                 updates_rel_fro=u_err, max_abs_param=p_err)
 
 
-class _ListSink:
-    """A run-log sink that keeps the events in memory."""
-
-    def __init__(self):
-        self.events = []
-
-    def write(self, ev):
-        self.events.append(ev)
-
-    def flush(self):
-        pass
-
-    def close(self):
-        pass
-
-
 def _profile_step(trainer, steps: int):
     """Kernel time by name over one more training step, from
     torch.profiler; None when the profiler saw no device time."""
@@ -1367,7 +1360,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     from repro_torch.kernels import hbfp_matmul as hm
     from repro_torch.models import loss_fn
     from repro_torch.models.layers import Ctx
-    from repro_torch.obs import Recorder
+    from repro_torch.obs import MemorySink, Recorder
     from repro_torch.optim import make_schedule
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.train import Trainer, init_train_state, make_step
@@ -1398,7 +1391,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
                           total_steps=100)
     step = make_step(arch, "8; backend=pallas", sched)
-    sink = _ListSink()
+    sink = MemorySink()
     trainer = Trainer(train_step=step, init_state=state, data_fn=pipe.batch,
                       recorder=Recorder([sink]))
     lines = []
@@ -1465,59 +1458,70 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     return result
 
 
-def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
-    """Drive one engine over the trace; returns (tokens, stats, launches,
-    stage calls, generate seconds, plain calls, wall seconds, B1 launches
-    by route)."""
+SERVE_LANES, SERVE_CTX, SERVE_NEW = 8, 1024, 32
+SERVE_LOCKSTEP = 34     # ticks: past the first completions and refills
+# one generate tick's B1 GEMM kernel as the profiler names it (fwd, not
+# wgrad: the last two template flags false)
+B1_GEMM = r"tc_gemm_kernel<\d+, \w+, \w+, false, false>"
+
+
+PROFILE_PAD = 4000      # spin kernels before a profiled tick (see below)
+
+
+def _profile_tick(stage):
+    """One call of the generate stage under torch.profiler: synchronized
+    wall ms, the kernels' device ms, B1's device ms (its passes, GEMM and
+    fold) and its GEMM launches; returns (stage output, numbers).
+
+    After earlier profiler sessions in the process, a session can miss
+    the records of the first kernels it sees (15-571 of a tick's ~9,700,
+    graphed and eager alike, on the H100 with torch 2.11). So the window
+    opens with PROFILE_PAD spin kernels, and the numbers leave the spins
+    out: such a loss falls on the padding, never on the tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stage()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, pad = [], 0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        if "spin_kernel" in e.key:
+            pad += e.count
+        else:
+            dev.append((e.key, getattr(e, "device_time_total", 0), e.count))
+    busy = sum(us for _, us, _ in dev) / 1e3
+    b1 = sum(us for k, us, _ in dev if "gemm_kernel" in k
+             or "quantize_rows" in k or "fold_kernel" in k) / 1e3
+    gemms = sum(n for k, _, n in dev if re.search(B1_GEMM, k))
+    return out, dict(wall_ms=wall * 1e3, device_ms=busy, b1_ms=b1,
+                     b1_gemm_launches=gemms,
+                     kernels=sum(n for _, _, n in dev), pad_records=pad)
+
+
+def _serve_run(tag, engine_kw, arch, params, pol, prompts, n_new, log_sink):
+    """Drive one engine over the trace with a run-log (a MemorySink and
+    the phase's JSONLSink, every event tagged `run=tag`). Returns the
+    tokens, the request stats, the run-log's stage spans, B1's launches
+    and the stage's graph counters."""
     import torch
     from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.obs import MemorySink, Recorder
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(arch, params, pol, **engine_kw)
-    calls = {"prefill": 0, "extend": 0, "generate": 0}
-    gen_s = [0.0]
-
-    def counted(name, fn):
-        def run(*a, **k):
-            calls[name] += 1
-            if name != "generate":
-                return fn(*a, **k)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            gen_s[0] += time.perf_counter() - t0
-            return out
-        return run
-
-    eng._prefill = counted("prefill", eng._prefill)
-    eng._extend = counted("extend", eng._extend)
-    eng._generate = counted("generate", eng._generate)
-    tick = {}
-    gen_fn = eng._generate
-
-    def profiled(*a, **k):
-        # one steady generate tick (the 20th) under torch.profiler: its
-        # kernels' device time against its synchronized wall time
-        if calls["generate"] != 19 or tick:
-            return gen_fn(*a, **k)
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = gen_fn(*a, **k)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev = [(e.key, getattr(e, "device_time_total", 0))
-               for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
-        busy = sum(us for _, us in dev) / 1e3
-        b1 = sum(us for k, us in dev if "gemm_kernel" in k
-                 or "quantize_rows" in k or "fold_kernel" in k) / 1e3
-        tick.update(wall_ms=wall * 1e3, device_ms=busy, b1_ms=b1)
-        return out
-
-    eng._generate = profiled
+    from repro_torch.serve.graph import GraphedStage
+    mem = MemorySink()
+    eng = ServeEngine(arch, params, pol,
+                      recorder=Recorder([mem, log_sink], run_id=tag),
+                      **engine_kw)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     hm.reset_counts()                      # counts cover the main path only
     t0 = time.perf_counter()
     for p in prompts:
@@ -1525,27 +1529,174 @@ def _serve_trace(engine_kw, arch, params, pol, prompts, n_new):
     res = eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hm.hbfp_matmul_fwd.launches
-    plain = hm.hbfp_matmul_fwd.plain_calls
-    routes = dict(hm.hbfp_matmul_fwd.launches_by_route)
-    stats = dict(eng.request_stats)
-    stats["_tick"] = tick
-    # the counting wrappers above hold the engine in a reference cycle:
+    spans = [e.data for e in mem.of_kind("span")]
+    fwd = hm.hbfp_matmul_fwd
+    stage = eng._tick
+    out = dict(tokens=res, stats=dict(eng.request_stats), wall_s=wall,
+               step_ms=[d["dur_us"] / 1e3 for d in spans
+                        if d["name"] == "serve/step"],
+               prefills=sum(d["name"] == "serve/prefill" for d in spans),
+               extends=sum(d["name"] == "serve/prefill" and "chunk" in d
+                           for d in spans),
+               launches=fwd.launches, routes=dict(fwd.launches_by_route),
+               plain=fwd.plain_calls,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["ticks"] = len(out["step_ms"])
+    if isinstance(stage, GraphedStage):
+        out.update(graph_calls=stage.calls, replays=stage.replays,
+                   per_replay=stage.per_replay["hbfp_matmul_fwd"])
+    # the stage's bound method holds the engine in a reference cycle:
     # collect it, so the next engine does not share the device with it
-    del eng, gen_fn, profiled
+    del eng, stage
     gc.collect()
     torch.cuda.empty_cache()
-    return res, stats, launches, calls, gen_s[0], plain, wall, routes
+    return out
+
+
+def _check_serve_run(tag, r, arch, n_req, n_new, per_call, graphed):
+    """The run's launch, route, span and replay checks: one serve/step
+    span a generate tick (the stage's calls), every tick after the first
+    a replay, B1's launches per replay recorded at capture."""
+    ticks = r["ticks"]
+    want = per_call * (r["prefills"] + ticks)
+    if len(r["tokens"]) != n_req or any(len(t) != n_new
+                                        for t in r["tokens"].values()):
+        fail(f"{tag}: not every request completed: "
+             f"{ {k: len(t) for k, t in r['tokens'].items()} }")
+    if any(not 0 <= t < arch.vocab_size for ts in r["tokens"].values()
+           for t in ts):
+        fail(f"{tag}: token out of range")
+    if r["launches"] != want or r["plain"] != 0 or r["launches"] == 0:
+        fail(f"{tag}: B1 launches {r['launches']} != {want} or plain "
+             f"{r['plain']}")
+    if r["routes"]["bf16_wgmma"] != r["launches"]:
+        fail(f"{tag}: a served B1 launch left the bf16 wgmma route: "
+             f"{r['routes']}")
+    if not graphed:
+        return
+    per = r["per_replay"]
+    if r["graph_calls"] != ticks or r["replays"] != ticks - 1:
+        fail(f"{tag}: {ticks} serve/step spans, stage calls "
+             f"{r['graph_calls']}, replays {r['replays']}: a tick left no "
+             f"span or a tick after the first was no replay")
+    if per != (per_call, {"int8_wgmma": 0, "bf16_wgmma": per_call,
+                          "cuda_core": 0}):
+        fail(f"{tag}: B1 launches per replay {per}, expected {per_call} "
+             f"on bf16_wgmma")
+
+
+def _serve_numbers(r, n_skip=2):
+    """Tick wall ms (median of the ticks after the first n_skip: eager
+    warm-up and capture), decode tokens/s over every tick, TTFT p50/p95."""
+    steady = sorted(r["step_ms"][n_skip:])
+    ttft = sorted(s["ttft_s"] for s in r["stats"].values())
+    q = lambda xs, f: xs[min(len(xs) - 1, int(f * len(xs)))]
+    dec = sum(len(t) - 1 for t in r["tokens"].values())
+    return dict(tick_ms=q(steady, 0.5), tick_ms_first=r["step_ms"][:n_skip],
+                decode_tok_s=dec / (sum(r["step_ms"]) / 1e3),
+                ttft_p50_ms=q(ttft, 0.5) * 1e3,
+                ttft_p95_ms=q(ttft, 0.95) * 1e3, peak_gib=r["peak_gib"],
+                wall_s=r["wall_s"], ticks=r["ticks"])
+
+
+def _lane_state(cache):
+    """The cache tensors that hold lane state: a paged pool without its
+    spare last page, which takes the dropped writes of free lanes and
+    unallocated slots in no defined order and is never read."""
+    from repro_torch.models import PagedKVCache
+    for c in cache.values():
+        for name, t in zip(c._fields, c):
+            if t is not None:
+                spare = isinstance(c, PagedKVCache) and name != "page_table"
+                yield name, t[:, :-1] if spare else t
+
+
+def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
+              profile_at=20):
+    """A graphed and an eager engine stepped together: the step outputs
+    and every tick's logits equal, then the lane state of the cache, bit
+    for bit. Tick `profile_at` of each runs under the profiler: the
+    replay must run exactly the recorded B1 launches. Returns the two
+    profiled ticks' numbers."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    g = ServeEngine(arch, params, pol, **kw)
+    e = ServeEngine(arch, params, pol, cuda_graph=False, **kw)
+    for eng in (g, e):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=n_new)
+    prof = {}
+    for t in range(ticks):
+        outs = []
+        for tag, eng in (("graphed", g), ("eager", e)):
+            stage = eng._tick
+            if t == profile_at:
+                def profiled(stage=stage, tag=tag):
+                    out, prof[tag] = _profile_tick(stage)
+                    return out
+                eng._tick = profiled
+            outs.append(eng.step())
+            eng._tick = stage
+        if outs[0] != outs[1]:
+            fail(f"lockstep {kw}: tick {t} tokens differ")
+        if not torch.equal(g.tick_logits, e.tick_logits):
+            d = float((g.tick_logits - e.tick_logits).abs().max())
+            fail(f"lockstep {kw}: tick {t} logits differ by {d}")
+    for (name, a), (_, b) in zip(_lane_state(g.cache), _lane_state(e.cache)):
+        if not torch.equal(a, b):
+            fail(f"lockstep {kw}: cache {name} differs after {ticks} ticks")
+    if g._tick.replays != ticks - 1:
+        fail(f"lockstep {kw}: {g._tick.replays} replays in {ticks} ticks")
+    for tag, n in prof.items():
+        if n["b1_gemm_launches"] != per_call:
+            fail(f"lockstep {kw}: the profiled {tag} tick ran "
+                 f"{n['b1_gemm_launches']} B1 GEMM kernels, recorded "
+                 f"{per_call} a tick ({n['kernels']} kernels, "
+                 f"{n['pad_records']} of {PROFILE_PAD} padding records)")
+    if len(prof) != 2:
+        fail(f"lockstep {kw}: tick {profile_at} was not profiled")
+    del g, e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def _sampled_solo_crowded(arch, params, pol, prompts, n_new):
+    """Top-k/top-p sampling under the graph: each request draws the same
+    tokens alone (one engine serving the requests one after another, so
+    rids match) as in the full batch."""
+    import torch
+    from repro_torch.serve import SamplingParams, ServeEngine
+    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.9, seed=5)
+    kw = dict(max_batch=SERVE_LANES, ctx_len=SERVE_CTX, sampling=sp)
+    crowded = ServeEngine(arch, params, pol, **kw)
+    for p in prompts:
+        crowded.submit(p, max_new_tokens=n_new)
+    want = crowded.drain()
+    solo = ServeEngine(arch, params, pol, **kw)
+    for rid, p in enumerate(prompts):
+        if solo.submit(p, max_new_tokens=n_new) != rid:
+            fail("sampled solo run: rids out of step")
+        got = solo.drain()[rid]
+        if got != want[rid]:
+            fail(f"sampled request {rid}: solo {got} != crowded "
+                 f"{want[rid]}")
+    n = (crowded._tick.replays, solo._tick.replays)
+    distinct = sum(len(set(t)) for t in want.values())
+    del crowded, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, distinct
 
 
 def phase_serve(card: str):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
+    from repro_torch.obs import JSONLSink
     from repro_torch.precision import parse_policy
     arch = get_arch("yi-9b")
     pol = parse_policy("8; backend=pallas")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(0, arch)
     torch.cuda.synchronize()
@@ -1557,61 +1708,70 @@ def phase_serve(card: str):
     prompts = [torch.randint(0, arch.vocab_size, (n,), generator=g).tolist()
                for n in lens]
     per_call = 7 * arch.n_layers + 1
-    n_new = 32
-    results, ticks = {}, {}
-    for mode, kw in (("paged", dict(paged=True)), ("slab", dict(paged=False))):
-        res, stats, launches, calls, gen_s, plain, wall, routes = \
-            _serve_trace(dict(max_batch=8, ctx_len=1024, **kw), arch,
-                         params, pol, prompts, n_new)
-        results[mode] = res
-        n_calls = sum(calls.values())
-        want = per_call * n_calls
-        tick = stats.pop("_tick")
-        ttft = sorted(s["ttft_s"] for s in stats.values())
-        dec_tokens = sum(len(t) - 1 for t in res.values())
-        log(f"[serve] {mode}: {len(res)} requests, stage calls {calls}, "
-            f"kernel launches {launches} (expected {want}), plain calls "
-            f"{plain}, TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, decode "
-            f"{dec_tokens / gen_s:.1f} tok/s over {calls['generate']} "
-            f"generate ticks ({gen_s:.2f} s), wall {wall:.2f} s, B1 by "
-            f"route {routes} | {card}")
-        if tick:
-            log(f"[serve] {mode}: profiled tick {tick['wall_ms']:.1f} ms "
-                f"wall, {tick['device_ms']:.1f} ms of kernels (device idle "
-                f"{1 - tick['device_ms'] / tick['wall_ms']:.1%}), B1 "
-                f"{tick['b1_ms']:.1f} ms")
-        ticks[mode] = tick
-        if len(res) != len(prompts) or any(len(t) != n_new
-                                            for t in res.values()):
-            fail(f"{mode}: not every request completed: "
-                 f"{ {r: len(t) for r, t in res.items()} }")
-        if any(not 0 <= t < arch.vocab_size for ts in res.values()
-               for t in ts):
-            fail(f"{mode}: token out of range")
-        if launches != want or plain != 0 or launches == 0:
-            fail(f"{mode}: launches {launches} != {want} or plain {plain}")
-        if routes["bf16_wgmma"] != launches:
-            fail(f"{mode}: a served B1 launch left the bf16 wgmma route: "
-                 f"{routes}")
-        if mode == "paged":
-            kernel_launches = launches
-    if results["paged"] != results["slab"]:
-        fail("paged greedy tokens differ from the slab engine's")
-    log("[serve] paged == slab greedy tokens on the same trace")
-    res, stats, launches, calls, gen_s, plain, wall, routes = _serve_trace(
-        dict(max_batch=8, ctx_len=1024, prefill_chunk=128,
-             async_prefill=True), arch, params, pol, [prompts[7]], n_new)
-    stats.pop("_tick")
-    want = per_call * sum(calls.values())
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    log_path = os.path.join(out_dir, "serve_run.jsonl")
+    sink = JSONLSink(log_path, mode="w")
+    lanes = dict(max_batch=SERVE_LANES, ctx_len=SERVE_CTX)
+    runs, numbers = {}, {}
+    for mode, paged in (("paged", True), ("slab", False)):
+        for graphed in (True, False):
+            tag = f"{mode}-{'graphed' if graphed else 'eager'}"
+            r = _serve_run(tag, dict(paged=paged, cuda_graph=graphed,
+                                     **lanes), arch, params, pol, prompts,
+                           SERVE_NEW, sink)
+            _check_serve_run(tag, r, arch, len(prompts), SERVE_NEW,
+                             per_call, graphed)
+            runs[tag], numbers[tag] = r, _serve_numbers(r)
+            n = numbers[tag]
+            log(f"[serve] {tag}: {len(r['tokens'])} requests, {r['ticks']} "
+                f"generate ticks, {r['prefills']} prefills, B1 launches "
+                f"{r['launches']} (all bf16_wgmma), replays "
+                f"{r.get('replays', '-')}, per replay "
+                f"{r.get('per_replay', ('-',))[0]}")
+            log(f"[serve] {tag}: tick {n['tick_ms']:.2f} ms wall (median "
+                f"after the first two; first two "
+                f"{', '.join(f'{x:.1f}' for x in n['tick_ms_first'])} ms), "
+                f"decode {n['decode_tok_s']:.1f} tok/s, TTFT p50 "
+                f"{n['ttft_p50_ms']:.1f} ms p95 {n['ttft_p95_ms']:.1f} ms, "
+                f"peak {n['peak_gib']:.2f} GiB, wall {n['wall_s']:.2f} s "
+                f"| {card}")
+    toks = {t: r["tokens"] for t, r in runs.items()}
+    if any(v != toks["paged-graphed"] for v in toks.values()):
+        fail("graphed and eager, paged and slab, give different tokens")
+    log("[serve] graphed == eager == paged == slab greedy tokens on the "
+        "whole trace")
+    for mode, paged in (("paged", True), ("slab", False)):
+        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+                         prompts, SERVE_NEW, SERVE_LOCKSTEP, per_call)
+        for kind, n in prof.items():
+            numbers[f"{mode}-{kind}"]["profiled_tick"] = n
+            log(f"[serve] {mode}-{kind}: profiled tick {n['wall_ms']:.2f} "
+                f"ms wall, {n['device_ms']:.2f} ms of kernels (device idle "
+                f"{1 - n['device_ms'] / n['wall_ms']:.1%}), B1 "
+                f"{n['b1_ms']:.2f} ms in {n['b1_gemm_launches']} GEMM "
+                f"launches, {n['kernels']} kernels | {card}")
+    log(f"[serve] graphed == eager over {SERVE_LOCKSTEP} lockstep ticks, "
+        f"paged and slab: tokens, every tick's logits, the cache's lane "
+        f"state bit for bit; the profiled replays ran {per_call} B1 GEMM "
+        f"launches each")
+    replays, distinct = _sampled_solo_crowded(arch, params, pol, prompts,
+                                              SERVE_NEW // 2)
+    log(f"[serve] sampled (top-k 40, top-p 0.9, T 0.8), graphed: solo == "
+        f"crowded for all {len(prompts)} requests (replays {replays}, "
+        f"{distinct} distinct tokens)")
+    r = _serve_run("async-graphed", dict(prefill_chunk=128,
+                                         async_prefill=True, **lanes),
+                   arch, params, pol, [prompts[7]], SERVE_NEW, sink)
+    _check_serve_run("async-graphed", r, arch, 1, SERVE_NEW, per_call, True)
     log(f"[serve] async chunked prefill (chunk 128, prompt {lens[7]}): "
-        f"stage calls {calls}, launches {launches} (expected {want}), "
-        f"tokens {len(res[0])}")
-    if len(res[0]) != n_new or launches != want or plain != 0 \
-            or calls["extend"] == 0 or routes["bf16_wgmma"] != launches:
-        fail(f"async chunked prefill run (B1 by route {routes})")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[serve] peak device memory {peak:.2f} GiB | {card}")
-    return kernel_launches, ticks
+        f"{r['extends']} extend calls, {r['ticks']} ticks, {r['replays']} "
+        f"replays, B1 launches {r['launches']}")
+    if r["extends"] == 0:
+        fail("async chunked prefill ran no extend stage")
+    sink.close()
+    log(f"[serve] run-log: {os.path.relpath(log_path, ROOT)}")
+    return runs["paged-graphed"]["launches"], numbers
 
 
 def _adapt_policy():
@@ -1827,7 +1987,7 @@ def phase_adaptive_full(card: str):
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import bfp_quantize as bq
-    from repro_torch.obs import Recorder
+    from repro_torch.obs import MemorySink, Recorder
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.train import init_train_state
     full = get_arch("yi-9b")
@@ -1884,7 +2044,7 @@ def phase_adaptive_full(card: str):
     torch.cuda.empty_cache()
     # (b) checkpointed, preempted at 6, resumed at 4 by fresh objects
     d = os.path.join(base, "run")
-    events = _ListSink()
+    events = MemorySink()
     tr_b, _, _ = _adapt_trainer(arch, pipe, init_train_state(0, arch),
                                 rows_b1, d, Recorder([events]),
                                 ckpt_every=4, keep=1)
@@ -2198,7 +2358,7 @@ def main() -> int:
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     phase_model()
-    serve_launches, serve_ticks = phase_serve(card)
+    serve_launches, serve = phase_serve(card)
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2207,7 +2367,7 @@ def main() -> int:
                    "quantize_cases": quant, "train_smoke": train_smoke,
                    "adaptive_smoke": adapt_smoke, "train_full": train,
                    "train_full_yi": train_yi, "adaptive_full": adapt,
-                   "serve_ticks": serve_ticks},
+                   "serve": serve},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]

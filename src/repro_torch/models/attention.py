@@ -51,9 +51,10 @@ class PagedKVCache(NamedTuple):
     """Page-pooled KV cache (DESIGN.md §14): a shared pool of fixed-size
     token pages plus a per-lane page table. Lane slot s lives in pool page
     page_table[b, s // ps] at offset s % ps; -1 entries are unallocated
-    (reads see empty slots, writes are dropped). Shapes are per layer; the
+    (reads see empty slots, writes are dropped onto the spare page P-1,
+    which the page pool never hands out). Shapes are per layer; the
     stacked cache carries a leading L on every field."""
-    k: torch.Tensor           # [P, Hkv, ps, hd]
+    k: torch.Tensor           # [P, Hkv, ps, hd], P = pool pages + 1
     v: torch.Tensor
     slot_pos: torch.Tensor    # [P, ps]
     page_table: torch.Tensor  # [B, NP] int32
@@ -99,8 +100,7 @@ def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window):
     if window is not None:
         mask &= kp > qp - window
     scores = torch.where(mask[:, None, None], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+                         scores.new_full((), NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(qb.dtype)
     return ctx_matmul(probs, v[:, :, None], ctx, "pv", cfg=acfg,
                       w_kind="act")
@@ -115,8 +115,9 @@ def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
     Hkv = k.shape[1]
     G = H // Hkv
     # the scale is rounded to q's dtype first, as jax does with a Python
-    # scalar: in bf16 this changes every score by up to 2^-9 relative
-    scale = torch.tensor(1.0 / (hd ** 0.5), dtype=q.dtype, device=q.device)
+    # scalar: in bf16 this changes every score by up to 2^-9 relative.
+    # Filled on the device: a host scalar's copy would break graph capture
+    scale = q.new_full((), 1.0 / (hd ** 0.5))
     qs = (q * scale).reshape(B, Hkv, G, Sq, hd)
     if q_chunk is None or Sq <= q_chunk or Sq % q_chunk != 0:
         out = _attend_block(qs, k, v, qpos, kpos, ctx, cap, window)
@@ -186,29 +187,30 @@ def _slab_append(cache: KVCache, k, v, tok_pos, bfp_cache: bool, dtype):
 def _paged_append(cache: PagedKVCache, k, v, tok_pos, bfp_cache: bool,
                   dtype):
     """Paged write (in place) + gather (DESIGN.md §14): writes route
-    through the page table and drop on unallocated entries; the read
-    gathers this lane's pages into the dense [B,Hkv,C,hd] view, with
-    unallocated pages reading as zeros and slot_pos -1, like untouched slab
-    slots."""
+    through the page table, and a write to an unallocated entry lands on
+    the pool's spare last page, which no page table names and no gather
+    reads (the reference's `mode="drop"`, with shapes fixed so a CUDA
+    graph can capture it). The read gathers this lane's pages into the
+    dense [B,Hkv,C,hd] view, with unallocated pages reading as zeros and
+    slot_pos -1, like untouched slab slots."""
     B = k.shape[0]
     P, Hkv, ps, hd = cache.k.shape
     NP = cache.page_table.shape[1]
     C = NP * ps
     slot = tok_pos % C
     pid = torch.gather(cache.page_table.long(), 1, slot // ps)  # [B, S]
+    pid = torch.where(pid < 0, P - 1, pid)               # the spare page
     off = slot % ps
-    ok = pid >= 0
-    pid_v, off_v = pid[ok], off[ok]
-    kt = k.transpose(1, 2)[ok]                           # [n, Hkv, hd]
-    vt = v.transpose(1, 2)[ok]
+    kt = k.transpose(1, 2)                               # [B, S, Hkv, hd]
+    vt = v.transpose(1, 2)
     if bfp_cache:
         kt, ke = quantize_kv_vec(kt)
         vt, ve = quantize_kv_vec(vt)
-        cache.k_exp[pid_v, :, off_v] = ke
-        cache.v_exp[pid_v, :, off_v] = ve
-    cache.k[pid_v, :, off_v] = kt.to(cache.k.dtype)
-    cache.v[pid_v, :, off_v] = vt.to(cache.v.dtype)
-    cache.slot_pos[pid_v, off_v] = tok_pos[ok].to(cache.slot_pos.dtype)
+        cache.k_exp[pid, :, off] = ke
+        cache.v_exp[pid, :, off] = ve
+    cache.k[pid, :, off] = kt.to(cache.k.dtype)
+    cache.v[pid, :, off] = vt.to(cache.v.dtype)
+    cache.slot_pos[pid, off] = tok_pos.to(cache.slot_pos.dtype)
 
     pt = cache.page_table.long()
     have = pt >= 0                                       # [B, NP]

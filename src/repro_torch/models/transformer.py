@@ -381,15 +381,16 @@ def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int):
 
 def make_paged_cache(params, arch: ArchConfig, batch_size: int,
                      ctx_len: int, n_pages: int, page_size: int):
-    """An empty page-pooled cache (DESIGN.md §14): one [L,P,Hkv,ps,hd] pool
-    and a [L,B,NP] page table of -1."""
+    """An empty page-pooled cache (DESIGN.md §14): one [L,P+1,Hkv,ps,hd]
+    pool, of which the last page is the spare that takes the dropped
+    writes of unallocated slots, and a [L,B,NP] page table of -1."""
     _require_dense(arch)
     C = lane_capacity(arch, ctx_len)
     if C % page_size:
         raise ValueError(f"page_size {page_size} must divide the lane "
                          f"capacity {C}")
     dev = params["head_w"].device
-    L, P, ps = arch.n_layers, n_pages, page_size
+    L, P, ps = arch.n_layers, n_pages + 1, page_size
     shape = (L, P, arch.n_kv_heads, ps, arch.hd)
     pt = torch.full((L, batch_size, C // ps), -1, dtype=torch.int32,
                     device=dev)

@@ -6,8 +6,7 @@ An `Event` is one structured record in a run-log: a `kind` (namespaced
 `"category/name"`), a schema version, a wall-clock timestamp, an optional
 training/serving step, and a flat JSON-serializable `data` dict. Events are
 produced exclusively through a `Recorder`, which stamps the clock and fans
-each record out to its sinks (any object with write/flush/close; the
-port has not copied the reference's `obs.sinks` yet).
+each record out to its sinks (`obs.sinks`).
 
 Two properties make this layer safe to thread through the training stack:
 

@@ -1,9 +1,14 @@
 """Continuous-batching serving engine with disaggregated stages and a
 paged BFP KV cache (port of `repro.serve.engine`, DESIGN.md §14).
 
-The port runs the stages eagerly on one device (`device=None` is the CUDA
-device; pass "cpu" to run on the CPU) and updates the KV cache in place;
-the scheduling, paging, preemption and metrics are the reference's.
+The port runs on one device (`device=None` is the CUDA device; pass
+"cpu" to run on the CPU) and updates the KV cache in place; the
+scheduling, paging, preemption and metrics are the reference's. Where
+the reference jits its stages, the port runs prefill and extend eagerly
+and, on the CUDA device, captures the generate tick once as a CUDA graph
+(`serve/graph.py`) that every later tick replays; `cuda_graph=False`
+keeps the tick eager, so the card can hold the graph against it. The
+CPU always runs the tick eagerly, through the same static buffers.
 
 The engine is organized JetStream-style around three separately
 benchmarkable stages:
@@ -22,7 +27,10 @@ benchmarkable stages:
   * **generate** — one batched decode step over all lanes, then sampling:
     every draw is keyed by (request id, position)
     (serve/sampling), so outputs are reproducible regardless of which
-    requests share the batch.
+    requests share the batch. Its shapes are static: lane count, [B,1]
+    tokens, lane capacity and page table are fixed at construction, and
+    step() copies each tick's tokens, positions and request ids into
+    fixed buffers, so one captured graph serves every tick.
 
 KV storage is a **paged pool** by default (`paged=None` → auto, on for
 every arch with a KV cache): fixed-size token pages in a shared pool +
@@ -58,6 +66,7 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.models import decode_step, lane_capacity, make_cache, \
     make_paged_cache, prefill
 from repro_torch.obs import NULL_RECORDER, MetricsRegistry
+from repro_torch.serve.graph import GraphedStage
 from repro_torch.serve.paged_cache import (PagePool, clear_pages,
                                            insert_prefix, pages_needed,
                                            set_page_table)
@@ -99,9 +108,14 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = None,
                  async_prefill: bool = False,
                  sampling: Optional[SamplingParams] = None,
-                 stats_cap: int = 4096, device=None):
+                 stats_cap: int = 4096, device=None,
+                 cuda_graph: Optional[bool] = None):
         self.arch = arch
         self.device = resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        if cuda_graph and not on_cuda:
+            raise ValueError(f"cuda_graph needs the CUDA device, not "
+                             f"{self.device}")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         if self.recorder.enabled and self.recorder.sync_fn is None \
                 and self.device.type == "cuda":
@@ -183,8 +197,24 @@ class ServeEngine:
         # and clears them, so a step()-polling consumer sees every request
         self._finished: Dict[int, List[int]] = {}
         self._next_rid = 0
-        self._last_tok = torch.zeros((max_batch, 1), dtype=torch.int32,
-                                     device=self.device)
+        # the generate tick's static inputs: step() copies each tick's
+        # positions and request ids in (one copy from pinned memory, so
+        # the tick's one host sync stays its output's) and the next
+        # tokens back into _tok
+        self._tok = torch.zeros((max_batch, 1), dtype=torch.int32,
+                                device=self.device)
+        self._lanes_host = torch.zeros((2, max_batch), dtype=torch.int32,
+                                       pin_memory=on_cuda)
+        self._lanes = torch.zeros((2, max_batch), dtype=torch.int32,
+                                  device=self.device)
+        self._pos = self._lanes[0, :, None]          # [B, 1]
+        self._rids = self._lanes[1]                  # [B]
+        # the last tick's logits [B, 1, V]; under the graph a static
+        # output, overwritten by the next tick
+        self.tick_logits: Optional[torch.Tensor] = None
+        graphed = on_cuda if cuda_graph is None else bool(cuda_graph)
+        self._tick = GraphedStage(self._generate_tick) if graphed \
+            else self._generate_tick
         # async chunked-prefill in flight (at most one): dict with rid,
         # lane (reserved), prompt, mnt, pf (prefix slab), next (tokens
         # consumed), cs (chunk), oneshot, page_ids
@@ -212,12 +242,20 @@ class ServeEngine:
     def _generate(self, params, cache, tok, pos, rids):
         """Batched decode tick, then sampling: the token entering lane b
         sits at position pos[b]+1 and is drawn with the (rid, pos+1) key —
-        free lanes (rid -1) produce discarded draws."""
+        free lanes (rid -1) produce discarded draws. Returns (next tokens
+        [B], logits [B, 1, V], cache)."""
         batch = {"tokens": tok, "positions": pos}
         logits, cache = decode_step(params, batch, cache, self.arch,
                                     self._ctx)
         nxt = sample_tokens(logits[:, 0], rids, pos[:, 0] + 1, self.sampling)
-        return nxt, cache
+        return nxt, logits, cache
+
+    def _generate_tick(self) -> torch.Tensor:
+        """The generate stage on the static tick buffers and the cache,
+        which it updates in place: what the CUDA graph captures."""
+        nxt, self.tick_logits, self.cache = self._generate(
+            self.params, self.cache, self._tok, self._pos, self._rids)
+        return nxt
 
     def _prefix_slab(self):
         """A fresh B=1 full-capacity prefix slab for chunked prefill (the
@@ -435,7 +473,7 @@ class ServeEngine:
             self._complete(req, now)
             self._release(lane, rid)
         else:
-            self._last_tok[lane, 0] = first
+            self._tok[lane, 0] = first
             self.slots[lane] = req
             self._m_lanes.set(sum(s is not None for s in self.slots))
         return first
@@ -546,10 +584,13 @@ class ServeEngine:
             n_active = sum(s is not None for s in self.slots)
             with self.recorder.span("serve/step", active=n_active,
                                     lanes=self.max_batch) as sp:
-                pos = self._ints([[s.pos if s else 0] for s in self.slots])
-                rids = self._ints([s.rid if s else -1 for s in self.slots])
-                nxt, self.cache = self._generate(self.params, self.cache,
-                                                 self._last_tok, pos, rids)
+                host = self._lanes_host.numpy()
+                host[0] = [s.pos if s else 0 for s in self.slots]
+                host[1] = [s.rid if s else -1 for s in self.slots]
+                self._lanes.copy_(self._lanes_host, non_blocking=True)
+                nxt = self._tick()
+                # the next tick's input, before a replay overwrites nxt
+                self._tok.copy_(nxt[:, None])
                 sp.sync(nxt)
                 nxt_host = nxt.tolist()
             now = self.recorder.clock.perf()
@@ -567,7 +608,6 @@ class ServeEngine:
                     self.slots[i] = None  # lane freed for the next request
                     self._complete(s, now)
                     self._release(i, s.rid)
-            self._last_tok = nxt[:, None]
         if self.async_prefill:
             self._advance_prefill(out)
         else:

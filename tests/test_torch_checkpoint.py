@@ -34,32 +34,11 @@ from repro_torch.core.opt_shell import widen_params
 from repro_torch.core.schedule_precision import staircase, warmup_then_narrow
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import bfp_quantize as bq
-from repro_torch.obs import ManualClock, Recorder
+from repro_torch.obs import ManualClock, MemorySink, Recorder
 from repro_torch.optim import make_schedule
 from repro_torch.precision import parse_policy
 from repro_torch.train import (Trainer, TrainState, from_jax_train_state,
                                init_train_state, make_train_step)
-
-
-class MemorySink:
-    """A run-log sink that keeps the events (the port has no sinks module
-    yet, ROADMAP A11)."""
-
-    def __init__(self):
-        self.events = []
-
-    def write(self, ev):
-        self.events.append(ev)
-
-    def flush(self):
-        pass
-
-    def close(self):
-        pass
-
-    def of_kind(self, kind):
-        return [e for e in self.events if e.kind == kind]
-
 
 
 @pytest.fixture(autouse=True, scope="module")

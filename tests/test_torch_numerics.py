@@ -58,7 +58,7 @@ from repro_torch.numerics import (ControllerConfig, PrecisionController,
                                   quantize_with_stats, stats_to_host)
 from repro_torch.numerics.collect import grad_stats, weight_stats
 from repro_torch.numerics.controller import merge_sources
-from repro_torch.obs import ManualClock, Recorder
+from repro_torch.obs import ManualClock, MemorySink, Recorder
 from repro_torch.optim import make_schedule
 from repro_torch.precision import parse_policy
 from repro_torch.train import (Trainer, from_jax_train_state,
@@ -67,28 +67,7 @@ from repro_torch.train import (Trainer, from_jax_train_state,
 SQNR_TOL_DB = 1e-3
 
 
-class MemorySink:
-    """A run-log sink that keeps the events (the port has no sinks
-    module yet, ROADMAP A11)."""
-
-    def __init__(self):
-        self.events = []
-
-    def write(self, ev):
-        self.events.append(ev)
-
-    def flush(self):
-        pass
-
-    def close(self):
-        pass
-
-    def of_kind(self, kind):
-        return [e for e in self.events if e.kind == kind]
-
-
 FIELDS = ("clip_frac", "sat_tile_frac", "ftz_frac", "exp_spread", "n")
-
 
 
 @pytest.fixture(autouse=True, scope="module")
