@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
                 versions at gemma2-2b's training shapes (M = 4096 tokens),
                 timed with CUDA events beside torch.matmul and, on the
                 int8 route, torch._int_mm of the same int8 mantissas
-                (yardsticks only), a few small cases (m 8/12, stochastic,
+                (yardsticks only), the same shapes again under stochastic
+                rounding (train-sr's configuration, routes checked), a
+                few small cases (m 8/12, stochastic,
                 block 32, narrowed weights), the route cases (M 1, 8, 100,
                 4096 on both tensor-core routes, m 4, bk 1024 and 2048
                 with near-full mantissas whose int32 sums pass 2^24, f32
@@ -45,8 +47,10 @@ Phases (any failure exits non-zero before the result line):
                 with each case's time over its bound;
   6. train    — one gemma2 and one yi-9b smoke training step on the card
                 agree with the same step on the CPU (yi-9b through flash),
-                and the closed adaptive-precision loop on yi-9b smoke
-                makes the CPU's decisions;
+                and so does a stochastic gemma2 step from one key (both
+                devices draw the xorshift stream); the closed
+                adaptive-precision loop on yi-9b smoke makes the CPU's
+                decisions;
   7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
@@ -54,6 +58,17 @@ Phases (any failure exits non-zero before the result line):
                 B4-B6 launch on the int8 wgmma route and every B3 launch
                 on bf16 wgmma, step time, tokens/s, peak memory, and a
                 profile of one step;
+  7b. train-sr — ROADMAP A5: gemma2-2b (26 layers, full width) trained as
+                train-full does under "8~stochastic; backend=pallas" on
+                HBFPConfig(8, 16, tile=24), beside train-full's nearest
+                gemma2-2b run, its profiled step making no more host
+                scalar copies (_local_scalar_dense) than the nearest one;
+                then, at 2 layers: remat on and off bit-equal in loss and
+                grads, a stochastic telemetry step bit-equal to the plain
+                step (B7's launches exact, banded), and 6 steps
+                uninterrupted bit-equal to a run preempted at 3 and
+                resumed from its step-2 checkpoint (needs ~18 GB of free
+                disk under build/);
   8. adaptive-full — yi-9b at full width (2 of 48 layers) under the
                 controller: 8 steps uninterrupted, and 8 steps preempted
                 at 6 and resumed from the step-4 checkpoint, which must
@@ -179,6 +194,19 @@ F32_UNIT = 2.0 ** -24
 # norm, no parameter further than 2·lr apart.
 TRAIN_TOL = dict(loss=2e-3, grads=0.1, updates=0.5)
 TRAIN_LR = 1e-3
+
+# train-sr: gemma2-2b trained stochastically (ROADMAP A5) at full width on
+# B1-B3, the weights narrowed in 24 x 24 tiles; the Trainer's seed (every
+# full-width run uses it; nearest rounding ignores it)
+SR_SPEC = "8~stochastic; backend=pallas"
+SR_SEED = 21
+# the remat, telemetry and resume proofs: gemma2-2b at full width and
+# SR_LAYERS of 26 layers; SR_STEPS steps uninterrupted against a run
+# preempted at step 3 and resumed from its step-2 checkpoint (master,
+# moments and meta: ~16 GB)
+SR_LAYERS = 2
+SR_STEPS = 6
+SR_DISK_GB = 18.0
 
 # yi-9b's training attention: 1 sequence x 32 heads, 4096 tokens, hd 128
 FLASH_SHAPE = (32, 4096, 128)
@@ -683,7 +711,7 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
             took = took[0] if len(took) == 1 else str(took)
             want_route = hm.wgrad_route(mantissa_bits=m, M=M, K=K, N=N,
                                         bm=bm)
-            if took != want_route or (timed == "train"
+            if took != want_route or (timed.startswith("train")
                                       and took != "bf16_wgmma"):
                 fail(f"hbfp_wgrad {wname} {timed}: took route {took}, "
                      f"expected {want_route}")
@@ -756,8 +784,9 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
 
 def phase_bwd():
     """B1/B2/B3 at gemma2-2b's training shapes (the training
-    configuration: quantized bf16 weights, m = 8, nearest; B1 and B2 on
-    the int8 wgmma route) plus small cases of the other configurations
+    configuration: quantized bf16 weights, m = 8, nearest, timed; then
+    stochastic, the train-sr configuration; B1 and B2 on the int8 wgmma
+    route, B3 on bf16 wgmma) plus small cases of the other configurations
     and the route cases."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -765,6 +794,10 @@ def phase_bwd():
     for wname, (K, N) in TRAIN_SHAPES.items():
         rows += _bwd_case(wname, TRAIN_M, K, N, True, 8, 0, False, gen,
                           "train", route="int8_wgmma")
+        torch.cuda.empty_cache()
+    for wname, (K, N) in TRAIN_SHAPES.items():
+        rows += _bwd_case(wname, TRAIN_M, K, N, True, 8, 0, True, gen,
+                          "train_stoch", route="int8_wgmma")
         torch.cuda.empty_cache()
     small_routes = {"m8": "int8_wgmma", "m12": "cuda_core",
                     "m8_b32": "cuda_core", "m8_stoch": "int8_wgmma",
@@ -1215,11 +1248,13 @@ def _rel_fro(a, b) -> float:
     return float((a - b).norm() / a.norm().clamp_min(1e-30))
 
 
-def phase_train(arch_name: str):
-    """One smoke step of `arch_name` (f32, "8; backend=pallas") on the card
-    (the kernels) and on the CPU (their plain versions) from the same
-    state and batch: loss, grads and the parameter updates. yi-9b's
-    attention takes flash (B4-B6), gemma2's never does."""
+def phase_train(arch_name: str, spec: str = "8; backend=pallas",
+                key=None):
+    """One smoke step of `arch_name` (f32, `spec`) on the card (the
+    kernels) and on the CPU (their plain versions) from the same state,
+    batch and key: loss, grads and the parameter updates. yi-9b's
+    attention takes flash (B4-B6), gemma2's never does. A stochastic spec
+    draws the same xorshift noise from `key` on both devices."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1241,11 +1276,11 @@ def phase_train(arch_name: str):
     batch = batch_for_arch(arch, 2, 32, kind="markov", device="cpu")
     out, flash = {}, {}
     for dev, state in (("cpu", cpu), ("cuda", card)):
-        step = make_step(arch, "8; backend=pallas", sched, device=dev)
+        step = make_step(arch, spec, sched, device=dev)
         b = {k: v.to(dev) for k, v in batch.items()}
         fa.reset_counts()
-        _, _, grads = step.grads(state, b)
-        state, m = step(state, b)
+        _, _, grads = step.grads(state, b, key)
+        state, m = step(state, b, key)
         flash[dev] = (fa.hbfp_flash_fwd.plain_calls, fa.hbfp_flash_fwd.launches)
         out[dev] = (float(m["loss"]), dict(named_leaves(grads)),
                     dict(named_leaves(state.params)))
@@ -1253,23 +1288,26 @@ def phase_train(arch_name: str):
     g_err = max(_rel_fro(gc[n], gg[n]) for n in gc)
     u_err = max(_rel_fro(pc[n] - p0[n], pg[n].cpu() - p0[n]) for n in pc)
     p_err = max(float((pc[n] - pg[n].cpu()).abs().max()) for n in pc)
-    log(f"[train] {arch_name} smoke one step card vs cpu: loss {lg:.6f} vs "
+    log(f"[train] {arch_name} smoke {spec!r} one step card vs cpu: loss "
+        f"{lg:.6f} vs "
         f"{lc:.6f}, grads rel-fro {g_err:.3g}, updates rel-fro "
         f"{u_err:.3g}, max |dparam| {p_err:.3g}; B4 plain calls on the "
         f"CPU {flash['cpu'][0]}, launches on the card {flash['cuda'][1]}")
     if not (abs(lg - lc) <= TRAIN_TOL["loss"] * abs(lc)
             and g_err <= TRAIN_TOL["grads"]
             and u_err <= TRAIN_TOL["updates"] and p_err <= 4 * TRAIN_LR):
-        fail(f"{arch_name}: card training step disagrees with the CPU step")
+        fail(f"{arch_name} {spec!r}: card training step disagrees with the "
+             f"CPU step")
     takes_flash = arch.attn_pattern == "global" and arch.attn_softcap is None
     if takes_flash != (flash["cpu"][0] > 0 and flash["cuda"][1] > 0):
         fail(f"{arch_name}: flash taken {flash}, expected {takes_flash}")
-    return dict(loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
+    return dict(spec=spec, loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
                 updates_rel_fro=u_err, max_abs_param=p_err)
 
 
 def _profile_step(trainer, steps: int):
-    """Kernel time by name over one more training step, from
+    """Kernel time by name over one more training step, and the step's
+    device-to-host scalar copies (`aten::_local_scalar_dense`), from
     torch.profiler; None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1278,11 +1316,14 @@ def _profile_step(trainer, steps: int):
         trainer.run(steps, log_every=0)
         torch.cuda.synchronize()
     rows = []
+    syncs = 0
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0))
         if dev_us and e.device_type.name == "CUDA":
             rows.append((e.key, dev_us, e.count))
+        if e.key == "aten::_local_scalar_dense":
+            syncs += e.count
     total = sum(r[1] for r in rows)
     if not total:
         return None
@@ -1310,7 +1351,7 @@ def _profile_step(trainer, steps: int):
              for g, p in groups.items()}
     share["everything else"] = 1.0 - sum(share.values())
     top = sorted(rows, key=lambda r: -r[1])[:15]
-    return dict(device_ms=total / 1e3, share=share,
+    return dict(device_ms=total / 1e3, share=share, host_syncs=syncs,
                 top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
                      for k, us, c in top])
 
@@ -1347,10 +1388,11 @@ def _train_routes_ok(routes: dict) -> bool:
 
 
 def phase_train_full(card: str, arch_name: str, B: int, S: int,
-                     n_layers: int = 0):
-    """`arch_name` at full width (n_layers > 0 cuts the depth),
-    "8; backend=pallas", B x S tokens of markov data (loss_chunk 2048),
-    constant LR 1e-4, through the Trainer: a warm-up step, then 3 steps
+                     n_layers: int = 0, spec: str = "8; backend=pallas",
+                     base=None, phase: str = "train-full"):
+    """`arch_name` at full width (n_layers > 0 cuts the depth), the policy
+    `spec` (on the HBFPConfig `base` when given), B x S tokens of markov data (loss_chunk 2048), constant LR 1e-4,
+    through the Trainer (seed SR_SEED): a warm-up step, then 3 steps
     whose launches are counted exactly, and a profiled step."""
     import dataclasses
     import torch
@@ -1368,7 +1410,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     full = get_arch(arch_name)
     arch = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
     L = arch.n_layers
-    tag = f"[train-full {arch_name}]"
+    tag = f"[{phase} {arch_name}]"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(0, arch)
@@ -1390,10 +1432,12 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     torch.cuda.empty_cache()
     sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
                           total_steps=100)
-    step = make_step(arch, "8; backend=pallas", sched)
+    from repro_torch.precision import parse_policy
+    step = make_step(arch, spec if base is None else
+                     parse_policy(spec, base=base), sched)
     sink = MemorySink()
     trainer = Trainer(train_step=step, init_state=state, data_fn=pipe.batch,
-                      recorder=Recorder([sink]))
+                      recorder=Recorder([sink]), seed=SR_SEED)
     lines = []
     trainer.run(1, log_every=1, log_fn=lines.append)       # warm-up
     loss0 = float(lines[0].split("loss=")[1].split()[0])
@@ -1446,16 +1490,215 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     if prof is None:
         log(f"{tag} torch.profiler saw no device time")
     else:
-        log(f"{tag} profiled step: {prof['device_ms']:.1f} ms of kernels; "
-            f"share " + ", ".join(f"{k} {v:.1%}"
-                                  for k, v in prof["share"].items()))
-    result = dict(arch=arch_name, layers=L, params=n_params, tokens=B * S,
+        log(f"{tag} profiled step: {prof['device_ms']:.1f} ms of kernels, "
+            f"{prof['host_syncs']} host syncs (_local_scalar_dense); share "
+            + ", ".join(f"{k} {v:.1%}" for k, v in prof["share"].items()))
+    result = dict(arch=arch_name, spec=spec,
+                  tile=None if base is None else base.tile, layers=L,
+                  params=n_params, tokens=B * S,
                   losses=losses, loss_fp32_step0=loss_fp32, step_s=step_s,
                   tokens_per_s=tok_s, peak_gib=peak, total_gib=total,
                   launches=counts, routes=routes, profile=prof)
     del trainer, state, step
     torch.cuda.empty_cache()
     return result
+
+
+def _sr_base():
+    from repro_torch.core import HBFPConfig
+    return HBFPConfig(8, 16, tile=24)
+
+
+def _first_difference(a: dict, b: dict):
+    """(name, max |Δ|) of the first leaf where two {name: tensor} maps
+    differ, or None when they are bit-equal."""
+    import torch
+    for n in a:
+        if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n]):
+            return n, float((a[n].float() - b[n].float()).abs().max())
+    return None
+
+
+def _state_differences(a, b) -> dict:
+    """The first difference (`_first_difference`) of two TrainStates'
+    master params and AdamW moments."""
+    from repro_torch.optim.adamw import named_leaves
+    trees = lambda s: (("params", s.params), ("mu", s.opt.mu),
+                       ("nu", s.opt.nu))
+    return {w: _first_difference(dict(named_leaves(ta)),
+                                 dict(named_leaves(tb)))
+            for (w, ta), (_, tb) in zip(trees(a), trees(b))}
+
+
+def _b7_telemetry_launches(params, tile: int) -> int:
+    """B7 launches of one telemetry step: the weight tap narrows every
+    layer slice and the head (one 2-D operand each), the grad tap
+    converts each stacked grad whole (one operand when the tiles divide
+    its rows, else one a slice: `bfp.b7_layout`), the activation tap two
+    row views."""
+    from repro_torch.core import bfp
+    from repro_torch.core.opt_shell import is_hbfp_weight
+    from repro_torch.optim.adamw import named_leaves
+    import math
+    n = 2
+    for name, t in named_leaves(params):
+        if not is_hbfp_weight(name, t):
+            continue
+        slices = math.prod(t.shape[:-2])
+        merged = bfp.b7_layout(tuple(t.shape),
+                               bfp.weight_tile_shape(t.ndim, tile))[-1]
+        n += slices + (1 if merged else slices)
+    return n
+
+
+def phase_train_sr(card: str, nearest: dict):
+    """ROADMAP A5 on the card. gemma2-2b at full width, 26 layers,
+    SR_SPEC on HBFPConfig(8, 16, tile=24), 2 x 2048 tokens, through the
+    Trainer (phase_train_full's checks: finite losses, step-0 loss within
+    2% of fp32, exact B1-B3 launches, their routes), beside train-full's
+    nearest gemma2-2b run (`nearest`); its profiled step makes no more
+    device-to-host scalar copies than the nearest one. Then, at SR_LAYERS
+    layers: remat on and off give bit-equal loss and grads; a stochastic
+    telemetry step equals the plain step (B7's launches exact, banded);
+    a run preempted and resumed equals the uninterrupted run."""
+    tr = phase_train_full(card, "gemma2-2b", 2, 2048, spec=SR_SPEC,
+                          base=_sr_base(), phase="train-sr")
+    tag = "[train-sr]"
+    for k in ("step_s", "tokens_per_s", "peak_gib"):
+        log(f"{tag} {k}: stochastic {tr[k]} vs nearest {nearest[k]}")
+    if tr["profile"] is None or nearest["profile"] is None:
+        fail("train-sr: torch.profiler saw no device time, so the host "
+             "syncs of the steps were not counted")
+    syncs = (tr["profile"]["host_syncs"], nearest["profile"]["host_syncs"])
+    log(f"{tag} host syncs (_local_scalar_dense) in one profiled step: "
+        f"stochastic {syncs[0]} vs nearest {syncs[1]}")
+    if syncs[0] > syncs[1]:
+        fail(f"train-sr: the stochastic step copied {syncs[0]} scalars to "
+             f"the host, the nearest step {syncs[1]}")
+    for k in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"):
+        log(f"{tag} {k} by route over 3 steps: {tr['routes'][k]}")
+    return dict(train=tr, host_syncs=syncs, proofs=_sr_proofs(card))
+
+
+def _sr_proofs(card: str):
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.common import fold_in
+    from repro_torch.numerics import TapConfig
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.precision import parse_policy
+    from repro_torch.train import Trainer, init_train_state, make_step
+    tag = "[train-sr proofs]"
+    arch = dataclasses.replace(get_arch("gemma2-2b"), n_layers=SR_LAYERS)
+    pol = parse_policy(SR_SPEC, base=_sr_base())
+    pipe = SyntheticLM(arch.vocab_size, 2048 + 1, 2, seed=0)
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    key = fold_in(fold_in(0, SR_SEED), 0)
+    out = {}
+    t0 = time.perf_counter()
+    # remat on and off: the recompute draws the forward's noise
+    state = init_train_state(0, arch)
+    runs = {}
+    for remat in (True, False):
+        a = dataclasses.replace(arch, remat=remat)
+        loss, _, grads = make_step(a, pol, sched).grads(state, pipe.batch(0),
+                                                        key)
+        runs[remat] = (loss, dict(named_leaves(grads)))
+        del grads
+    torch.cuda.synchronize()
+    diff = _first_difference(runs[True][1], runs[False][1])
+    same_loss = torch.equal(runs[True][0], runs[False][0])
+    out["remat"] = dict(loss=float(runs[True][0]), loss_equal=same_loss,
+                        first_difference=diff,
+                        seconds=time.perf_counter() - t0)
+    log(f"{tag} {SR_LAYERS} layers, remat on vs off, one key: loss "
+        f"{float(runs[True][0]):.6f} vs {float(runs[False][0]):.6f}, "
+        f"grads {'bit-equal' if diff is None else f'differ at {diff}'}")
+    if not same_loss or diff is not None:
+        fail(f"train-sr: remat recompute drew other noise: loss "
+             f"{runs[True][0]} vs {runs[False][0]}, first grad difference "
+             f"{diff}")
+    del runs, state
+    torch.cuda.empty_cache()
+    # a stochastic telemetry step equals the plain step
+    t0 = time.perf_counter()
+    steps = {}
+    for tap in (TapConfig(cadence=1), None):
+        st = init_train_state(0, arch)
+        _reset_counts()
+        st, m = make_step(arch, pol, sched, tap=tap)(st, pipe.batch(0), key)
+        torch.cuda.synchronize()
+        steps[tap is not None] = (st, float(m["loss"]), _counts()[0])
+    (tel, l_tel, c_tel), (pln, l_pln, _) = steps[True], steps[False]
+    want_b7 = _b7_telemetry_launches(tel.params, 24)
+    same = _state_differences(tel, pln)
+    b7_routes = {r: c_tel[f"bfp_quantize/{r}"] for r in ("banded", "split")}
+    out["telemetry"] = dict(loss=(l_tel, l_pln), differences=str(same),
+                            b7_launches=c_tel["bfp_quantize"],
+                            b7_expected=want_b7, b7_routes=b7_routes,
+                            seconds=time.perf_counter() - t0)
+    log(f"{tag} stochastic telemetry vs plain step: loss {l_tel:.6f} vs "
+        f"{l_pln:.6f}, first differences {same}; B7 launches "
+        f"{c_tel['bfp_quantize']} (expected {want_b7}) by route "
+        f"{b7_routes}")
+    if l_tel != l_pln or any(v is not None for v in same.values()):
+        fail(f"train-sr: the stochastic telemetry step differs from the "
+             f"plain step: {l_tel} vs {l_pln}, {same}")
+    if c_tel["bfp_quantize"] != want_b7 or b7_routes["split"]:
+        fail(f"train-sr: B7 launches {c_tel['bfp_quantize']} != {want_b7} "
+             f"or not all banded: {b7_routes}")
+    del steps, tel, pln
+    torch.cuda.empty_cache()
+    # resume: SR_STEPS uninterrupted against preempted at 3, resumed at 2
+    base = os.path.join(ROOT, "build", "sr_ckpt")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    free = shutil.disk_usage(base).free / 1e9
+    log(f"{tag} free disk at {base}: {free:.1f} GB (needs {SR_DISK_GB})")
+    if free < SR_DISK_GB:
+        fail(f"train-sr needs {SR_DISK_GB} GB of free disk, {free:.1f} GB "
+             f"free")
+    t0 = time.perf_counter()
+
+    def trainer(**kw):
+        return Trainer(train_step=make_step(arch, pol, sched),
+                       init_state=init_train_state(0, arch),
+                       data_fn=pipe.batch, seed=SR_SEED, **kw)
+
+    straight = trainer().run(SR_STEPS, log_every=0)[0]
+    d = os.path.join(base, "run")
+    try:
+        trainer(ckpt_dir=d, ckpt_every=2, keep=1).run(
+            SR_STEPS, fail_at_step=3, log_every=0)
+        fail("train-sr: the run was not preempted at step 3")
+    except RuntimeError as e:
+        if "simulated preemption at step 3" not in str(e):
+            raise
+    torch.cuda.empty_cache()
+    tr_c = trainer(ckpt_dir=d)
+    resumed_at = tr_c.start_step
+    tr_c.ckpt_dir = None        # resumed: the proof needs no later save
+    resumed = tr_c.run(SR_STEPS, log_every=0)[0]
+    torch.cuda.synchronize()
+    same = _state_differences(straight, resumed)
+    out["resume"] = dict(resumed_at=resumed_at, steps=SR_STEPS,
+                         differences=str(same),
+                         seconds=time.perf_counter() - t0)
+    log(f"{tag} {SR_STEPS} steps uninterrupted vs preempted at 3 and "
+        f"resumed at {resumed_at}: first differences {same} "
+        f"({out['resume']['seconds']:.1f} s with the checkpoints) | {card}")
+    del tr_c, straight, resumed
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if resumed_at != 2 or any(v is not None for v in same.values()):
+        fail(f"train-sr: the resumed run (at {resumed_at}) differs from the "
+             f"uninterrupted run: {same}")
+    return out
 
 
 SERVE_LANES, SERVE_CTX, SERVE_NEW = 8, 1024, 32
@@ -1954,11 +2197,11 @@ def _adapt_trainer(arch, pipe, state, rows, ckpt_dir=None, rec=None,
     step = make_step(arch, pol, sched, controller=ctrl,
                      tap=TapConfig(cadence=2))
 
-    def counted(st, batch):
+    def counted(st, batch, key):
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
-        st, m = step(st, batch)
+        st, m = step(st, batch, key)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         counts, plain = _counts()
@@ -2293,18 +2536,22 @@ def _flash_entry(name, rows, by_path, replaces, source, by_route):
     }
 
 
-def _quant_entry(rows, adapt):
+def _quant_entry(rows, adapt, train_sr):
     """B7's JSON entry: times summed over yi-9b's five distinct weight
     shapes at the adaptive path's weight-tap format (m 4, tile 24, with
     stats); max_abs_err over every quantize case; launches by path on the
-    adaptive run. No PyTorch call packs BFP, so library_ms is null; a
-    clone() of the same x (one read, one write) is the yardstick."""
+    adaptive run and the stochastic telemetry step of train-sr. No
+    PyTorch call packs BFP, so library_ms is null; a clone() of the same
+    x (one read, one write) is the yardstick."""
     main = [r for r in rows
             if r["input"] == "randn" and r["case"].endswith("_t24_m4")]
+    tel_sr = train_sr["proofs"]["telemetry"]
     by_path = {"telemetry": adapt["launches_telemetry"],
-               "packed_save": adapt["packed"]["launches"]}
+               "packed_save": adapt["packed"]["launches"],
+               "telemetry_stochastic": tel_sr["b7_launches"]}
     by_route = {r: adapt["launches"][f"bfp_quantize/{r}"]
                 + adapt["packed"]["launches_by_route"][r]
+                + tel_sr["b7_routes"][r]
                 for r in adapt["packed"]["launches_by_route"]}
     cases = {}
     for r in rows:
@@ -2347,12 +2594,18 @@ def main() -> int:
     quant = phase_quantize()
     log(f"[time] quantize kernel done at {time.perf_counter() - t0:.1f} s")
     train_smoke = {a: phase_train(a) for a in ("gemma2-2b", "yi-9b")}
+    from repro_torch.kernels.common import fold_in
+    train_smoke["gemma2-2b stochastic"] = phase_train(
+        "gemma2-2b", SR_SPEC, fold_in(fold_in(0, SR_SEED), 0))
     adapt_smoke = phase_adaptive_smoke()
     log(f"[time] smoke training done at {time.perf_counter() - t0:.1f} s")
     train = phase_train_full(card, "gemma2-2b", 2, 2048)
     # yi-9b: 16 of 48 layers, so f32 master, AdamW moments and grads fit
     train_yi = phase_train_full(card, "yi-9b", 1, 4096, n_layers=YI_LAYERS)
     log(f"[time] training done at {time.perf_counter() - t0:.1f} s")
+    train_sr = phase_train_sr(card, train)
+    log(f"[time] stochastic training done at "
+        f"{time.perf_counter() - t0:.1f} s")
     adapt = phase_adaptive_full(card)
     log(f"[time] adaptive training done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
@@ -2366,21 +2619,24 @@ def main() -> int:
                    "cases": cases, "bwd_cases": bwd, "flash_cases": flash,
                    "quantize_cases": quant, "train_smoke": train_smoke,
                    "adaptive_smoke": adapt_smoke, "train_full": train,
-                   "train_full_yi": train_yi, "adaptive_full": adapt,
+                   "train_full_yi": train_yi, "train_sr": train_sr,
+                   "adaptive_full": adapt,
                    "serve": serve},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
     src = "src/repro_torch/kernels/csrc/"
+    sr = train_sr["train"]
     by_path = lambda k: {"train_gemma2": train["launches"][k],
                          "train_yi": train_yi["launches"][k],
+                         "train_sr_gemma2": sr["launches"][k],
                          "adaptive_yi": adapt["launches"][k]}
     b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
     # main-path launches by route: training and the adaptive run counted
     # per route; every served launch was checked to be bf16 wgmma
     by_route = lambda k, served=0: {
         r: train["routes"][k][r] + train_yi["routes"][k][r]
-        + adapt["launches"][f"{k}/{r}"]
+        + sr["routes"][k][r] + adapt["launches"][f"{k}/{r}"]
         + (served if r == "bf16_wgmma" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
@@ -2428,7 +2684,7 @@ def main() -> int:
                             ("hbfp_flash_dq", "205"),
                             ("hbfp_flash_dkv", "241"))]
     print(json.dumps({"kernels": [b1, b2, b3, *b456,
-                                  _quant_entry(quant, adapt)]}))
+                                  _quant_entry(quant, adapt, train_sr)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

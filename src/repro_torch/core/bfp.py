@@ -8,8 +8,12 @@ simulation path and the packed representation.
 
 The exponent and 2^e are bit manipulations, never log2/exp2, so nearest
 rounding is bit-exact against the reference and idempotent. Stochastic
-rounding draws its uniforms from a `torch.Generator`; it cannot replay
-jax's threefry bits, so it is held to the reference statistically.
+rounding takes an int key (`kernels.common.fold_in`) and draws
+u = `uniform_from_index(seed_from_key(key), i)` for the element at
+row-major index i of the zero-padded tensor: B7's stream (row-major over
+its padded 2-D operand, stream 0), so `quantize` equals B7's plain
+version and kernel bit for bit. Torch cannot replay jax's threefry bits,
+so this rounding is held to the reference statistically.
 
 `pack` / `unpack` / `PackedBFP` are the storage format (int mantissas and
 int8 per-tile exponents, the paper's "2× more compact models"); `pack`
@@ -24,6 +28,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.bfp_quantize import bfp_quantize
+from repro_torch.kernels.common import seed_from_key, uniform_from_index
+from repro_torch.kernels.ref import _wrap_i32
 
 EXP_FLOOR = -100
 EXP_CEIL = 126
@@ -81,29 +87,63 @@ def tile_scales(x: torch.Tensor, mantissa_bits: int,
     return delta
 
 
-def _round(v: torch.Tensor, rounding: str,
-           generator: Optional[torch.Generator]) -> torch.Tensor:
+# elements whose uniforms one pass of stochastic rounding draws at once
+# (bounds its index and hash temporaries on a large weight)
+_DRAW_CHUNK = 1 << 24
+
+
+def _padded_rows(shape, padded, device) -> torch.Tensor:
+    """int64 row numbers, in the padded layout, of the rows of x.shape
+    (a row runs along the last dim)."""
+    r = torch.zeros((), dtype=torch.int64, device=device)
+    for d, p in zip(shape[:-1], padded[:-1]):
+        r = r[..., None] * p + torch.arange(d, device=device)
+    return r.reshape(-1)
+
+
+def _round_stochastic(v: torch.Tensor, padded, key: int) -> torch.Tensor:
+    """floor(v + u), u drawn at each element's row-major index in the
+    padded shape, a chunk of rows at a time."""
+    if v.ndim == 0:
+        return _round_stochastic(v.reshape(1), (1,), key).reshape(())
+    seed = seed_from_key(key)
+    C, Cp = v.shape[-1], padded[-1]
+    rows = _padded_rows(v.shape, padded, v.device)
+    v2 = v.reshape(-1, C)
+    out = torch.empty_like(v2)
+    cols = torch.arange(C, dtype=torch.int32, device=v.device)
+    step = max(1, _DRAW_CHUNK // max(C, 1))
+    for r0 in range(0, v2.shape[0], step):
+        # int32 adds wrap, so only the [rows, 1] base is formed in int64
+        idx = _wrap_i32(rows[r0:r0 + step, None] * Cp) + cols
+        out[r0:r0 + step] = torch.floor(v2[r0:r0 + step]
+                                        + uniform_from_index(seed, idx))
+    return out.reshape(v.shape)
+
+
+def _round(v: torch.Tensor, rounding: str, key: Optional[int],
+           padded) -> torch.Tensor:
     if rounding == "stochastic":
-        if generator is None:
-            raise ValueError("stochastic rounding requires a torch.Generator")
-        u = torch.rand(v.shape, generator=generator, device=v.device,
-                       dtype=v.dtype)
-        return torch.floor(v + u)
+        if key is None:
+            raise ValueError("stochastic rounding requires a key")
+        return _round_stochastic(v, padded, key)
     return torch.round(v)  # round-half-even
 
 
 def quantize(x: torch.Tensor, mantissa_bits: int,
              tile_shape: Sequence[Optional[int]],
              rounding: str = "nearest",
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """FP→BFP→FP simulation: the dequantized tensor, in x's dtype."""
+             key: Optional[int] = None) -> torch.Tensor:
+    """FP→BFP→FP simulation: the dequantized tensor, in x's dtype.
+    Stochastic rounding needs an int `key`."""
     if mantissa_bits >= 24:
         return x
     dt = x.dtype
     xf = x.to(torch.float32)
     delta = tile_scales(xf, mantissa_bits, tile_shape)
     lim = float(2 ** (mantissa_bits - 1) - 1)
-    q = _round(xf / delta, rounding, generator).clamp(-lim, lim)
+    padded = _tile_view(tuple(x.shape), tile_shape)[0]
+    q = _round(xf / delta, rounding, key, padded).clamp(-lim, lim)
     return (q * delta).to(dt)
 
 
@@ -121,17 +161,17 @@ def weight_tile_shape(rank: int, tile: Optional[int]
     return (1,) * (rank - 2) + (tile, tile)
 
 
-def quantize_act(x, cfg, generator=None):
+def quantize_act(x, cfg, key=None):
     """Quantize an activation/gradient tensor per the paper's policy."""
     return quantize(x, cfg.mantissa_bits, act_tile_shape(x.ndim, cfg.act_block),
-                    cfg.rounding, generator)
+                    cfg.rounding, key)
 
 
-def quantize_weight(x, cfg, generator=None, wide: bool = False):
+def quantize_weight(x, cfg, key=None, wide: bool = False):
     """Quantize a weight tensor (narrow compute copy, or wide storage)."""
     m = cfg.wide_mantissa_bits if wide else cfg.mantissa_bits
     return quantize(x, m, weight_tile_shape(x.ndim, cfg.tile), cfg.rounding,
-                    generator)
+                    key)
 
 
 # ----------------------------------------------------------------------------
@@ -163,13 +203,31 @@ def b7_layout(shape: Tuple[int, ...], tile_shape: Sequence[Optional[int]]):
     return lead, R, C, tr, tc, math.prod(lead) == 1 or R % tr == 0
 
 
-def b7_slices(x: torch.Tensor, tile_shape: Sequence[Optional[int]]):
+def b7_slices(x: torch.Tensor, tile_shape: Sequence[Optional[int]],
+              whole_rows: bool = False):
     """The 2-D operands B7 converts for x under tile_shape (see
-    `b7_layout`), with their (tile_r, tile_c)."""
+    `b7_layout`), with their (tile_r, tile_c). `whole_rows` (stochastic
+    rounding) makes one operand of a batch that is not `merged`: each
+    slice zero-padded to whole tile rows, so that B7's row-major index is
+    the padded tensor's (`quantize`'s stream); `b7_gather` drops the
+    padding rows again."""
     lead, R, C, tr, tc, merged = b7_layout(tuple(x.shape), tile_shape)
     if merged:
         return [x.reshape(-1, C)], tr, tc
+    if whole_rows:
+        Rp = -(-R // tr) * tr
+        xp = torch.nn.functional.pad(x.reshape(-1, R, C), (0, 0, 0, Rp - R))
+        return [xp.reshape(-1, C)], tr, tc
     return list(x.reshape(-1, R, C)), tr, tc
+
+
+def b7_gather(parts, shape: Tuple[int, ...]) -> torch.Tensor:
+    """The row-wise outputs of the `b7_slices` operands, concatenated, in
+    the tensor's `shape` (padding rows of `whole_rows` dropped)."""
+    t = torch.cat(list(parts))
+    if len(shape) >= 2:
+        t = t.reshape(*shape[:-2], -1, shape[-1])[..., :shape[-2], :]
+    return t.reshape(shape)
 
 
 class PackedBFP:
@@ -191,19 +249,21 @@ class PackedBFP:
 
 def pack(x: torch.Tensor, mantissa_bits: int,
          tile_shape: Sequence[Optional[int]],
-         rounding: str = "nearest") -> PackedBFP:
+         rounding: str = "nearest", key: Optional[int] = None) -> PackedBFP:
     """Quantize and pack x into (mantissa, per-tile exponent) through B7,
     one launch per `b7_slices` operand. The mantissas take the
-    reference's padded shape (the padding is exact zeros)."""
-    if rounding == "stochastic":
-        raise NotImplementedError(
-            "stochastic packing (the reference draws threefry noise) comes "
-            "with ROADMAP A5")
+    reference's padded shape (the padding is exact zeros). Stochastic
+    rounding needs an int `key`; the mantissas are those of
+    `quantize(x, ..., "stochastic", key)`."""
+    stochastic = rounding == "stochastic"
+    if stochastic and key is None:
+        raise ValueError("stochastic rounding requires a key")
     padded, grouped, _, _ = _tile_view(tuple(x.shape), tile_shape)
-    parts, tr, tc = b7_slices(x, tile_shape)
-    outs = [bfp_quantize(p, 0, mantissa_bits=mantissa_bits, tile_r=tr,
-                         tile_c=tc) for p in parts]
-    mant = torch.cat([m for m, _ in outs]).reshape(x.shape)
+    parts, tr, tc = b7_slices(x, tile_shape, whole_rows=stochastic)
+    seed = seed_from_key(key) if stochastic else 0
+    outs = [bfp_quantize(p, seed, mantissa_bits=mantissa_bits, tile_r=tr,
+                         tile_c=tc, stochastic=stochastic) for p in parts]
+    mant = b7_gather([m for m, _ in outs], tuple(x.shape))
     if tuple(padded) != tuple(x.shape):
         full = torch.zeros(padded, dtype=mant.dtype, device=mant.device)
         full[tuple(slice(0, d) for d in x.shape)] = mant

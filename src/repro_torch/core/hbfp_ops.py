@@ -12,6 +12,11 @@ With uniform role widths the backward reuses the forward's quantized
 operands; per-role widths (`dgrad_cfg`/`wgrad_cfg`) re-quantize each
 backward GEMM's operands at its own width. Attention's QKᵀ and PV run
 here on every backend.
+
+Stochastic rounding takes the call's int key and, as the reference,
+folds the operand into it (0 for x, 1 for w, 2 for g); a backward GEMM
+at a diverged role width or block folds a (role, width, block) salt
+too (`_role_key`), so it never consumes another role's draws.
 """
 from __future__ import annotations
 
@@ -21,29 +26,49 @@ import torch
 
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
+from repro_torch.kernels.common import fold_in, role_stream_salt
 
 
-def _q_act(x, cfg: HBFPConfig, generator, contract_axis: int):
+def _fold(key: Optional[int], i: int) -> Optional[int]:
+    return None if key is None else fold_in(key, i)
+
+
+def _role_key(key: Optional[int], i: int, role: str, role_cfg: HBFPConfig,
+              base_cfg: HBFPConfig) -> Optional[int]:
+    """Operand key of one GEMM role: `_fold(key, i)` at the base width and
+    block (the tensor replays its forward draws), folded with the
+    (role, width, block) salt otherwise (DESIGN.md §11, §13)."""
+    k = _fold(key, i)
+    if k is None:
+        return None
+    salt = role_stream_salt(role, role_cfg.mantissa_bits,
+                            base_cfg.mantissa_bits,
+                            int(role_cfg.act_block or 0),
+                            int(base_cfg.act_block or 0))
+    return fold_in(k, salt) if salt else k
+
+
+def _q_act(x, cfg: HBFPConfig, key, contract_axis: int):
     """Per-row exponents along the contraction axis (optionally blocked by
     cfg.act_block)."""
     tile = [1] * x.ndim
     tile[contract_axis] = cfg.act_block
-    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, generator)
+    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key)
 
 
-def _q_w(w, cfg: HBFPConfig, generator):
+def _q_w(w, cfg: HBFPConfig, key):
     return bfp.quantize(w, cfg.mantissa_bits,
                         bfp.weight_tile_shape(w.ndim, cfg.tile),
-                        cfg.rounding, generator)
+                        cfg.rounding, key)
 
 
-def _q_b(b, cfg: HBFPConfig, generator, kind: str):
+def _q_b(b, cfg: HBFPConfig, key, kind: str):
     """Quantize the right-hand operand b[..., K, N]."""
     if kind == "weight":
         if not cfg.requantize_weights:
             return b
-        return _q_w(b, cfg, generator)
-    return _q_act(b, cfg, generator, contract_axis=b.ndim - 2)
+        return _q_w(b, cfg, key)
+    return _q_act(b, cfg, key, contract_axis=b.ndim - 2)
 
 
 def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -58,31 +83,35 @@ def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 class _HBFPMatmulFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, generator):
-        xq = _q_act(x, cfg, generator, contract_axis=x.ndim - 1)
-        wq = _q_b(w, cfg, generator, w_kind)
+    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key):
+        xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1)
+        wq = _q_b(w, cfg, _fold(key, 1), w_kind)
         y = torch.matmul(xq, wq)
         uniform = dgrad_cfg is None and wgrad_cfg is None
         # uniform widths: the backward reuses the forward's quantized
         # operands; per-role widths keep the raw ones
         ctx.save_for_backward(*((xq, wq) if uniform else (x, w)))
-        ctx.cfgs = (cfg, dgrad_cfg, wgrad_cfg, w_kind, generator)
+        ctx.cfgs = (cfg, dgrad_cfg, wgrad_cfg, w_kind, key)
         return y
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        cfg, dgrad_cfg, wgrad_cfg, w_kind, gen = ctx.cfgs
+        cfg, dgrad_cfg, wgrad_cfg, w_kind, key = ctx.cfgs
         if dgrad_cfg is None and wgrad_cfg is None:
             xq, wq = a, b
-            gq_d = gq_w = _q_act(g, cfg, gen, contract_axis=g.ndim - 1)
+            gq_d = gq_w = _q_act(g, cfg, _fold(key, 2),
+                                 contract_axis=g.ndim - 1)
         else:
             dcfg = dgrad_cfg if dgrad_cfg is not None else cfg
             wcfg = wgrad_cfg if wgrad_cfg is not None else cfg
-            wq = _q_b(b, dcfg, gen, w_kind)
-            gq_d = _q_act(g, dcfg, gen, contract_axis=g.ndim - 1)
-            xq = _q_act(a, wcfg, gen, contract_axis=a.ndim - 1)
-            gq_w = _q_act(g, wcfg, gen, contract_axis=g.ndim - 1)
+            wq = _q_b(b, dcfg, _role_key(key, 1, "dgrad", dcfg, cfg), w_kind)
+            gq_d = _q_act(g, dcfg, _role_key(key, 2, "dgrad", dcfg, cfg),
+                          contract_axis=g.ndim - 1)
+            xq = _q_act(a, wcfg, _role_key(key, 0, "wgrad", wcfg, cfg),
+                        contract_axis=a.ndim - 1)
+            gq_w = _q_act(g, wcfg, _role_key(key, 2, "wgrad", wcfg, cfg),
+                          contract_axis=g.ndim - 1)
         dx = _sum_to(torch.matmul(gq_d, wq.transpose(-1, -2)), xq)
         if wq.ndim == 2:
             dw = torch.matmul(xq.reshape(-1, xq.shape[-1]).T,
@@ -94,25 +123,23 @@ class _HBFPMatmulFn(torch.autograd.Function):
 
 
 def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
-                cfg: Optional[HBFPConfig],
-                generator: Optional[torch.Generator] = None,
+                cfg: Optional[HBFPConfig], key: Optional[int] = None,
                 w_kind: str = "weight", *, dgrad_cfg=None,
                 wgrad_cfg=None) -> torch.Tensor:
     """y = Q(x) @ Q(w) with BFP backward passes. x: [..., M, K]; w: [K, N]
     or [..., K, N] with batch dims broadcasting against x. cfg None is a
-    plain matmul. w_kind "act" gives the right operand per-vector
-    exponents along the contraction. dgrad_cfg/wgrad_cfg (None or equal to
-    cfg: the uniform path) quantize the backward GEMMs at their own
-    widths."""
+    plain matmul. Stochastic rounding needs an int `key`. w_kind "act"
+    gives the right operand per-vector exponents along the contraction.
+    dgrad_cfg/wgrad_cfg (None or equal to cfg: the uniform path) quantize
+    the backward GEMMs at their own widths."""
     if cfg is None:
         return torch.matmul(x, w)
     if w.ndim != 2 and w.ndim != x.ndim:
         raise ValueError(f"rank mismatch: x {tuple(x.shape)} vs w {tuple(w.shape)}")
-    if cfg.rounding == "stochastic" and generator is None:
-        raise ValueError("stochastic rounding requires a torch.Generator")
+    if cfg.rounding == "stochastic" and key is None:
+        raise ValueError("stochastic rounding requires a key")
     if dgrad_cfg == cfg:
         dgrad_cfg = None
     if wgrad_cfg == cfg:
         wgrad_cfg = None
-    return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind,
-                               generator)
+    return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key)

@@ -8,17 +8,26 @@ storage. Parameters are a nested dict of tensors with the reference's
 layout, so `param_path_name` gives byte-identical names and per-layer
 policy overrides match the same parameters. Dot-product weights are
 quantized; everything matching `FP_NAME_FRAGMENTS` stays FP (the hybrid
-in HBFP). Nearest rounding only: the crc32 per-parameter stochastic
-stream comes with ROADMAP A5.
+in HBFP).
+
+Stochastic rounding draws each parameter from its own stream,
+`param_fold(key, name)` (the reference's crc32 of the name, so a
+restarted process derives the same keys). A stacked [L, ...] leaf is
+quantized one leading slice at a time, slice i from
+`fold_in(param_fold(key, name), i)`: the result is a pure function of
+(key, name, slice), whether the leaf is narrowed whole or one layer at a
+time.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
+from repro_torch.kernels.common import fold_in
 
 FP_NAME_FRAGMENTS = ("embed", "router", "bias", "scale", "norm", "gate_bias",
                      "a_log", "dt_bias", "conv")
@@ -48,6 +57,37 @@ def _named_map(fn: Callable[[str, Any], Any], tree, path=()):
     return fn(param_path_name(path), tree)
 
 
+def param_fold(key: int, name: str) -> int:
+    """Per-parameter stream: `key` folded with a process-independent hash
+    of the name (crc32, as the reference; Python's hash() is salted per
+    process and would break replay across a restart)."""
+    return fold_in(key, zlib.crc32(name.encode()) & 0x7FFFFFFF)
+
+
+def param_key(key: Optional[int], name: str, c: Optional[HBFPConfig],
+              index: Optional[int] = None) -> Optional[int]:
+    """The stochastic-rounding key of parameter `name` (of its layer slice
+    `index` when given) at config `c`; None when `c` rounds to nearest or
+    there is no key."""
+    if key is None or c is None or c.rounding != "stochastic":
+        return None
+    k = param_fold(key, name)
+    return k if index is None else fold_in(k, index)
+
+
+def leaf_slices(leaf: torch.Tensor, key: Optional[int]):
+    """(index, slice, key) over the leading slices of a stacked leaf, each
+    below rank 3, slice i keyed `fold_in(key, i)`; a leaf below rank 3 is
+    its own slice, index ()."""
+    if leaf.ndim < 3:
+        yield (), leaf, key
+        return
+    for i in range(leaf.shape[0]):
+        k = None if key is None else fold_in(key, i)
+        for idx, s, ks in leaf_slices(leaf[i], k):
+            yield (i,) + idx, s, ks
+
+
 def resolve_param_cfg(cfg, name: str,
                       role: str = "fwd") -> Optional[HBFPConfig]:
     """Concrete config of one parameter in one GEMM role: an HBFPConfig
@@ -58,26 +98,28 @@ def resolve_param_cfg(cfg, name: str,
     return fp(name, role) if fp is not None else cfg
 
 
-def _quantize_weight_slices(leaf: torch.Tensor, c: HBFPConfig,
-                            wide: bool) -> torch.Tensor:
+def quantize_leaf(leaf: torch.Tensor, c: HBFPConfig, wide: bool,
+                  key: Optional[int] = None) -> torch.Tensor:
     """quantize_weight over a stacked [L, ...] tensor one leading slice at a
-    time: the tiles never cross the leading axis, so the result is the
-    same while the f32 temporaries stay one layer large."""
+    time (`leaf_slices`): the tiles never cross the leading axis, so the
+    nearest result is the whole tensor's while the f32 temporaries stay
+    one layer large. `key` is the leaf's `param_key`."""
     if leaf.ndim < 3:
-        return bfp.quantize_weight(leaf, c, None, wide=wide)
+        return bfp.quantize_weight(leaf, c, key, wide=wide)
     out = torch.empty_like(leaf)
-    for i in range(leaf.shape[0]):
-        out[i] = _quantize_weight_slices(leaf[i], c, wide)
+    for idx, s, k in leaf_slices(leaf, key):
+        out[idx] = bfp.quantize_weight(s, c, k, wide=wide)
     return out
 
 
-def _quantize_tree(params, cfg, wide: bool):
+def _quantize_tree(params, cfg, key: Optional[int], wide: bool):
     if cfg is None:
         return params
 
     def q(name, leaf):
         c = _weight_cfg(cfg, name, leaf)
-        return leaf if c is None else _quantize_weight_slices(leaf, c, wide)
+        return leaf if c is None else quantize_leaf(
+            leaf, c, wide, param_key(key, name, c))
 
     return _named_map(q, params)
 
@@ -87,37 +129,36 @@ def _weight_cfg(cfg, name: str, leaf) -> Optional[HBFPConfig]:
     c = resolve_param_cfg(cfg, name)
     if c is None or not is_hbfp_weight(name, leaf):
         return None
-    if c.rounding == "stochastic":
-        raise NotImplementedError(
-            "stochastic weight narrowing comes with ROADMAP A5")
     return c
 
 
-def narrow_params(params, cfg):
+def narrow_params(params, cfg, key: Optional[int] = None):
     """The narrow-mantissa compute copy of `params` (paper §5.1). `cfg`:
-    HBFPConfig, ResolvedPolicy (per-layer widths) or None."""
-    return _quantize_tree(params, cfg, wide=False)
+    HBFPConfig, ResolvedPolicy (per-layer widths) or None; `key` (an int)
+    for stochastic rounding."""
+    return _quantize_tree(params, cfg, key, wide=False)
 
 
-def widen_params(params, cfg):
+def widen_params(params, cfg, key: Optional[int] = None):
     """Round freshly updated weights into the wide-BFP storage format."""
-    return _quantize_tree(params, cfg, wide=True)
+    return _quantize_tree(params, cfg, key, wide=True)
 
 
 def apply_update_(name: str, leaf: torch.Tensor, index: Optional[int],
-                  update: torch.Tensor, cfg) -> None:
+                  update: torch.Tensor, cfg, key: Optional[int] = None
+                  ) -> None:
     """leaf ← Q_wide(leaf + update) in place, for the whole leaf (index
     None) or one layer slice of a stacked leaf: f32 update, wide-BFP
-    storage."""
+    storage, rounded on the slice's stream of `key` (`param_key`)."""
     p = leaf if index is None else leaf[index]
     new = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
     c = _weight_cfg(cfg, name, leaf)
     if c is not None:
-        new = bfp.quantize_weight(new, c, None, wide=True)
+        new = quantize_leaf(new, c, True, param_key(key, name, c, index))
     p.copy_(new)
 
 
-def hbfp_apply_updates(params, updates, cfg):
+def hbfp_apply_updates(params, updates, cfg, key: Optional[int] = None):
     """params ← Q_wide(params + updates), leaf by leaf, in place (the
     reference returns a new tree; the port saves the copy). Returns
     params."""
@@ -125,7 +166,7 @@ def hbfp_apply_updates(params, updates, cfg):
         u = updates
         for k in name.split("/"):
             u = u[k]
-        apply_update_(name, leaf, None, u, cfg)
+        apply_update_(name, leaf, None, u, cfg, key)
         return leaf
 
     _named_map(one, params)

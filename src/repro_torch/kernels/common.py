@@ -6,6 +6,14 @@ The plain versions of the kernels use these, and the CUDA sources under
 `csrc/` compute the same integer and float operations, so nearest and
 stochastic results agree bit for bit. Integer hashing runs on int32
 tensors, whose multiply and shift-left wrap like the reference's int32.
+
+Stochastic rounding is keyed by host integers: `fold_in` derives a key
+from a key and a datum (the counterpart of `jax.random.fold_in`) and
+`seed_from_key` gives the kernels' int32 seed. No tensor, generator or
+device touches a key, so deriving one never waits for the card, and a
+recomputed forward or a resumed run derives the same keys. The draws are
+the xorshift stream below, equal on the CPU and the card; they are not
+the reference's threefry draws, so parity with it is statistical.
 """
 from __future__ import annotations
 
@@ -43,6 +51,31 @@ def role_stream_salt(role: str, m_bits: int, base_bits: int,
     return salt & 0x7FFFFFFF
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h: int) -> int:
+    """murmur3's 32-bit finalizer, a bijection of 32-bit integers."""
+    h &= _M32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 32-bit key from `key` and the low 32 bits of `data`: a
+    bijection in each argument while the other is held."""
+    return _mix32((key & _M32) ^ _mix32((data & _M32) ^ 0x9E3779B9))
+
+
+def seed_from_key(key: int) -> int:
+    """The kernels' int32 seed of a key (the reference's
+    `kernels.linear.seed_from_key`)."""
+    return _as_i32(key)
+
+
 def max_exponent(amax: torch.Tensor) -> torch.Tensor:
     """floor(log2 amax) by f32 bit-field extraction (int32)."""
     bits = amax.to(torch.float32).contiguous().view(torch.int32)
@@ -69,8 +102,9 @@ def uniform_from_index(seed, idx: torch.Tensor) -> torch.Tensor:
     """Counter-based U[0,1): hash (seed, int32 element index) through two
     xorshift rounds and keep 24 bits."""
     if isinstance(seed, int):
-        seed = _as_i32(seed)
-    seed = torch.as_tensor(seed, dtype=torch.int32, device=idx.device)
+        seed = _as_i32(seed)        # a Python scalar: no host-to-device copy
+    else:
+        seed = torch.as_tensor(seed, dtype=torch.int32, device=idx.device)
     s = (idx.to(torch.int32) * _as_i32(0x9E3779B9)) ^ seed
     s = xorshift32(xorshift32(s | 1))
     return ((s >> 7) & 0x00FFFFFF).to(torch.float32) * (1.0 / 16777216.0)

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.hbfp_ops import hbfp_matmul
+from repro_torch.kernels.common import fold_in, seed_from_key
 from repro_torch.precision.policy import as_segment, role_width_for
 
 
@@ -57,15 +58,16 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight"):
     sim path; backend "pallas" sends 2-D weight-kind products to the
     kernels (`kernels/linear.py`: forward, dgrad and wgrad); everything
     else is the sim path (`core/hbfp_ops.py`). dgrad/wgrad role widths
-    reach the backward of both."""
+    reach the backward of both. The site's stochastic key is a host int:
+    the kernels take its seed with no device round trip."""
     cfg = ctx.cfg if cfg is _UNSET else cfg
-    gen = ctx.key_for(site)
+    key = ctx.key_for(site)
     role = _ATTN_ROLE.get(site)
     if role is not None:
         rw = role_width_for(ctx.roles, role)
         if rw is not None:
             cfg = rw.apply(cfg)
-        return hbfp_matmul(x, w, cfg, gen, w_kind=w_kind)
+        return hbfp_matmul(x, w, cfg, key, w_kind=w_kind)
     dgrad_cfg = wgrad_cfg = None
     if cfg is not None and ctx.roles:
         dg = role_width_for(ctx.roles, "dgrad")
@@ -77,13 +79,10 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight"):
     if (ctx.backend == "pallas" and cfg is not None and w.ndim == 2
             and w_kind == "weight"):
         from repro_torch.kernels.linear import hbfp_matmul_kernel
-        seed = None
-        if gen is not None:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
-                                     device=gen.device))
+        seed = None if key is None else seed_from_key(key)
         return hbfp_matmul_kernel(x, w, cfg, seed, dgrad_cfg=dgrad_cfg,
                                   wgrad_cfg=wgrad_cfg)
-    return hbfp_matmul(x, w, cfg, gen, w_kind=w_kind, dgrad_cfg=dgrad_cfg,
+    return hbfp_matmul(x, w, cfg, key, w_kind=w_kind, dgrad_cfg=dgrad_cfg,
                        wgrad_cfg=wgrad_cfg)
 
 
@@ -106,38 +105,46 @@ def gelu_ffn(x, p, ctx):
 class Ctx:
     """Quantization context (DESIGN.md §11): one `ResolvedPolicy` segment
     (global format, per-role widths, backend) plus the stochastic-rounding
-    generator and the device the model runs on.
+    key and the device the model runs on.
 
     cfg      — the segment's global activation format (None: FP);
     backend  — "sim" or "pallas" (the kernel backend);
     roles    — the per-GEMM-role width table;
+    key      — an int (`kernels.common.fold_in`) or None; as the
+               reference's PRNG key it is folded per layer (`fold`) and
+               per site (`key_for`), so a recomputed layer, or a resumed
+               step with the same key, draws the same noise;
     act_tap  — `loss_fn` measures the residual stream at the stack's entry
                and exit (numerics observatory, DESIGN.md §9; measurement
                only, the values are untouched).
     """
 
-    __slots__ = ("policy", "cfg", "generator", "backend", "roles", "device",
+    __slots__ = ("policy", "cfg", "key", "backend", "roles", "device",
                  "act_tap")
 
-    def __init__(self, cfg=None, generator: Optional[torch.Generator] = None,
-                 backend=None, policy=None, device=None,
-                 act_tap: bool = False):
+    def __init__(self, cfg=None, key: Optional[int] = None, backend=None,
+                 policy=None, device=None, act_tap: bool = False):
         if policy is None:
             policy = as_segment(cfg, backend=backend or "sim")
         self.policy = policy
         self.cfg = policy.global_cfg
         self.backend = backend or policy.backend
         self.roles = policy.role_widths
-        self.generator = generator
+        self.key = key
         self.device = device
         self.act_tap = act_tap
 
-    def key_for(self, site: str) -> Optional[torch.Generator]:
-        """The generator of stochastic rounding at `site` (None unless the
-        format rounds stochastically). The port draws every site from one
-        generator stream; it does not replay the reference's per-site
-        key folding."""
-        if self.generator is None or self.cfg is None \
+    def key_for(self, site: str) -> Optional[int]:
+        """The stochastic-rounding key of `site` (None unless the format
+        rounds stochastically): the key folded with the site name's first
+        four bytes, as the reference."""
+        if self.key is None or self.cfg is None \
                 or self.cfg.rounding != "stochastic":
             return None
-        return self.generator
+        return fold_in(self.key, int.from_bytes(site.encode()[:4], "little"))
+
+    def fold(self, i: int) -> "Ctx":
+        """The context of layer i: the key folded with i."""
+        return Ctx(key=None if self.key is None else fold_in(self.key, i),
+                   backend=self.backend, policy=self.policy,
+                   device=self.device, act_tap=self.act_tap)

@@ -217,11 +217,14 @@ def _run_stack(params, x, positions, arch: ArchConfig, ctx,
     for i in range(L):
         lp = layers[i] if isinstance(layers, (list, tuple)) \
             else {k: v[i] for k, v in layers.items()}
+        # the layer's key is a host int, so the recompute of a checkpointed
+        # layer folds the same key and draws the same noise
+        lctx = ctx.fold(i)
         if remat:
-            x = checkpoint(_remat_block, x, lp, ctx, arch, positions,
+            x = checkpoint(_remat_block, x, lp, lctx, arch, positions,
                            windows[i], std_pos, use_reentrant=False)
             continue
-        x, nc = _attn_ffn_block(x, lp, ctx, arch, positions, windows[i],
+        x, nc = _attn_ffn_block(x, lp, lctx, arch, positions, windows[i],
                                 None if cache is None
                                 else _layer_cache(cache, i), want_cache,
                                 std_pos)

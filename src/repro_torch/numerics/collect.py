@@ -23,11 +23,14 @@ import collections
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.core import bfp
 from repro_torch.core.opt_shell import (_named_map, is_hbfp_weight,
+                                        leaf_slices, param_key,
                                         resolve_param_cfg)
-from repro_torch.numerics.stats import (TensorStats, quantize_with_stats,
-                                        tensor_stats)
+from repro_torch.numerics.stats import (StatsAccumulator, TensorStats,
+                                        quantize_with_stats, tensor_stats)
 from repro_torch.optim.adamw import named_leaves
 
 
@@ -66,20 +69,30 @@ def _walk_hbfp_weights(tree, cfg, role: str = "fwd"):
         yield name, leaf, c
 
 
-def narrow_params_with_stats(params, cfg
+def narrow_params_with_stats(params, cfg, key: Optional[int] = None
                              ) -> Tuple[Any, Dict[str, TensorStats]]:
     """`opt_shell.narrow_params` + per-parameter fidelity stats: (narrow
     tree, {param_name: TensorStats}), the tree bit-identical to
-    `narrow_params(params, cfg)`."""
+    `narrow_params(params, cfg, key)` (a stochastic leaf is quantized on
+    the shell's per-slice streams)."""
     stats: Dict[str, TensorStats] = {}
 
     def visit(name, leaf):
         c = resolve_param_cfg(cfg, name)
         if c is None or not is_hbfp_weight(name, leaf):
             return leaf
-        q, stats[name] = quantize_with_stats(
-            leaf, c.mantissa_bits, bfp.weight_tile_shape(leaf.ndim, c.tile),
-            c.rounding)
+        k = param_key(key, name, c)
+        if k is None:
+            q, stats[name] = quantize_with_stats(
+                leaf, c.mantissa_bits,
+                bfp.weight_tile_shape(leaf.ndim, c.tile))
+            return q
+        acc = StatsAccumulator(leaf.device)
+        q = torch.empty_like(leaf)
+        for idx, s, ks in leaf_slices(leaf, k):
+            q[idx] = acc.add(s, c.mantissa_bits,
+                             bfp.weight_tile_shape(s.ndim, c.tile), key=ks)
+        stats[name] = acc.finish()
         return q
 
     narrow = _named_map(visit, params)

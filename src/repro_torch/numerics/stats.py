@@ -20,8 +20,11 @@ cast to x's dtype, equals `bfp.quantize` bit for bit. The stats:
   * `exp_spread`    — max − min tile exponent;
   * `n`             — element count.
 
-Stochastic rounding raises (ROADMAP A5): the reference draws threefry
-noise, which torch cannot replay.
+Stochastic rounding takes an int key: B7 draws at `seed_from_key(key)`
+on `bfp.quantize`'s stream, so the dequantized tensor equals
+`bfp.quantize(x, ..., "stochastic", key)` bit for bit and a telemetry
+step stays bit-identical to the plain step (the reference's "same key"
+rule, with the port's xorshift draws in place of threefry).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.core import bfp
 from repro_torch.kernels.bfp_quantize import bfp_quantize
+from repro_torch.kernels.common import seed_from_key
 
 EXP_BINS = 32
 EXP_BIN_WIDTH = 4
@@ -82,22 +86,26 @@ class StatsAccumulator:
 
     @torch.no_grad()
     def add(self, x: torch.Tensor, mantissa_bits: int,
-            tile_shape: Sequence[Optional[int]], want_q: bool = True):
+            tile_shape: Sequence[Optional[int]], want_q: bool = True,
+            key: Optional[int] = None):
         """Quantize x through B7 and add its stats; returns the dequantized
-        x in its dtype (None unless want_q)."""
-        parts, tr, tc = bfp.b7_slices(x, tile_shape)
+        x in its dtype (None unless want_q). An int `key` rounds
+        stochastically (`bfp.quantize`'s stream), None to nearest."""
+        stochastic = key is not None
+        seed = seed_from_key(key) if stochastic else 0
+        parts, tr, tc = bfp.b7_slices(x, tile_shape, whole_rows=stochastic)
         qs = []
+        self.n += x.numel()
         for p in parts:
             mant, expo, clip, emin, emax = bfp_quantize(
-                p, 0, mantissa_bits=mantissa_bits, tile_r=tr, tile_c=tc,
-                with_stats=True)
+                p, seed, mantissa_bits=mantissa_bits, tile_r=tr, tile_c=tc,
+                stochastic=stochastic, with_stats=True)
             R, C = p.shape
             delta = bfp.pow2(expo.to(torch.int32) - mantissa_bits + 2)
             xf = p.to(torch.float32)
             qd = mant.to(torch.float32) * _expand(delta, tr, tc, R, C)
             err = xf - qd
             nonzero = xf != 0.0
-            self.n += p.numel()
             self.tiles += clip.numel()
             self.counts += torch.stack([
                 clip.sum(), (clip > 0).sum(), (nonzero & (mant == 0)).sum(),
@@ -115,7 +123,7 @@ class StatsAccumulator:
                                                                    hi)
             if want_q:
                 qs.append(qd.to(x.dtype))
-        return torch.cat(qs).reshape(x.shape) if want_q else None
+        return bfp.b7_gather(qs, tuple(x.shape)) if want_q else None
 
     def finish(self) -> TensorStats:
         clip, sat, ftz, nonzero = self.counts.to(torch.float64)
@@ -137,18 +145,18 @@ class StatsAccumulator:
 
 def quantize_with_stats(x: torch.Tensor, mantissa_bits: int,
                         tile_shape: Sequence[Optional[int]],
-                        rounding: str = "nearest"
+                        rounding: str = "nearest", key: Optional[int] = None
                         ) -> Tuple[torch.Tensor, TensorStats]:
     """FP→BFP→FP through B7 plus the fidelity stats of that quantization;
-    the tensor equals `bfp.quantize(x, ...)` bit for bit."""
+    the tensor equals `bfp.quantize(x, ..., rounding, key)` bit for bit.
+    Stochastic rounding needs an int `key`."""
     if mantissa_bits >= 24:
         return x, identity_stats(x.numel(), x.device)
-    if rounding == "stochastic":
-        raise NotImplementedError(
-            "stochastic quantization with stats (the reference draws "
-            "threefry noise) comes with ROADMAP A5")
+    if rounding == "stochastic" and key is None:
+        raise ValueError("stochastic rounding requires a key")
     acc = StatsAccumulator(x.device)
-    xq = acc.add(x, mantissa_bits, tile_shape)
+    xq = acc.add(x, mantissa_bits, tile_shape,
+                 key=key if rounding == "stochastic" else None)
     return xq, acc.finish()
 
 

@@ -42,17 +42,16 @@ def _serve_ctx(arch: ArchConfig, hbfp, device=None):
                               role_widths=seg.role_widths,
                               backend=seg.backend)
     dev = resolve_device(device)
-    return lambda generator=None: Ctx(generator=generator, policy=exec_seg,
-                                      device=dev)
+    return lambda key=None: Ctx(key=key, policy=exec_seg, device=dev)
 
 
 def make_prefill_fn(arch: ArchConfig, hbfp, device=None):
     ctx_for = _serve_ctx(arch, hbfp, device)
 
-    def prefill_fn(params, batch, generator=None):
+    def prefill_fn(params, batch, key=None):
         # a serving stage: the reference's jitted prefill sees traced
         # positions and never takes the flash path
-        return prefill(params, batch, arch, ctx_for(generator),
+        return prefill(params, batch, arch, ctx_for(key),
                        std_pos=False)
 
     return prefill_fn
@@ -63,8 +62,8 @@ def make_decode_fn(arch: ArchConfig, hbfp, device=None):
     the narrow serving copy (narrow_serving_params)."""
     ctx_for = _serve_ctx(arch, hbfp, device)
 
-    def decode_fn(params, batch, cache, generator=None):
-        return decode_step(params, batch, cache, arch, ctx_for(generator))
+    def decode_fn(params, batch, cache, key=None):
+        return decode_step(params, batch, cache, arch, ctx_for(key))
 
     return decode_fn
 

@@ -13,11 +13,18 @@ segment ⊕ controller overrides, telemetry), chosen by the step counter.
 A telemetry variant (`make_train_step(..., taps=)`) narrows the weights
 through the conversion kernel B7 with their stats (the weight tap *is*
 the narrowing, bit-identical to the plain one), measures the grads at the
-wgrad width and the residual stream, and feeds the controller. Stochastic
-weight narrowing (A5) raises. Unlike the reference's functional step, the
-port updates the state's master params and moments in place, one layer
-slice at a time, so the optimizer adds only one layer's f32 temporaries
-to the training state.
+wgrad width and the residual stream, and feeds the controller. Unlike the
+reference's functional step, the port updates the state's master params
+and moments in place, one layer slice at a time, so the optimizer adds
+only one layer's f32 temporaries to the training state.
+
+Stochastic rounding: the step is `train_step(state, batch, key)` with an
+int key (`kernels.common.fold_in`; the Trainer folds its seed with the
+step). As the reference, the narrowing draws from
+`fold_in(key, 0x5EED)`, the loss's dot products and the wide update from
+`key`, each parameter on its `opt_shell.param_fold` stream. Every key is
+a host int, so the remat recompute and a resumed run draw what the
+first run drew.
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import bfp
-from repro_torch.core.opt_shell import _weight_cfg, apply_update_
+from repro_torch.core.opt_shell import (_weight_cfg, apply_update_,
+                                        param_key, quantize_leaf)
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.kernels.common import fold_in
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.numerics.collect import (RingBuffer, TapConfig, grad_stats,
@@ -82,25 +91,29 @@ def from_jax_train_state(state, device=None) -> TrainState:
 
 
 def _narrow_leaf(name: str, leaf: torch.Tensor, index, cfg,
-                 dtype: torch.dtype, acc=None) -> torch.Tensor:
+                 dtype: torch.dtype, acc=None, key=None) -> torch.Tensor:
     """One leaf (or layer slice) of the compute copy: narrowed at its
-    config (through B7 with its stats into `acc` when given), cast to the
-    compute dtype when the leaf is a matrix (as the reference casts:
-    stacked [L, D] norm scales too), a fresh autograd leaf."""
+    config (through B7 with its stats into `acc` when given) on the
+    slice's stream of `key`, cast to the compute dtype when the leaf is a
+    matrix (as the reference casts: stacked [L, D] norm scales too), a
+    fresh autograd leaf."""
     p = leaf if index is None else leaf[index]
     c = _weight_cfg(cfg, name, leaf)
     if c is not None:
-        p = bfp.quantize_weight(p, c) if acc is None else acc.add(
-            p, c.mantissa_bits, bfp.weight_tile_shape(p.ndim, c.tile))
+        k = param_key(key, name, c, index)
+        p = quantize_leaf(p, c, False, k) if acc is None else acc.add(
+            p, c.mantissa_bits, bfp.weight_tile_shape(p.ndim, c.tile),
+            key=k)
     return p.to(dtype if leaf.ndim >= 2 else p.dtype,
                 copy=True).requires_grad_()
 
 
-def _narrow_copy(master, cfg, dtype, stats=None):
+def _narrow_copy(master, cfg, dtype, stats=None, key=None):
     """The compute copy with "layers" as a list of per-layer dicts, so each
     layer's weights get their own gradients. With a `stats` dict, every
     BFP weight is narrowed through B7 and its `TensorStats` (over all its
-    layer slices) lands in stats[name]."""
+    layer slices) lands in stats[name]. `key` (an int) rounds the
+    stochastic weights, slice i of a stacked leaf on its own stream."""
     accs = {}
 
     def acc(name, leaf):
@@ -113,10 +126,10 @@ def _narrow_copy(master, cfg, dtype, stats=None):
         if k == "layers":
             L = next(iter(v.values())).shape[0]
             out[k] = [{n: _narrow_leaf(f"layers/{n}", t, i, cfg, dtype,
-                                       acc(f"layers/{n}", t))
+                                       acc(f"layers/{n}", t), key)
                        for n, t in v.items()} for i in range(L)]
         else:
-            out[k] = _narrow_leaf(k, v, None, cfg, dtype, acc(k, v))
+            out[k] = _narrow_leaf(k, v, None, cfg, dtype, acc(k, v), key)
     if stats is not None:
         stats.update((n, accs[n].finish()) for n in sorted(accs))
     return out
@@ -149,26 +162,21 @@ def _stack_grads(paths, grads: list):
     return out
 
 
-def _nearest_only(seg: ResolvedPolicy) -> None:
-    if not seg.is_fp32 and seg.any_stochastic:
-        raise NotImplementedError(
-            "stochastic rounding in training (per-parameter narrowing "
-            "streams) comes with ROADMAP A5")
-
-
 def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
                     taps=None, device=None):
-    """Returns train_step(state, batch) -> (state, metrics) for one static
-    precision segment (None, an HBFPConfig or a ResolvedPolicy). With
+    """Returns train_step(state, batch, key=None) -> (state, metrics) for
+    one static precision segment (None, an HBFPConfig or a
+    ResolvedPolicy); a stochastic segment needs an int `key`. With
     grad_accum > 1 the batch leaves are [A, ...] microbatches and the mean
     grads accumulate in f32. `taps` (a `numerics.TapConfig`) makes this
     the telemetry variant: metrics gain "numerics", per-parameter
     `TensorStats` of the weight narrowing ("weights") and the grads at the
     wgrad width ("grads") and the activation taps ("acts"), all through
     B7; the training values are bit-identical to taps=None.
-    `train_step.grads(state, batch)` -> (loss, metrics, grads) runs steps
-    1 and 2 alone and returns the grads in the master's layout."""
+    `train_step.grads(state, batch, key=None)` -> (loss, metrics, grads)
+    runs steps 1 and 2 alone and returns the grads in the master's
+    layout."""
     dev = resolve_device(device)
     compute_dtype = dtype_of(arch.dtype)
     seg = as_segment(hbfp, backend=arch.kernel_backend)
@@ -177,12 +185,14 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
     # config and the weight-tree config (repro/train/train_step.py)
     if seg.is_fp32:
         act_cfg = param_cfg = None
+        stochastic = False
     elif seg.has_overrides or seg.global_cfg is None:
         # per-layer widths are resolved by the narrowing: the matmuls must
         # not re-quantize a widened layer at the global width
         act_cfg = None if seg.global_cfg is None else \
             seg.global_cfg.with_(requantize_weights=False)
         param_cfg = seg
+        stochastic = seg.any_stochastic
     else:
         # uniform precision: the sim path skips the idempotent weight
         # re-quantization, the kernel path keeps it (integral mantissas)
@@ -195,7 +205,7 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             param_cfg = ResolvedPolicy(global_cfg=param_cfg,
                                        role_widths=seg.role_widths,
                                        backend=backend)
-    _nearest_only(seg)
+        stochastic = seg.global_cfg.rounding == "stochastic"
     exec_seg = ResolvedPolicy(global_cfg=act_cfg,
                               role_widths=seg.role_widths, backend=backend)
     if taps is not None and param_cfg is None:
@@ -203,8 +213,18 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
     act_tap = taps is not None and taps.acts and grad_accum == 1 \
         and act_cfg is not None
 
-    def loss_and_grads(narrow, batch):
-        ctx = Ctx(policy=exec_seg, device=dev, act_tap=act_tap)
+    def step_keys(key):
+        """(narrowing key, loss and update key) of a step, as the
+        reference's: the narrowing folds 0x5EED."""
+        if not stochastic:
+            return None, None
+        if key is None:
+            raise ValueError("stochastic rounding requires a key: "
+                             "train_step(state, batch, key)")
+        return fold_in(key, 0x5EED), key
+
+    def loss_and_grads(narrow, batch, key):
+        ctx = Ctx(policy=exec_seg, key=key, device=dev, act_tap=act_tap)
         leaves = [t for _, t in _leaves(narrow)]
         if grad_accum == 1:
             loss, metrics = loss_fn(narrow, batch, arch, ctx, device=dev)
@@ -226,19 +246,21 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             loss = loss + la.detach() / grad_accum
         return loss, {"loss": loss}, acc
 
-    def grads(state: TrainState, batch, weight_stats=None):
+    def grads(state: TrainState, batch, key=None, weight_stats=None):
+        nkey, key = step_keys(key)
         narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
-                              weight_stats)
-        loss, metrics, gs = loss_and_grads(narrow, batch)
+                              weight_stats, nkey)
+        loss, metrics, gs = loss_and_grads(narrow, batch, key)
         paths = [p for p, _ in _leaves(narrow)]
         del narrow
         return loss, metrics, _stack_grads(paths, gs)
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, key=None):
         numerics = {}
         if taps is not None and taps.weights:
             numerics["weights"] = {}
-        _, metrics, gs = grads(state, batch, numerics.get("weights"))
+        _, metrics, gs = grads(state, batch, key, numerics.get("weights"))
+        ukey = step_keys(key)[1]
         if "act_stats" in metrics:
             numerics["acts"] = metrics.pop("act_stats")
         if taps is not None and taps.grads:
@@ -247,7 +269,7 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             gs, state.opt, state.params, lr=schedule,
             weight_decay=weight_decay, grad_clip=grad_clip,
             apply=lambda n, leaf, i, u: apply_update_(n, leaf, i, u,
-                                                      param_cfg))
+                                                      param_cfg, ukey))
         metrics = dict(metrics)
         metrics["lr"] = schedule(opt.step) if callable(schedule) \
             else torch.tensor(schedule, dtype=torch.float32)
@@ -282,9 +304,10 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
     schedule, per-layer and per-role widths, the controller loop and the
     kernel backend.
 
-    Returns train_step(state, batch) -> (state, metrics), a host
-    dispatcher over step variants cached per (resolved segment ⊕
-    controller overrides, telemetry):
+    Returns train_step(state, batch, key=None) -> (state, metrics), a
+    host dispatcher over step variants cached per (resolved segment ⊕
+    controller overrides, telemetry); the int `key` reaches every variant
+    and is needed by a stochastic one:
 
       * `tap` (a `numerics.TapConfig`) runs the telemetry variant on its
         cadence; metrics gain the "numerics" stats (kept in metrics when
@@ -300,7 +323,8 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
     metrics gain "mantissa_bits" (the segment's global width, 0 for fp32)
     and, with a controller, "n_overrides" and "min_mantissa_bits".
     Attributes: `.policy`, `.variants`, `.controller`, `.buffer`, `.tap`,
-    and `.grads(state, batch)` (steps 1-2 of the variant at state.step).
+    and `.grads(state, batch, key=None)` (steps 1-2 of the variant at
+    state.step).
     Extra kwargs go to `make_train_step`."""
     rec = recorder if recorder is not None else NULL_RECORDER
     pol = as_policy(policy, backend=arch.kernel_backend)
@@ -315,8 +339,6 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
             controller.recorder = rec
     resolve_device(device)       # raise now when the card is missing
     segments = {i: pol.resolve_segment(i) for i in range(pol.num_segments)}
-    for seg in segments.values():
-        _nearest_only(seg)
     variants = {}
 
     def segment(step: int) -> ResolvedPolicy:
@@ -343,11 +365,11 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
                      n_variants=len(variants))
         return fn
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, key=None):
         step = int(state.step)
         seg = segment(step)
         telemetry = tap is not None and tap.collect_at(step)
-        state, metrics = variant(seg, telemetry, step)(state, batch)
+        state, metrics = variant(seg, telemetry, step)(state, batch, key)
         if telemetry and (controller is not None or rec.enabled):
             numerics = (metrics.pop("numerics", None)
                         if controller is not None
@@ -375,9 +397,9 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
             metrics["min_mantissa_bits"] = torch.tensor(float(min(widths)))
         return state, metrics
 
-    def grads(state: TrainState, batch):
+    def grads(state: TrainState, batch, key=None):
         step = int(state.step)
-        return variant(segment(step), False, step).grads(state, batch)
+        return variant(segment(step), False, step).grads(state, batch, key)
 
     train_step.policy = pol
     train_step.variants = variants

@@ -12,6 +12,9 @@
   * precision: `hbfp` (HBFPConfig, PrecisionSchedule or PrecisionPolicy)
     is stored in checkpoint meta; pair a policy with `train.make_step`,
     which dispatches on state.step, so a resume lands in its segment;
+  * stochastic rounding: step s gets the key
+    `fold_in(fold_in(0, seed), s)`, a pure function of (seed, step), so
+    a resumed run draws exactly what the uninterrupted run drew;
   * adaptive precision: `controller=` (the one passed to `make_step`)
     has its state and decision log stored under "numerics_controller" and
     restored on resume, so the restarted run replays its decisions;
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels.common import fold_in
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.train.train_step import TrainState
 
@@ -42,7 +46,7 @@ class Trainer:
                  data_fn: Callable[[int], Any],
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  keep: int = 3, hbfp=None, controller=None, recorder=None,
-                 background_ckpt: bool = False, device=None):
+                 seed: int = 0, background_ckpt: bool = False, device=None):
         self.device = resolve_device(device)
         check_on(init_state.params["head_w"], self.device, "init_state")
         self.train_step = train_step
@@ -55,6 +59,7 @@ class Trainer:
         self.keep = keep
         self.hbfp = hbfp
         self.controller = controller
+        self.seed = seed
         self.background_ckpt = background_ckpt
         self.state = init_state
         self.start_step = init_state.step
@@ -99,10 +104,12 @@ class Trainer:
                 self._join()
                 raise RuntimeError(f"simulated preemption at step {step}")
             batch = self.data_fn(step)
+            key = fold_in(fold_in(0, self.seed), step)
             log_now = bool(log_every) and step % log_every == 0
             scalars = {}
             with rec.span("train/step", step=step) as sp:
-                self.state, metrics = self.train_step(self.state, batch)
+                self.state, metrics = self.train_step(self.state, batch,
+                                                      key)
                 if log_now:
                     # scalars only (a telemetry step's "numerics" is a
                     # nested stats dict); float() waits for the step's

@@ -2,7 +2,7 @@
 package: bit-exact (np.array_equal) at nearest rounding, including
 pad-and-slice tile shapes, and on the xorshift stream's int32
 wraparound; the sim path's stochastic rounding is held statistically,
-since torch cannot replay jax's threefry draws."""
+since the port draws from the xorshift stream, not jax's threefry."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,11 +165,10 @@ def test_quantize_block_bit_exact(stochastic, m):
 
 
 def test_stochastic_rounding_unbiased():
-    """Mirrors tests/test_bfp.py::test_stochastic_rounding_unbiased with a
-    torch.Generator in place of the jax key."""
+    """Mirrors tests/test_bfp.py::test_stochastic_rounding_unbiased with an
+    int key in place of the jax key."""
     x = torch.full((200_000,), 0.37)
-    g = torch.Generator().manual_seed(1)
-    q = tbfp.quantize(x, 4, (None,), "stochastic", g)
+    q = tbfp.quantize(x, 4, (None,), "stochastic", tcommon.fold_in(0, 1))
     assert abs(float(q.mean()) - 0.37) < 2e-3
     ref = jbfp.quantize(jnp.full((200_000,), 0.37), 4, (None,),
                         "stochastic", jax.random.key(1))

@@ -166,8 +166,20 @@ def test_pack_unpack_match_reference(shape, tile):
 
 
 def test_pack_rejects_what_b7_cannot_do():
-    x = torch.from_numpy(_x((4, 8, 8), 2))
-    with pytest.raises(NotImplementedError, match="A5"):
+    """Stochastic packing runs B7 at the key's seed and packs the
+    mantissas of `quantize(..., "stochastic", key)`, also for a batch of
+    slices whose tiles do not divide the rows (padded to whole tile rows
+    for one B7 stream); it needs a key. B7 tiles the trailing dims only."""
+    for shape, ts in (((4, 8, 8), (1, 8, 8)), ((3, 20, 30), (1, 8, 8))):
+        x = torch.from_numpy(_x(shape, 3))
+        bq.reset_counts()
+        p = bfp.pack(x, 8, ts, rounding="stochastic", key=12345)
+        assert bq.bfp_quantize.plain_calls == 1
+        assert torch.equal(bfp.unpack(p), bfp.quantize(x, 8, ts,
+                                                       "stochastic", 12345))
+        assert not torch.equal(bfp.unpack(p), bfp.quantize(x, 8, ts))
+    with pytest.raises(ValueError, match="key"):
         bfp.pack(x, 8, (1, 8, 8), rounding="stochastic")
+    x = torch.from_numpy(_x((4, 8, 8), 2))
     with pytest.raises(ValueError, match="trailing"):
         bfp.pack(x, 8, (2, 8, 8))

@@ -180,9 +180,9 @@ def test_trainer_timing_deterministic_with_manual_clock(setup):
         clk.advance(0.25)
         return pipe.batch(i)
 
-    def stepped(s, b):
+    def stepped(s, b, key):
         clk.advance(0.1)
-        return step(s, b)
+        return step(s, b, key)
 
     lines = []
     Trainer(train_step=stepped, init_state=_state(arch), data_fn=data,

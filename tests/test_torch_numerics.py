@@ -125,7 +125,13 @@ def test_stats_track_width_outliers_and_identity():
     x = torch.from_numpy(_x((32, 32), 0))
     q, s = quantize_with_stats(x, 24, (None, None))
     assert torch.equal(q, x) and float(s.sqnr_db) == 200.0
-    with pytest.raises(NotImplementedError, match="A5"):
+    # stochastic: B7 at the key's seed, the tensor of bfp.quantize with
+    # the same key, and a key is needed
+    q, s = quantize_with_stats(x, 4, (8, 8), "stochastic", 77)
+    assert torch.equal(q, bfp.quantize(x, 4, (8, 8), "stochastic", 77))
+    assert not torch.equal(q, quantize_with_stats(x, 4, (8, 8))[0])
+    assert float(s.n) == x.numel() and float(s.sqnr_db) < 200.0
+    with pytest.raises(ValueError, match="key"):
         quantize_with_stats(x, 4, (8, 8), "stochastic")
 
 

@@ -133,9 +133,10 @@ def test_unported_parts_raise_with_their_roadmap_item():
 
 
 def test_unported_training_parts_raise_with_their_roadmap_item(tmp_path):
-    """Stochastic rounding in training still raises (A5); the controller
-    loop (A10) runs a step and the Trainer's checkpoints (A8) save and
-    resume, which raised until they were ported."""
+    """Stochastic rounding in training (A5) runs a step from a key and
+    refuses a step without one; the controller loop (A10) runs a step and
+    the Trainer's checkpoints (A8) save and resume: each raised until it
+    was ported."""
     from repro_torch.configs import get_arch
     from repro_torch.data import batch_for_arch
     from repro_torch.numerics import PrecisionController, TapConfig
@@ -144,12 +145,16 @@ def test_unported_training_parts_raise_with_their_roadmap_item(tmp_path):
     arch = get_arch("gemma2-2b").smoke()
     sched = make_schedule("constant", base_lr=1e-3, warmup_steps=0,
                           total_steps=1)
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_step(arch, "8~stochastic", sched, device="cpu")
+    data = lambda i: batch_for_arch(arch, 2, 8, step=i, device="cpu")
+    step = make_step(arch, "8~stochastic", sched, device="cpu")
+    state, metrics = step(init_train_state(0, arch, device="cpu"), data(0),
+                          12345)
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    with pytest.raises(ValueError, match="key"):
+        step(init_train_state(0, arch, device="cpu"), data(0))
     ctrl = PrecisionController(base_bits=8)
     step = make_step(arch, "8", sched, controller=ctrl,
                      tap=TapConfig(cadence=1), device="cpu")
-    data = lambda i: batch_for_arch(arch, 2, 8, step=i, device="cpu")
     state, metrics = step(init_train_state(0, arch, device="cpu"), data(0))
     assert state.step == 1 and torch.isfinite(metrics["loss"])
     assert len(step.buffer) == 1 and "n_overrides" in metrics
