@@ -82,7 +82,25 @@ Phases (any failure exits non-zero before the result line):
                 a packed save of the master that loads back bit for bit,
                 its B7 launches banded (needs ~25 GB of free disk under
                 build/);
-  9. kernels  — B1 against its plain PyTorch version on the card at the
+   8b. accuracy — the paper's claim, loss against fp32 (ROADMAP A8): the
+                13 rows of benchmarks/design_space.py's grid at yi-9b
+                smoke, 40 steps from the port's init and data, on the card
+                and on the CPU (a second process, at the same time), each
+                row's tail loss (mean of the last 5) and delta against
+                fp32 within the CPU test's tolerance (0.01 at fp32 and
+                m 8, 0.06 at m 4), with the step at which each row's
+                card and CPU losses part and the spread of their
+                per-step gaps; then minicpm-2b (all 40 layers) and
+                phi3-mini (16 of 32 layers) at full width, 40 steps of
+                1 x 4096 markov tokens at LR 3e-4 on each family's
+                schedule under fp32, "8; backend=pallas", HBFPConfig(8,
+                16, tile=24) and HBFPConfig(4, 16, tile=24) on pallas:
+                loss curves, deltas, step times and peaks, fp32 falling,
+                HBFP8 tile 24's delta within max(0.1, 3 x its smoke delta
+                on the card) and no larger than HBFP4 tile 24's plus
+                0.06 (the m 4 tolerance), exact B1-B6 launches,
+                B1/B2/B4-B6 on int8 wgmma and B3 on bf16 wgmma;
+ 9. kernels  — B1 against its plain PyTorch version on the card at the
                 yi-9b serving shapes;
  10. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
@@ -112,6 +130,7 @@ bit for bit against that tree's plain version, then timed in the launch
 loop and on the device alone (a CUDA-graph replay), one JSON line a case.
 Run on two checkouts in turns in one call (parent, change, change,
 parent) it compares them on one card.
+
 """
 from __future__ import annotations
 
@@ -331,6 +350,34 @@ ADAPT_DISK_GB = 25.0
 # exponent spread within 2
 ADAPT_TOL = dict(sqnr0=1e-3, frac0=1e-6, sqnr=1.5, frac=0.05, spread=2.0,
                  loss=2e-3)
+
+
+# accuracy: the paper's claim, loss against fp32 (ROADMAP A8).
+# (a) the design-space grid of benchmarks/design_space.py at yi-9b smoke,
+# card against CPU: (name, mantissa bits, spec); spec a policy string or
+# (block, tile) for HBFPConfig(m, 16).with_block(block) / tile=tile
+ACC_STEPS = 40
+ACC_ROWS = (("fp32", 0, None),) + tuple(
+    (f"hbfp{m}_b{b or 'tile'}", m, (b, None))
+    for m in (4, 8) for b in (16, 32, 64, None)) + (
+    ("sched8_b16_b64@50%", 8, "8; b=16@0,b=64@50%"),
+    ("hbfp4_b16_pallas", 4, "4; b=16; backend=pallas"),
+    ("hbfp4_16_t24", 4, (None, 24)), ("hbfp8_16_t24", 8, (None, 24)))
+# (b) full width: (family, layers; 0 = all), 1 x 4096 markov tokens, one
+# LR a family on its own schedule, four policies (name, spec, (m, tile))
+ACC_FULL = (("minicpm-2b", 0), ("phi3-mini-3.8b", 16))
+ACC_TOKENS = 4096
+ACC_LR = 3e-4
+ACC_WARMUP = 4
+ACC_POLICIES = (("fp32", "fp32", None),
+                ("hbfp8_t128", "8; backend=pallas", None),
+                ("hbfp8_16_t24", "8; backend=pallas", (8, 24)),
+                ("hbfp4_16_t24", "4; backend=pallas", (4, 24)))
+ACC_BOUND_ROW = "hbfp8_16_t24"     # whose full-width delta is bounded
+# ... and held no worse than the 4-bit control's plus the noise of an m 4
+# tail (the CPU test's m 4 tolerance): a check the bound alone cannot make
+ACC_CONTROL_ROW = "hbfp4_16_t24"
+ACC_CONTROL_NOISE = 0.06
 
 
 def log(*a):
@@ -2446,6 +2493,240 @@ def phase_adaptive_full(card: str):
                 launches=_sum_counts(rows_a))
 
 
+def _acc_tol(m: int) -> float:
+    """The CPU test's tolerance of a row's tail loss and delta
+    (tests/test_torch_design_space.py: tail_tol)."""
+    return 0.06 if m == 4 else 0.01
+
+
+def _acc_policy(spec, m, total_steps):
+    from repro_torch.core import HBFPConfig
+    from repro_torch.precision import as_policy
+    if spec is not None and not isinstance(spec, str):
+        block, tile = spec
+        spec = HBFPConfig(m, 16, tile=tile) if tile \
+            else HBFPConfig(m, 16).with_block(block)
+    return as_policy(spec, total_steps=total_steps)
+
+
+def _tail(losses) -> float:
+    return sum(losses[-5:]) / 5
+
+
+def _acc_smoke_losses(dev: str) -> dict:
+    """(a)'s rows on `dev` ("cuda" or "cpu"): {row: its 40 losses} at
+    yi-9b smoke (bf16) from the port's own init (drawn on the CPU, copied
+    to the card) and data."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train import TrainState, init_train_state, make_step
+    arch = get_arch("yi-9b").smoke()
+    sched = make_schedule("constant", base_lr=2e-3, warmup_steps=2,
+                          total_steps=ACC_STEPS)
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(dev)
+    pipe = SyntheticLM(arch.vocab_size, 33, 8, seed=0, device=dev)
+    losses = {}
+    for name, m, spec in ACC_ROWS:
+        state = init_train_state(0, arch, device="cpu")
+        if dev != "cpu":
+            state = TrainState(to(state.params), OptState(
+                0, to(state.opt.mu), to(state.opt.nu)), 0)
+        step = make_step(arch, _acc_policy(spec, m, ACC_STEPS), sched,
+                         device=dev)
+        ls = []
+        for i in range(ACC_STEPS):
+            state, met = step(state, pipe.batch(i))
+            ls.append(float(met["loss"]))
+        losses[name] = ls
+    return losses
+
+
+def _acc_smoke_check(by_dev: dict, counts: dict, routes: dict) -> dict:
+    """(a)'s verdict: each row's tail loss and delta on the card within
+    the CPU test's tolerance of the CPU's. `by_dev`: {dev: {row:
+    losses}}."""
+    losses = {(d, n): ls for d, rows in by_dev.items()
+              for n, ls in rows.items()}
+    rows, bad = [], []
+    fp = {d: _tail(losses[(d, "fp32")]) for d in ("cuda", "cpu")}
+    for name, m, _ in ACC_ROWS:
+        tg, tc = (_tail(losses[(d, name)]) for d in ("cuda", "cpu"))
+        dg, dc = tg - fp["cuda"], tc - fp["cpu"]
+        tol = _acc_tol(m)
+        ok = all(map(lambda v: v == v and abs(v) < 1e30,
+                     losses[("cuda", name)])) \
+            and abs(tg - tc) <= tol and abs(dg - dc) <= tol
+        # where the two runs part, and how far a step's gap strays after
+        gaps = [a - b for a, b in zip(losses[("cuda", name)],
+                                      losses[("cpu", name)])]
+        parts = next((i for i, g in enumerate(gaps) if abs(g) > 1e-3), None)
+        late = gaps[10:]
+        mean = sum(late) / len(late)
+        sd = (sum((g - mean) ** 2 for g in late) / len(late)) ** 0.5
+        log(f"[accuracy smoke] {name:20s} tail loss card {tg:.4f} cpu "
+            f"{tc:.4f} (gap {tg - tc:+.4f}), delta card {dg:+.4f} cpu "
+            f"{dc:+.4f} (tol {tol}); parts at step {parts}, steps 10-39 "
+            f"gap mean {mean:+.4f} sd {sd:.4f}"
+            f"{'' if ok else '  <-- MISS'}")
+        rows.append(dict(name=name, m=m, tail_card=tg, tail_cpu=tc,
+                         delta_card=dg, delta_cpu=dc, tol=tol,
+                         parts_at=parts, gap_mean=mean, gap_sd=sd,
+                         losses_card=losses[("cuda", name)],
+                         losses_cpu=losses[("cpu", name)]))
+        if not ok:
+            bad.append(name)
+    if bad:
+        fail(f"accuracy smoke: card rows {bad} outside the CPU test's "
+             f"tolerance of the CPU losses")
+    return dict(rows=rows, launches=counts, routes=routes)
+
+
+def _acc_full(card: str, family: str, n_layers: int, bound: float) -> dict:
+    """(b): `family` at full width (n_layers > 0 cuts the depth), 40 steps
+    of 1 x 4096 markov tokens on the family's own LR schedule at ACC_LR
+    under ACC_POLICIES (fp32 first) from one init: loss curves, deltas
+    against fp32, step times, peak memory, exact launch counts and routes
+    of B1-B6."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import HBFPConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import make_schedule
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.precision import parse_policy
+    from repro_torch.train import init_train_state, make_step
+    full = get_arch(family)
+    arch = dataclasses.replace(full, n_layers=n_layers) if n_layers \
+        else full
+    L = arch.n_layers
+    tag = f"[accuracy {family}]"
+    depth = (f"{L} of {full.n_layers} layers (depth cut)"
+             if L < full.n_layers else f"{L} layers (no depth cut)")
+    sched = make_schedule(arch.lr_schedule, base_lr=ACC_LR,
+                          warmup_steps=ACC_WARMUP, total_steps=ACC_STEPS)
+    pipe = SyntheticLM(arch.vocab_size, ACC_TOKENS + 1, 1, seed=0)
+    batches = [pipe.batch(i) for i in range(ACC_STEPS)]
+    # seven projections a layer, forward and recompute, and the head once
+    # a CE chunk, recomputed too when the tokens take more than one chunk
+    lc = arch.loss_chunk
+    n = ACC_TOKENS // lc if lc and ACC_TOKENS > lc \
+        and ACC_TOKENS % lc == 0 else 1
+    per = 7 * L + n
+    want = {"hbfp_matmul_fwd": ACC_STEPS * (14 * L + (2 * n if n > 1
+                                                      else 1)),
+            "hbfp_dgrad": ACC_STEPS * per, "hbfp_wgrad": ACC_STEPS * per,
+            "hbfp_flash_fwd": ACC_STEPS * 2 * L,
+            "hbfp_flash_dq": ACC_STEPS * L, "hbfp_flash_dkv": ACC_STEPS * L}
+    runs, n_params = {}, 0
+    for name, spec, base in ACC_POLICIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(0, arch)
+        n_params = sum(t.numel() for _, t in named_leaves(state.params))
+        pol = spec if base is None else parse_policy(
+            spec, base=HBFPConfig(base[0], 16, tile=base[1]))
+        step = make_step(arch, pol, sched)
+        _reset_counts()
+        losses, times = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            losses.append(float(met["loss"]))
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts, plain = _counts()
+        routes = _routes()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step
+        launched = {k: counts[k] for k in want}
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        runs[name] = dict(spec=spec, tile=None if base is None else base[1],
+                          losses=losses, tail=_tail(losses),
+                          step_s=times, median_step_s=step_s,
+                          tokens_per_s=ACC_TOKENS / step_s, peak_gib=peak,
+                          launches=launched, routes=routes, plain=plain)
+        log(f"{tag} {name}: losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"{tag} {name}: tail {_tail(losses):.4f}, median step "
+            f"{step_s:.3f} s (first {times[0]:.3f} s), "
+            f"{ACC_TOKENS / step_s:.0f} tokens/s, peak {peak:.2f} GiB | "
+            f"{card}")
+        if not all(map(lambda v: v == v and abs(v) < 1e30, losses)):
+            fail(f"{family} {name}: non-finite loss {losses}")
+        if spec == "fp32":
+            if any(launched.values()) or plain:
+                fail(f"{family} fp32 ran HBFP kernels: {launched}, plain "
+                     f"{plain}")
+            continue
+        log(f"{tag} {name}: launches over {ACC_STEPS} steps {launched} "
+            f"(expected {want}); B1-B6 by route {routes}")
+        if launched != want or plain:
+            fail(f"{family} {name}: launch counts {launched} != {want} or "
+                 f"plain calls {plain}")
+        if not (_all_on({k: routes[k] for k in ROUTED_KERNELS}, "int8_wgmma")
+                and _train_routes_ok(routes)):
+            fail(f"{family} {name}: a launch left its tensor-core route: "
+                 f"{routes}")
+    fp = runs["fp32"]
+    for name in runs:
+        runs[name]["delta"] = runs[name]["tail"] - fp["tail"]
+    log(f"{tag} full width: {depth}, d_model {arch.d_model}, "
+        f"{arch.n_heads}/{arch.n_kv_heads} heads x {arch.hd}, d_ff "
+        f"{arch.d_ff}, vocab {arch.vocab_size}, {n_params / 1e9:.3f} B "
+        f"params, lr {ACC_LR} {arch.lr_schedule} (warm-up {ACC_WARMUP}); "
+        f"delta vs fp32 (tail of 5) "
+        + ", ".join(f"{n} {r['delta']:+.4f}" for n, r in runs.items())
+        + f"; bound on {ACC_BOUND_ROW} {bound:.4f}")
+    if not _tail(fp["losses"]) < sum(fp["losses"][:5]) / 5:
+        fail(f"{family}: the fp32 loss did not fall {fp['losses']}")
+    if abs(runs[ACC_BOUND_ROW]["delta"]) > bound:
+        fail(f"{family}: {ACC_BOUND_ROW} delta "
+             f"{runs[ACC_BOUND_ROW]['delta']:+.4f} outside the bound "
+             f"{bound:.4f}")
+    d8, d4 = runs[ACC_BOUND_ROW]["delta"], runs[ACC_CONTROL_ROW]["delta"]
+    if d8 > d4 + ACC_CONTROL_NOISE:
+        fail(f"{family}: {ACC_BOUND_ROW} delta {d8:+.4f} above "
+             f"{ACC_CONTROL_ROW}'s {d4:+.4f} + {ACC_CONTROL_NOISE}")
+    return dict(family=family, layers=L, params=n_params,
+                lr=ACC_LR, schedule=arch.lr_schedule, bound=bound,
+                runs=runs)
+
+
+def phase_accuracy(card: str) -> dict:
+    """The paper's accuracy claim on the port: (a) the smoke grid on the
+    card, (b) minicpm-2b and phi3-mini at full width, the bound on HBFP8
+    tile 24's delta max(0.1, 3x its smoke delta on the card) and HBFP8
+    tile 24 no worse than HBFP4 tile 24 plus ACC_CONTROL_NOISE; (a)'s CPU
+    half runs in a second process beside both and is checked last."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        on_cpu = pool.submit(_acc_smoke_losses, "cpu")
+        _reset_counts()
+        by_dev = {"cuda": _acc_smoke_losses("cuda")}
+        counts, _ = _counts()
+        routes = _routes()
+        log(f"[accuracy smoke] {len(ACC_ROWS)} rows x {ACC_STEPS} steps on "
+            f"the card: {time.perf_counter() - t0:.1f} s")
+        d8 = _tail(by_dev["cuda"][ACC_BOUND_ROW]) \
+            - _tail(by_dev["cuda"]["fp32"])
+        bound = max(0.1, 3 * abs(d8))
+        full = {f: _acc_full(card, f, n, bound) for f, n in ACC_FULL}
+        by_dev["cpu"] = on_cpu.result()
+    log(f"[accuracy smoke] the CPU half (a second process) done by "
+        f"{time.perf_counter() - t0:.1f} s")
+    smoke = _acc_smoke_check(by_dev, counts, routes)
+    return dict(smoke=smoke, full=full, bound=bound)
+
+
 def _route_sum(rows, kernel: str) -> dict:
     """A kernel's launches by route summed over the recorded steps."""
     return {rt: sum(r["launches"].get(f"{kernel}/{rt}", 0) for r in rows)
@@ -2608,6 +2889,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     adapt = phase_adaptive_full(card)
     log(f"[time] adaptive training done at {time.perf_counter() - t0:.1f} s")
+    acc = phase_accuracy(card)
+    log(f"[time] accuracy done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
     phase_model()
@@ -2620,24 +2903,37 @@ def main() -> int:
                    "quantize_cases": quant, "train_smoke": train_smoke,
                    "adaptive_smoke": adapt_smoke, "train_full": train,
                    "train_full_yi": train_yi, "train_sr": train_sr,
-                   "adaptive_full": adapt,
+                   "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
     src = "src/repro_torch/kernels/csrc/"
     sr = train_sr["train"]
+    # the accuracy phase's kernel runs: the smoke grid (its one pallas
+    # row) and each family's three HBFP policies at full width
+    acc_runs = {"accuracy_smoke": [acc["smoke"]]}
+    for fam, key in (("minicpm-2b", "accuracy_minicpm"),
+                     ("phi3-mini-3.8b", "accuracy_phi3")):
+        acc_runs[key] = [r for r in acc["full"][fam]["runs"].values()
+                         if r["spec"] != "fp32"]
+    acc_paths = lambda k: {p: sum(r["launches"][k] for r in rs)
+                           for p, rs in acc_runs.items()}
+    acc_route = lambda k, r: sum(run["routes"][k][r]
+                                 for rs in acc_runs.values() for run in rs)
     by_path = lambda k: {"train_gemma2": train["launches"][k],
                          "train_yi": train_yi["launches"][k],
                          "train_sr_gemma2": sr["launches"][k],
-                         "adaptive_yi": adapt["launches"][k]}
+                         "adaptive_yi": adapt["launches"][k],
+                         **acc_paths(k)}
     b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
-    # main-path launches by route: training and the adaptive run counted
-    # per route; every served launch was checked to be bf16 wgmma
+    # main-path launches by route: training, the adaptive run and the
+    # accuracy runs counted per route; every served launch was checked to
+    # be bf16 wgmma
     by_route = lambda k, served=0: {
         r: train["routes"][k][r] + train_yi["routes"][k][r]
         + sr["routes"][k][r] + adapt["launches"][f"{k}/{r}"]
-        + (served if r == "bf16_wgmma" else 0)
+        + acc_route(k, r) + (served if r == "bf16_wgmma" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
                           by_route("hbfp_matmul_fwd", serve_launches))
@@ -2672,9 +2968,11 @@ def main() -> int:
     fref = "src/repro/kernels/hbfp_flash_attn.py:"
     flash_route = lambda k: {r: train_yi["routes"][k][r]
                              + adapt["launches"][f"{k}/{r}"]
+                             + acc_route(k, r)
                              for r in ("int8_wgmma", "cuda_core")}
     b456 = [_flash_entry(k, flash, {"train_yi": train_yi["launches"][k],
-                                    "adaptive_yi": adapt["launches"][k]},
+                                    "adaptive_yi": adapt["launches"][k],
+                                    **acc_paths(k)},
                          fref + line,
                          src + ("hbfp_flash_fwd_sm90.cuh"
                                 if k == "hbfp_flash_fwd"

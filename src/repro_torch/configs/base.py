@@ -98,7 +98,7 @@ class ArchConfig:
         )
 
 
-_REGISTRY = ("gemma2_2b", "yi_9b")
+_REGISTRY = ("gemma2_2b", "yi_9b", "minicpm_2b", "phi3_mini_3_8b")
 
 
 def arch_ids() -> Tuple[str, ...]:

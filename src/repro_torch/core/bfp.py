@@ -282,3 +282,36 @@ def unpack(p: PackedBFP, dtype=torch.float32) -> torch.Tensor:
     g = p.mantissa.reshape(grouped).to(torch.float32) * delta
     out = g.reshape(padded)[tuple(slice(0, d) for d in p.shape)]
     return out.to(dtype)
+
+
+# ----------------------------------------------------------------------------
+# Narrow floating point simulation (paper Table 1 baseline)
+# ----------------------------------------------------------------------------
+
+def ste(quantizer):
+    """Straight-through estimator wrapper: forward = quantizer(x),
+    backward = identity. Used by the narrow-FP training simulation (paper
+    Table 1): rounding has zero gradient almost everywhere, so without the
+    STE no format would train at all."""
+    def f(x):
+        return x + (quantizer(x) - x).detach()
+    return f
+
+
+def simulate_narrow_fp(x: torch.Tensor, mantissa_bits: int,
+                       exponent_bits: int) -> torch.Tensor:
+    """Simulate an FP format with the given mantissa/exponent widths
+    (mantissa_bits counts the implicit leading bit, as the paper does for
+    FP32 = 24-bit mantissa / 8-bit exponent): round half to even, flush
+    below the smallest normal 2^emin to zero, saturate at
+    (2 - 2^(1-m))·2^emax, cast back to x.dtype."""
+    xf = x.to(torch.float32)
+    e = _max_exponent(xf.abs())
+    # exponent range of an IEEE-like format with bias 2^(eb-1)-1
+    emax = 2 ** (exponent_bits - 1) - 1
+    emin = 1 - emax
+    delta = pow2(e.clamp(emin, emax) - mantissa_bits + 1)
+    q = torch.round(xf / delta) * delta
+    q = torch.where(e < emin, 0.0, q)
+    maxv = (2.0 - 2.0 ** (1 - mantissa_bits)) * 2.0 ** emax
+    return q.clamp(-maxv, maxv).to(x.dtype)

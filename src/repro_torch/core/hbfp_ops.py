@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
@@ -143,3 +144,46 @@ def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
     if wgrad_cfg == cfg:
         wgrad_cfg = None
     return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key)
+
+
+def hbfp_linear(x, w, b, cfg: Optional[HBFPConfig],
+                key: Optional[int] = None) -> torch.Tensor:
+    """Linear layer: BFP matmul + FP bias add (a bias add is not a dot
+    product)."""
+    y = hbfp_matmul(x, w, cfg, key)
+    if b is not None:
+        y = y + b
+    return y
+
+
+# ----------------------------------------------------------------------------
+# Convolution via im2col, for the paper's image models: the conv backward
+# passes reduce to the same three BFP matmuls through the im2col view.
+# ----------------------------------------------------------------------------
+
+def hbfp_conv2d(x: torch.Tensor, w: torch.Tensor, cfg: Optional[HBFPConfig],
+                key: Optional[int] = None, stride: int = 1,
+                padding: str = "SAME") -> torch.Tensor:
+    """NHWC conv, HWIO weights, as im2col + hbfp_matmul (the reference's
+    layouts, so weights carry across unchanged).
+
+    Weight tiles follow the paper ("for convolutional layers, we tile the
+    two outer feature-map dimensions of the weight matrices"): the im2col
+    view [cin*kh*kw, cout] makes those the two matrix dims. Patch features
+    are ordered (cin, kh, kw), as `jax.lax.conv_general_dilated_patches`
+    orders them. "SAME" pads (k//2, (k-1)//2) on each spatial axis at any
+    stride, as the reference does; torch's padding="same" would put an
+    even kernel's extra row on the other side."""
+    kh, kw, cin, cout = w.shape
+    n = x.shape[0]
+    if padding == "SAME":
+        x = F.pad(x, (0, 0, kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
+    # [n, ho, wo, cin, kh, kw]
+    patches = x.unfold(1, kh, stride).unfold(2, kw, stride)
+    ho, wo = patches.shape[1], patches.shape[2]
+    cols = patches.reshape(n * ho * wo, cin * kh * kw)
+    wmat = w.movedim(2, 0).reshape(cin * kh * kw, cout)
+    y = hbfp_matmul(cols, wmat, cfg, key)
+    return y.reshape(n, ho, wo, cout)

@@ -154,7 +154,7 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
     if arch.post_norms:
         a = rms_norm(a, lp["post1_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
-    x = x + arch.residual_scale * a
+    x = _residual(x, a, arch)
     h = rms_norm(x, lp["ln2_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
     f = gelu_ffn(h, lp, ctx) if arch.ffn_act == "geglu" \
@@ -162,7 +162,17 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
     if arch.post_norms:
         f = rms_norm(f, lp["post2_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
-    return x + arch.residual_scale * f, new_cache
+    return _residual(x, f, arch), new_cache
+
+
+def _residual(x, branch, arch: ArchConfig):
+    """x + residual_scale·branch, the scale rounded to the branch's dtype
+    first as jax rounds a Python scalar (ROADMAP C2, C14: minicpm's
+    1.4/√40 is not a bf16 number); a scale of 1 adds the branch as it is.
+    Filled on the device: a host scalar's copy would break graph capture."""
+    if arch.residual_scale == 1.0:
+        return x + branch
+    return x + branch.new_full((), arch.residual_scale) * branch
 
 
 def _embed_in(params, batch, arch: ArchConfig, device):
