@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # one CUDA device; builds the kernels
     python3 chip_smoke.py --b7-times TREE   # B7 of another checkout, timed
+    python3 chip_smoke.py --phase recurrent # device, build, recurrent only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -91,7 +92,7 @@ Phases (any failure exits non-zero before the result line):
                 m 8, 0.06 at m 4), with the step at which each row's
                 card and CPU losses part and the spread of their
                 per-step gaps; then minicpm-2b (all 40 layers) and
-                phi3-mini (16 of 32 layers) at full width, 40 steps of
+                phi3-mini (8 of 32 layers) at full width, 40 steps of
                 1 x 4096 markov tokens at LR 3e-4 on each family's
                 schedule under fp32, "8; backend=pallas", HBFPConfig(8,
                 16, tile=24) and HBFPConfig(4, 16, tile=24) on pallas:
@@ -118,6 +119,28 @@ Phases (any failure exits non-zero before the result line):
                 the graph, each request solo == crowded; one async
                 chunked-prefill request; the run-log through the port's
                 JSONLSink into chiprun_out/serve_run.jsonl;
+ 11b. recurrent — ROADMAP A12.1-2: hymba-1.5b (attention and a mamba
+                branch in parallel, sliding-window ring) and xlstm-350m
+                (mLSTM and sLSTM): (a) each smoke model's training step
+                and served trace (hymba paged and slab, xlstm slab) on
+                the card against the CPU; B1-B3 against their plain
+                versions at the shapes only these paths give them
+                (hymba's padded K 1664 and N 6528, xLSTM's N = 8 gate
+                projection, whose B2 takes the CUDA cores); (b) hymba
+                at full width and depth (32 layers, 1 x 4096 tokens) and
+                (c) xlstm (24 layers, 1 x 2048) trained as train-full
+                does: exact B1-B3 launches (9 projections a hybrid
+                layer, 4 an mLSTM and 2 an sLSTM layer, and the head),
+                B1/B2 on int8 wgmma (but xLSTM's gate dgrads), B3 on
+                bf16 wgmma; hymba's profiled step split into B1-B3, the
+                chunk scan, the sim attention and the rest, xlstm's
+                sLSTM loops timed over the counted steps; (d) both served
+                at full width (8 lanes, ctx_len 2048, 8 requests, one
+                of 1,500 tokens: hymba's chunked prefill through its
+                1,024-slot ring), hymba paged and slab, xlstm slab,
+                graphed and eager, then in lockstep: tokens, logits, KV
+                and recurrent states bit for bit; the run-log in
+                chiprun_out/recurrent_serve_run.jsonl;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -365,7 +388,7 @@ ACC_ROWS = (("fp32", 0, None),) + tuple(
     ("hbfp4_16_t24", 4, (None, 24)), ("hbfp8_16_t24", 8, (None, 24)))
 # (b) full width: (family, layers; 0 = all), 1 x 4096 markov tokens, one
 # LR a family on its own schedule, four policies (name, spec, (m, tile))
-ACC_FULL = (("minicpm-2b", 0), ("phi3-mini-3.8b", 16))
+ACC_FULL = (("minicpm-2b", 0), ("phi3-mini-3.8b", 8))
 ACC_TOKENS = 4096
 ACC_LR = 3e-4
 ACC_WARMUP = 4
@@ -696,7 +719,8 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
     for a layer the controller widened (B1 and B2 then take them as
     stored). `tiles` = (bk, bn) replaces the default tiles; `full` draws
     every operand from U[1.9, 1.99), so every mantissa is near the top of
-    its range; `route` is the route B1 and B2 must take."""
+    its range; `route` is the route B1 and B2 must take, or a dict of the
+    route each must take."""
     import torch
     from repro_torch.core import HBFPConfig, bfp
     from repro_torch.kernels import autotune
@@ -784,9 +808,10 @@ def _bwd_case(wname, M, K, N, qw, m, block, st, gen, timed,
             else:
                 ok = err <= BLOCK_TOL * float(yp.abs().max())
                 exact = "TOL"
-            if route is not None and took != route:
+            want = route.get(kname) if isinstance(route, dict) else route
+            if want is not None and took != want:
                 fail(f"{kname} {wname} {timed}: took route {took}, expected "
-                     f"{route}")
+                     f"{want}")
         if not torch.isfinite(yk).all():
             fail(f"non-finite {kname} output {wname} {M}x{K}x{N}")
         del yk, yp
@@ -1248,16 +1273,17 @@ def b7_times(tree: str) -> int:
     return 0
 
 
-def phase_model():
-    """yi-9b smoke in f32: card (kernel) vs CPU (plain) prefill logits and
-    greedy decode tokens."""
+def _smoke_serve(tag: str, arch_name: str, lens, **engine_kw):
+    """`arch_name` smoke in f32 served on the card (kernel path) and on the
+    CPU (plain path) from the same weights: the prefill logits of the
+    longest prompt within 2e-3·max|cpu| and equal greedy tokens."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.precision import parse_policy
     from repro_torch.serve import ServeEngine
-    arch = dataclasses.replace(get_arch("yi-9b").smoke(), dtype="float32")
+    arch = dataclasses.replace(get_arch(arch_name).smoke(), dtype="float32")
     pol = parse_policy("8; backend=pallas")
     p_cpu = init_params(7, arch, device="cpu")
     p_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
@@ -1265,29 +1291,36 @@ def phase_model():
              for k, v in p_cpu.items()}
     prompts = [[int(t) for t in torch.randint(
         0, arch.vocab_size, (n,), generator=torch.Generator().manual_seed(n))]
-        for n in (5, 9, 17)]
+        for n in lens]
     outs, firsts = {}, {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
         eng = ServeEngine(arch, params, pol, max_batch=2, ctx_len=64,
-                          device=dev)
-        toks = eng._ints(prompts[2])[None]
-        logits, _ = eng._prefill(eng.params, toks, plen=len(prompts[2]))
+                          device=dev, **engine_kw)
+        toks = eng._ints(prompts[-1])[None]
+        logits, _ = eng._prefill(eng.params, toks, plen=len(prompts[-1]))
         firsts[dev] = logits.float().cpu()
         for p in prompts:
             eng.submit(p, max_new_tokens=6)
         outs[dev] = eng.drain()
     a, b = firsts["cpu"], firsts["cuda"]
     if tuple(b.shape) != (1, 1, arch.vocab_size) or not torch.isfinite(b).all():
-        fail(f"bad card logits {tuple(b.shape)}")
+        fail(f"{arch_name}: bad card logits {tuple(b.shape)}")
     diff = float((a - b).abs().max())
     tol = 2e-3 * float(a.abs().max())
-    log(f"[model] yi-9b smoke f32 prefill logits card vs cpu: max|d|="
-        f"{diff:.3g} (tol {tol:.3g}); tokens equal: "
+    log(f"{tag} {arch_name} smoke f32 {engine_kw} prefill logits card vs "
+        f"cpu: max|d|={diff:.3g} (tol {tol:.3g}); tokens equal: "
         f"{outs['cpu'] == outs['cuda']}")
     if diff > tol:
-        fail("card logits disagree with the CPU path")
+        fail(f"{arch_name}: card logits disagree with the CPU path")
     if outs["cpu"] != outs["cuda"]:
-        fail(f"greedy tokens differ: {outs}")
+        fail(f"{arch_name}: greedy tokens differ: {outs}")
+    return dict(max_abs_diff=diff, tol=tol, tokens=outs["cuda"])
+
+
+def phase_model():
+    """yi-9b smoke in f32: card (kernel) vs CPU (plain) prefill logits and
+    greedy decode tokens."""
+    _smoke_serve("[model]", "yi-9b", (5, 9, 17))
 
 
 def _rel_fro(a, b) -> float:
@@ -1345,62 +1378,150 @@ def phase_train(arch_name: str, spec: str = "8; backend=pallas",
             and u_err <= TRAIN_TOL["updates"] and p_err <= 4 * TRAIN_LR):
         fail(f"{arch_name} {spec!r}: card training step disagrees with the "
              f"CPU step")
-    takes_flash = arch.attn_pattern == "global" and arch.attn_softcap is None
+    takes_flash = (not arch.xlstm and arch.attn_pattern == "global"
+                   and arch.attn_softcap is None)
     if takes_flash != (flash["cpu"][0] > 0 and flash["cuda"][1] > 0):
         fail(f"{arch_name}: flash taken {flash}, expected {takes_flash}")
     return dict(spec=spec, loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
                 updates_rel_fro=u_err, max_abs_param=p_err)
 
 
-def _profile_step(trainer, steps: int):
+# model regions a profiled step is split by: (module, function) wrapped in
+# a torch.profiler range while the step is profiled (never otherwise)
+REGIONS = {"chunk scan": ("repro_torch.models.ssm", "_chunk_scan"),
+           "sim attention": ("repro_torch.models.attention", "mha")}
+# the kernel groups of a profiled step, by kernel name
+KERNEL_GROUPS = {
+    "B1 gemm (fwd)": r"(^|[^_])gemm_kernel<\d+, \d+, false|"
+                     r"tc_gemm_kernel<\d+, \w+, \w+, false, false>",
+    "B2 gemm (dgrad)": r"(^|[^_])gemm_kernel<\d+, \d+, true|"
+                       r"tc_gemm_kernel<\d+, \w+, \w+, true, false>",
+    "B1/B2/B3 split-K fold": r"fold_kernel",
+    "B1/B2 quantize passes (int8)":
+        r"quantize_(rows|w)_kernel<\w+, signed char",
+    "B3 gemm (wgrad)": r"wgrad_gemm_kernel|"
+                       r"tc_gemm_kernel<\d+, \w+, \w+, \w+, true>",
+    "B3 quantize passes (bf16; B1 bf16 x pass)":
+        r"quantize_rows_kernel<\w+, __nv_bfloat16",
+    "f32 quantize passes (cuda_core)": r"quantize_(rows|w)_kernel<\w+, float",
+    "B4 flash fwd (main)": r"flash_fwd_kernel|flash_tc_kernel",
+    "B4-B6 flash pre-passes": r"flash_(rows|vt)_prepass",
+    "B5 flash dq (main)": r"flash_dq_kernel|flash_dq_tc_kernel",
+    "B6 flash dkv (main)": r"flash_dkv_kernel|flash_dkv_tc_kernel"}
+
+
+class _Regions:
+    """Wrap the named REGIONS' functions in torch.profiler ranges for the
+    duration of a `with` block (the modules call them by their global
+    names, so the wrapped function is the one that runs)."""
+
+    def __init__(self, names):
+        import importlib
+        self.fns = [(n, importlib.import_module(REGIONS[n][0]),
+                     REGIONS[n][1]) for n in names]
+        self.saved = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        for name, mod, fn in self.fns:
+            f = getattr(mod, fn)
+            self.saved.append((mod, fn, f))
+
+            def wrapped(*a, _f=f, _n=name, **k):
+                with record_function(_n):
+                    return _f(*a, **k)
+            setattr(mod, fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, f in self.saved:
+            setattr(mod, fn, f)
+        self.saved = []
+
+
+def _step_kernels(prof, names=()):
+    """One pass over the profiler's raw events (no FunctionEvent tree,
+    which takes minutes at ~10^6 events): every device kernel's name and
+    ms, and the model region (of `names`) it belongs to, or None. A
+    kernel belongs to the region whose range its launching op ran in (the
+    forward and the remat recompute), or whose forward op recorded the
+    autograd node its launching op ran for (the backward, matched by the
+    forward's thread and sequence number). Also returns the host scalar
+    copies (`aten::_local_scalar_dense`)."""
+    names = set(names)
+    cpu, kernels, syncs = {}, [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CPU":
+            if e.is_async():
+                continue
+            n = e.name()
+            if n == "aten::_local_scalar_dense":
+                syncs += 1
+            cpu.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), n, e.correlation_id(),
+                 e.sequence_nr(), e.fwd_thread_id()))
+        elif e.name() not in names:          # not a range's device mirror
+            kernels.append((e.name(), e.duration_ns() / 1e6,
+                            e.linked_correlation_id()))
+    # each op's nearest marker: a region range or an evaluate_function
+    marker_of, fwd = {}, {}
+    for tid, evs in cpu.items():
+        evs.sort()
+        stack = []                           # (end, marker id)
+        for start, neg_end, n, cid, seq, fwd_tid in evs:
+            while stack and stack[-1][0] <= start:
+                stack.pop()
+            mark = stack[-1][1] if stack else None
+            if n in names:
+                mark = ("range", n)
+            elif n.startswith("autograd::engine::evaluate_function"):
+                mark = ("eval", fwd_tid, seq)
+            elif seq >= 0 and mark is not None and mark[0] == "range":
+                fwd[(tid, seq)] = mark[1]
+            marker_of[cid] = mark
+            stack.append((-neg_end, mark))
+    region = lambda m: None if m is None else (
+        m[1] if m[0] == "range" else fwd.get((m[1], m[2])))
+    return [(n, ms, region(marker_of.get(link))) for n, ms, link in kernels], \
+        syncs
+
+
+def _profile_step(trainer, steps: int, regions=()):
     """Kernel time by name over one more training step, and the step's
     device-to-host scalar copies (`aten::_local_scalar_dense`), from
-    torch.profiler; None when the profiler saw no device time."""
+    torch.profiler; None when the profiler saw no device time. With
+    `regions` (names of REGIONS) the kernels outside KERNEL_GROUPS are
+    split further by model region. The step's wall time is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _Regions(regions), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         trainer.run(steps, log_every=0)
         torch.cuda.synchronize()
-    rows = []
-    syncs = 0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0))
-        if dev_us and e.device_type.name == "CUDA":
-            rows.append((e.key, dev_us, e.count))
-        if e.key == "aten::_local_scalar_dense":
-            syncs += e.count
-    total = sum(r[1] for r in rows)
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels, syncs = _step_kernels(prof, regions)
+    total = sum(ms for _, ms, _ in kernels)
     if not total:
         return None
-    groups = {"B1 gemm (fwd)": r"(^|[^_])gemm_kernel<\d+, \d+, false|"
-                               r"tc_gemm_kernel<\d+, \w+, \w+, false, "
-                               r"false>",
-              "B2 gemm (dgrad)": r"(^|[^_])gemm_kernel<\d+, \d+, true|"
-                                 r"tc_gemm_kernel<\d+, \w+, \w+, true, "
-                                 r"false>",
-              "B1/B2/B3 split-K fold": r"fold_kernel",
-              "B1/B2 quantize passes (int8)":
-                  r"quantize_(rows|w)_kernel<\w+, signed char",
-              "B3 gemm (wgrad)": r"wgrad_gemm_kernel|"
-                                 r"tc_gemm_kernel<\d+, \w+, \w+, \w+, true>",
-              "B3 quantize passes (bf16; B1 bf16 x pass)":
-                  r"quantize_rows_kernel<\w+, __nv_bfloat16",
-              "f32 quantize passes (cuda_core)":
-                  r"quantize_(rows|w)_kernel<\w+, float",
-              "B4 flash fwd (main)": r"flash_fwd_kernel|flash_tc_kernel",
-              "B4-B6 flash pre-passes": r"flash_(rows|vt)_prepass",
-              "B5 flash dq (main)": r"flash_dq_kernel|flash_dq_tc_kernel",
-              "B6 flash dkv (main)": r"flash_dkv_kernel|"
-                                     r"flash_dkv_tc_kernel"}
-    share = {g: sum(us for k, us, _ in rows if re.search(p, k)) / total
-             for g, p in groups.items()}
+    share = {g: sum(ms for k, ms, _ in kernels if re.search(p, k)) / total
+             for g, p in KERNEL_GROUPS.items()}
+    grouped = re.compile("|".join(KERNEL_GROUPS.values()))
+    for r in regions:
+        share[r] = sum(ms for k, ms, reg in kernels
+                       if reg == r and not grouped.search(k)) / total
     share["everything else"] = 1.0 - sum(share.values())
-    top = sorted(rows, key=lambda r: -r[1])[:15]
-    return dict(device_ms=total / 1e3, share=share, host_syncs=syncs,
-                top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
-                     for k, us, c in top])
+    by_name = {}
+    for k, ms, _ in kernels:
+        t, c = by_name.get(k, (0.0, 0))
+        by_name[k] = (t + ms, c + 1)
+    top = sorted(by_name.items(), key=lambda r: -r[1][0])[:15]
+    return dict(device_ms=total, wall_ms=wall * 1e3, share=share,
+                host_syncs=syncs, kernels=len(kernels),
+                analysis_s=time.perf_counter() - t0,
+                top=[dict(kernel=k[:120], ms=ms, count=c)
+                     for k, (ms, c) in top])
 
 
 FLASH_KERNELS = ("hbfp_flash_fwd", "hbfp_flash_dq", "hbfp_flash_dkv")
@@ -1434,13 +1555,80 @@ def _train_routes_ok(routes: dict) -> bool:
     return all(_all_on({k: routes[k]}, r) for k, r in TRAIN_ROUTES.items())
 
 
+def _projections(arch) -> int:
+    """Projections a training step runs through B1-B3, summed over the
+    layers: 7 a dense layer (4 attention, 3 ffn), 9 a hybrid one (and 2
+    ssm), 4 an mLSTM layer and 2 an sLSTM layer (only the active branch
+    runs)."""
+    if arch.xlstm:
+        n_s = sum(i % arch.slstm_every == arch.slstm_every - 1
+                  for i in range(arch.n_layers)) if arch.slstm_every else 0
+        return 4 * (arch.n_layers - n_s) + 2 * n_s
+    return (9 if arch.ssm else 7) * arch.n_layers
+
+
+def _train_launches(arch, T: int, steps: int = 3) -> dict:
+    """B1-B6 launches of `steps` training steps over T tokens a step under
+    "8; backend=pallas" with remat: the P projections and the head, each
+    recomputed in the backward (B1 twice), the head once a CE chunk; when
+    T fits one loss chunk the CE is not chunked and the head not
+    recomputed. Flash (B4 twice a layer, B5 and B6 once) on full-causal
+    attention without a softcap."""
+    P, lc = _projections(arch), arch.loss_chunk
+    C = T // lc if lc and T > lc and T % lc == 0 else 0
+    b1 = 2 * (P + C) if C else 2 * P + 1
+    b23 = P + (C or 1)
+    fl = arch.n_layers if (not arch.xlstm and arch.attn_pattern == "global"
+                           and arch.attn_softcap is None) else 0
+    return {"hbfp_matmul_fwd": steps * b1, "hbfp_dgrad": steps * b23,
+            "hbfp_wgrad": steps * b23, "hbfp_flash_fwd": steps * 2 * fl,
+            "hbfp_flash_dq": steps * fl, "hbfp_flash_dkv": steps * fl}
+
+
+class _WallTimer:
+    """Host time spent in one module function over a `with` block, the
+    device synchronized before and after each call (so the time is the
+    call's own, queued work included); the function is looked up by its
+    global name by its callers, so the wrapped one is the one that runs."""
+
+    def __init__(self, module: str, fn: str):
+        import importlib
+        self.mod, self.fn = importlib.import_module(module), fn
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        import torch
+        f = self.orig = getattr(self.mod, self.fn)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        setattr(self.mod, self.fn, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.fn, self.orig)
+
+
 def phase_train_full(card: str, arch_name: str, B: int, S: int,
                      n_layers: int = 0, spec: str = "8; backend=pallas",
-                     base=None, phase: str = "train-full"):
+                     base=None, phase: str = "train-full", regions=(),
+                     b2_cuda_core: int = 0, profile: bool = True,
+                     timed=None):
     """`arch_name` at full width (n_layers > 0 cuts the depth), the policy
-    `spec` (on the HBFPConfig `base` when given), B x S tokens of markov data (loss_chunk 2048), constant LR 1e-4,
-    through the Trainer (seed SR_SEED): a warm-up step, then 3 steps
-    whose launches are counted exactly, and a profiled step."""
+    `spec` (on the HBFPConfig `base` when given), B x S tokens of markov
+    data (loss_chunk 2048), constant LR 1e-4, through the Trainer (seed
+    SR_SEED): a warm-up step, then 3 steps whose launches are counted
+    exactly, and a profiled step (split by the model `regions` too;
+    none without `profile`). Every B1 launch must take int8 wgmma, every
+    B2 launch too but `b2_cuda_core` of them on the CUDA cores, every B3
+    bf16 wgmma. `timed` = (module, function): its host time over the 3
+    counted steps (`_WallTimer`)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1492,7 +1680,12 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     torch.cuda.reset_peak_memory_stats()
     hm.reset_counts()                        # counts cover the main path
     fa.reset_counts()
-    trainer.run(4, log_every=1, log_fn=lines.append)
+    timer = None
+    if timed is None:
+        trainer.run(4, log_every=1, log_fn=lines.append)
+    else:
+        with _WallTimer(*timed) as timer:
+            trainer.run(4, log_every=1, log_fn=lines.append)
     torch.cuda.synchronize()
     counts = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
     counts.update({k: getattr(fa, k).launches for k in FLASH_KERNELS})
@@ -1505,12 +1698,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
              if ev.kind == "span" and ev.data.get("name") == "train/step"]
     step_s = spans[1:]
-    per = 7 * L + 2
-    fl = L if arch.attn_pattern == "global" and arch.attn_softcap is None \
-        else 0
-    want = {"hbfp_matmul_fwd": 3 * 2 * per, "hbfp_dgrad": 3 * per,
-            "hbfp_wgrad": 3 * per, "hbfp_flash_fwd": 3 * 2 * fl,
-            "hbfp_flash_dq": 3 * fl, "hbfp_flash_dkv": 3 * fl}
+    want = _train_launches(arch, B * S)
     tok_s = B * S / (sum(step_s) / len(step_s))
     for ln in lines:
         log(f"{tag} {ln}")
@@ -1524,7 +1712,13 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     if counts != want or plain != 0:
         fail(f"{arch_name}: launch counts {counts} != {want} or plain "
              f"calls {plain}")
-    if not _all_on({k: routes[k] for k in ROUTED_KERNELS}, "int8_wgmma"):
+    b2 = dict(routes["hbfp_dgrad"])
+    if b2["cuda_core"] != b2_cuda_core:
+        fail(f"{arch_name}: {b2['cuda_core']} B2 launches on the CUDA "
+             f"cores, expected {b2_cuda_core}: {routes}")
+    b2["cuda_core"] = 0
+    if not _all_on({"hbfp_matmul_fwd": routes["hbfp_matmul_fwd"],
+                    "hbfp_dgrad": b2}, "int8_wgmma"):
         fail(f"{arch_name}: a training B1/B2 launch left the int8 wgmma "
              f"route: {routes}")
     if not _train_routes_ok(routes):
@@ -1533,19 +1727,28 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     if abs(loss0 - loss_fp32) > 0.02 * abs(loss_fp32):
         fail(f"{arch_name}: step-0 HBFP loss {loss0} not within 2% of fp32 "
              f"{loss_fp32}")
-    prof = _profile_step(trainer, 5)
-    if prof is None:
+    prof = _profile_step(trainer, 5, regions) if profile else None
+    if profile and prof is None:
         log(f"{tag} torch.profiler saw no device time")
-    else:
-        log(f"{tag} profiled step: {prof['device_ms']:.1f} ms of kernels, "
+    elif prof is not None:
+        log(f"{tag} profiled step: {prof['wall_ms']:.1f} ms wall, "
+            f"{prof['device_ms']:.1f} ms of kernels, "
             f"{prof['host_syncs']} host syncs (_local_scalar_dense); share "
             + ", ".join(f"{k} {v:.1%}" for k, v in prof["share"].items()))
+    if timer is not None:
+        log(f"{tag} {timed[1]}: {timer.calls} calls, {timer.seconds:.2f} s "
+            f"over the 3 steps' {sum(step_s):.2f} s "
+            f"({timer.seconds / sum(step_s):.1%}) | {card}")
     result = dict(arch=arch_name, spec=spec,
                   tile=None if base is None else base.tile, layers=L,
                   params=n_params, tokens=B * S,
                   losses=losses, loss_fp32_step0=loss_fp32, step_s=step_s,
                   tokens_per_s=tok_s, peak_gib=peak, total_gib=total,
-                  launches=counts, routes=routes, profile=prof)
+                  launches=counts, routes=routes, profile=prof,
+                  timed=None if timer is None else dict(
+                      fn=timed[1], calls=timer.calls,
+                      seconds=timer.seconds,
+                      share=timer.seconds / sum(step_s)))
     del trainer, state, step
     torch.cuda.empty_cache()
     return result
@@ -1890,12 +2093,15 @@ def _serve_numbers(r, n_skip=2):
 
 
 def _lane_state(cache):
-    """The cache tensors that hold lane state: a paged pool without its
-    spare last page, which takes the dropped writes of free lanes and
-    unallocated slots in no defined order and is never read."""
+    """The cache tensors that hold lane state (the KV entry's and the
+    recurrent states'): a paged pool without its spare last page, which
+    takes the dropped writes of free lanes and unallocated slots in no
+    defined order and is never read."""
     from repro_torch.models import PagedKVCache
-    for c in cache.values():
-        for name, t in zip(c._fields, c):
+    for key, c in cache.items():
+        names = c._fields if hasattr(c, "_fields") else \
+            [f"{key}[{j}]" for j in range(len(c))]
+        for name, t in zip(names, c):
             if t is not None:
                 spare = isinstance(c, PagedKVCache) and name != "page_table"
                 yield name, t[:, :-1] if spare else t
@@ -2062,6 +2268,187 @@ def phase_serve(card: str):
     sink.close()
     log(f"[serve] run-log: {os.path.relpath(log_path, ROOT)}")
     return runs["paged-graphed"]["launches"], numbers
+
+
+# recurrent: the hybrid and xLSTM families (ROADMAP A12.1-2) at full
+# width and depth. hymba-1.5b trains on 1 x 4096 tokens (its 1,024-token
+# sliding window on the sim path, the chunk scan in 32 chunks), xlstm-350m
+# on 1 x 2048 (its sLSTM scan runs token by token); the profiled step is
+# split by these regions
+REC_TRAIN = (("hymba-1.5b", 4096, ("chunk scan", "sim attention")),
+             ("xlstm-350m", 2048, ()))
+# xlstm's step is timed, not profiled: the time in its sLSTM loops
+# (forward, remat recompute and backward through time) over the counted
+# steps is its share (profiling its ~10^6 tiny kernels costs minutes)
+REC_TIMED = {"xlstm-350m": ("repro_torch.models.xlstm", "_run_loop")}
+# both served with 8 lanes at ctx_len 2048 (hymba's lane ring: its 1,024
+# window): 8 requests of 16 new tokens; hymba's first prompt is longer
+# than the window, so it takes the chunked prefill and its ring wraps
+REC_LANES, REC_CTX, REC_NEW = 8, 2048, 16
+REC_LENS = (1500,) + tuple(64 + 64 * i for i in range(7))
+# B1-B3 at the shapes only these paths give them, held to their plain
+# versions: (name, M, K, N, B1/B2 routes). hymba's K 1600 and N 6457 are
+# padded to the 128-tiles (1664, 6528) as kernels/linear.py pads them;
+# xLSTM's gate projection has N = 8: B1 contracts over K in 128-int8
+# stages (int8 wgmma), B2 contracts over N, less than one stage (the CUDA
+# cores)
+REC_KERNEL_CASES = (
+    ("hymba_ssm_in", 4096, 1664, 6528,
+     {"hbfp_matmul_fwd": "int8_wgmma", "hbfp_dgrad": "int8_wgmma"}),
+    ("hymba_ssm_out", 4096, 3200, 1664,
+     {"hbfp_matmul_fwd": "int8_wgmma", "hbfp_dgrad": "int8_wgmma"}),
+    ("xlstm_gates", 2048, 1024, 8,
+     {"hbfp_matmul_fwd": "int8_wgmma", "hbfp_dgrad": "cuda_core"}))
+
+
+def _rec_serve(card: str, arch_name: str, modes, sink) -> dict:
+    """`arch_name` at full width (random seeded bf16 weights) served under
+    "8; backend=pallas": each of `modes` (paged, slab) graphed and eager
+    over the same requests (equal tokens, launches and routes checked),
+    then graphed and eager in lockstep (tokens, every tick's logits, the
+    KV and recurrent states bit for bit, the profiled replay's B1
+    launches)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.precision import parse_policy
+    arch = get_arch(arch_name)
+    pol = parse_policy("8; backend=pallas")
+    t0 = time.perf_counter()
+    params = init_params(0, arch)
+    torch.cuda.synchronize()
+    tag = f"[recurrent serve {arch_name}]"
+    log(f"{tag} full width, {arch.n_layers} layers (no depth cut), params "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(43)
+    prompts = [torch.randint(0, arch.vocab_size, (n,), generator=g).tolist()
+               for n in REC_LENS]
+    per_call = _projections(arch) + 1
+    lanes = dict(max_batch=REC_LANES, ctx_len=REC_CTX)
+    runs, numbers = {}, {}
+    for paged in modes:
+        mode = "paged" if paged else "slab"
+        for graphed in (True, False):
+            name = f"{arch_name}-{mode}-{'graphed' if graphed else 'eager'}"
+            r = _serve_run(name, dict(paged=paged, cuda_graph=graphed,
+                                      **lanes), arch, params, pol, prompts,
+                           REC_NEW, sink)
+            _check_serve_run(name, r, arch, len(prompts), REC_NEW, per_call,
+                             graphed)
+            if arch.ssm and r["extends"] < 2:
+                fail(f"{name}: the {REC_LENS[0]}-token prompt took "
+                     f"{r['extends']} extend calls, expected the chunked "
+                     f"prefill")
+            runs[name], numbers[name] = r, _serve_numbers(r)
+            n = numbers[name]
+            log(f"{tag} {mode}-{'graphed' if graphed else 'eager'}: "
+                f"{r['ticks']} ticks, {r['prefills']} prefill calls "
+                f"({r['extends']} chunked-prefill extends), B1 launches "
+                f"{r['launches']} (all bf16_wgmma), per replay "
+                f"{r.get('per_replay', ('-',))[0]}; tick {n['tick_ms']:.2f}"
+                f" ms wall (median after the first two), decode "
+                f"{n['decode_tok_s']:.1f} tok/s, TTFT p50 "
+                f"{n['ttft_p50_ms']:.1f} ms p95 {n['ttft_p95_ms']:.1f} ms, "
+                f"peak {n['peak_gib']:.2f} GiB | {card}")
+    toks = [r["tokens"] for r in runs.values()]
+    if any(t != toks[0] for t in toks):
+        fail(f"{arch_name}: graphed and eager, paged and slab, give "
+             f"different tokens")
+    for paged in modes:
+        mode = "paged" if paged else "slab"
+        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+                         prompts, REC_NEW, REC_NEW - 1, per_call,
+                         profile_at=REC_NEW // 2)
+        for kind, n in prof.items():
+            numbers[f"{arch_name}-{mode}-{kind}"]["profiled_tick"] = n
+            log(f"{tag} {mode}-{kind}: profiled tick {n['wall_ms']:.2f} ms "
+                f"wall, {n['device_ms']:.2f} ms of kernels (device idle "
+                f"{1 - n['device_ms'] / n['wall_ms']:.1%}), B1 "
+                f"{n['b1_ms']:.2f} ms in {n['b1_gemm_launches']} GEMM "
+                f"launches, {n['kernels']} kernels | {card}")
+    log(f"{tag} graphed == eager over {REC_NEW - 1} lockstep ticks "
+        f"({', '.join('paged' if p else 'slab' for p in modes)}): tokens, "
+        f"every tick's logits, the KV and recurrent states bit for bit; "
+        f"{per_call} B1 launches a replay")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=sum(r["launches"] for r in runs.values()),
+                numbers=numbers)
+
+
+def phase_recurrent(card: str) -> dict:
+    """hymba-1.5b (attention and a mamba branch in parallel) and
+    xlstm-350m: (a) each family's smoke model, one training step and a
+    served trace on the card against the CPU; B1-B3 at the shapes only
+    these paths give them against their plain versions; (b, c) both at
+    full width through the Trainer (exact B1-B3 launches and routes;
+    hymba's profiled step split by model region, xlstm's sLSTM loops
+    timed); (d) both served at full width, graphed against eager."""
+    import torch
+    t0 = time.perf_counter()
+    smoke = {}
+    for a in ("hymba-1.5b", "xlstm-350m"):
+        smoke[a] = dict(train=phase_train(a))
+    smoke["hymba-1.5b"]["serve"] = {
+        m: _smoke_serve("[recurrent]", "hymba-1.5b", (5, 9, 21), paged=p)
+        for m, p in (("paged", True), ("slab", False))}
+    smoke["xlstm-350m"]["serve"] = {
+        "slab": _smoke_serve("[recurrent]", "xlstm-350m", (5, 9, 21))}
+    gen = torch.Generator(device="cuda").manual_seed(2323)
+    kernel_rows = []
+    for name, M, K, N, routes in REC_KERNEL_CASES:
+        kernel_rows += _bwd_case(name, M, K, N, True, 8, 0, False, gen,
+                                 "recurrent", route=routes)
+        torch.cuda.empty_cache()
+    log(f"[time] recurrent smoke and kernels done at "
+        f"{time.perf_counter() - t0:.1f} s of the phase")
+    train = {}
+    for arch_name, T, regions in REC_TRAIN:
+        from repro_torch.configs import get_arch
+        arch = get_arch(arch_name)
+        # xLSTM: every mLSTM layer's gate dgrad (N = 8) takes the CUDA
+        # cores, in each of the 3 counted steps
+        gates = 3 * sum(i % arch.slstm_every != arch.slstm_every - 1
+                        for i in range(arch.n_layers)) if arch.xlstm else 0
+        train[arch_name] = phase_train_full(
+            card, arch_name, 1, T, phase="recurrent", regions=regions,
+            b2_cuda_core=gates, profile=bool(regions),
+            timed=REC_TIMED.get(arch_name))
+        r = train[arch_name]
+        log(f"[time] recurrent {arch_name} training done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+        if r["profile"] is not None:
+            sh = r["profile"]["share"]
+            b123 = sum(v for k, v in sh.items() if k.startswith(
+                ("B1", "B2", "B3", "f32 quantize")))
+            log(f"[recurrent {arch_name}] profiled step by region: "
+                + ", ".join(f"{k} {sh[k]:.1%}" for k in regions)
+                + f", B1-B3 {b123:.1%}, the rest "
+                f"{sh['everything else']:.1%} ({r['profile']['kernels']} "
+                f"kernels, analysed in {r['profile']['analysis_s']:.1f} s)")
+            for row in r["profile"]["top"][:8]:
+                log(f"[recurrent {arch_name}]   {row['ms']:9.2f} ms "
+                    f"{row['count']:7d}  {row['kernel']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[time] recurrent training done at {time.perf_counter() - t0:.1f} "
+        f"s of the phase")
+    from repro_torch.obs import JSONLSink
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    sink = JSONLSink(os.path.join(out_dir, "recurrent_serve_run.jsonl"),
+                     mode="w")
+    serve = {"hymba-1.5b": _rec_serve(card, "hymba-1.5b", (True, False),
+                                      sink)}
+    log(f"[time] recurrent hymba serving done at "
+        f"{time.perf_counter() - t0:.1f} s of the phase")
+    serve["xlstm-350m"] = _rec_serve(card, "xlstm-350m", (False,), sink)
+    sink.close()
+    log(f"[time] recurrent phase {time.perf_counter() - t0:.1f} s")
+    return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
+                serve=serve, seconds=time.perf_counter() - t0)
 
 
 def _adapt_policy():
@@ -2868,6 +3255,15 @@ def main() -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
+    if sys.argv[1:] == ["--phase", "recurrent"]:
+        rec = phase_recurrent(card)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_recurrent.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        log(f"[time] --phase recurrent done at "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     bwd = phase_bwd()
     log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
     flash = phase_flash()
@@ -2896,6 +3292,9 @@ def main() -> int:
     phase_model()
     serve_launches, serve = phase_serve(card)
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
+    rec = phase_recurrent(card)
+    log(f"[time] recurrent done at {time.perf_counter() - t0:.1f} s")
+    bwd = bwd + rec["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "card": card, "build": build,
@@ -2904,7 +3303,7 @@ def main() -> int:
                    "adaptive_smoke": adapt_smoke, "train_full": train,
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
-                   "serve": serve},
+                   "serve": serve, "recurrent": rec},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -2921,28 +3320,37 @@ def main() -> int:
                            for p, rs in acc_runs.items()}
     acc_route = lambda k, r: sum(run["routes"][k][r]
                                  for rs in acc_runs.values() for run in rs)
+    rec_train = rec["train"]
     by_path = lambda k: {"train_gemma2": train["launches"][k],
                          "train_yi": train_yi["launches"][k],
                          "train_sr_gemma2": sr["launches"][k],
                          "adaptive_yi": adapt["launches"][k],
-                         **acc_paths(k)}
-    b1_paths = {"serve": serve_launches, **by_path("hbfp_matmul_fwd")}
+                         **acc_paths(k),
+                         "train_hymba": rec_train["hymba-1.5b"]["launches"][k],
+                         "train_xlstm": rec_train["xlstm-350m"]["launches"][k]}
+    rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
+                  for a, r in rec["serve"].items()}
+    b1_paths = {"serve": serve_launches, **rec_served,
+                **by_path("hbfp_matmul_fwd")}
     # main-path launches by route: training, the adaptive run and the
     # accuracy runs counted per route; every served launch was checked to
     # be bf16 wgmma
     by_route = lambda k, served=0: {
         r: train["routes"][k][r] + train_yi["routes"][k][r]
         + sr["routes"][k][r] + adapt["launches"][f"{k}/{r}"]
-        + acc_route(k, r) + (served if r == "bf16_wgmma" else 0)
+        + acc_route(k, r) + sum(t["routes"][k][r] for t in rec_train.values())
+        + (served if r == "bf16_wgmma" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
-                          by_route("hbfp_matmul_fwd", serve_launches))
+                          by_route("hbfp_matmul_fwd", serve_launches
+                                   + sum(rec_served.values())))
     b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
         "source": src + "hbfp_matmul_fwd.cu",
         "replaces": "src/repro/kernels/hbfp_matmul.py:140",
         "held_against": "hbfp_matmul_plain",
-        # every main path: yi-9b serving, gemma2-2b and yi-9b training
+        # every main path: yi-9b, hymba-1.5b and xlstm-350m serving, and
+        # the training paths
         "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         # one generate tick's eight served shapes (seven projections of a

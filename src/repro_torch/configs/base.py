@@ -77,6 +77,10 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""
         return dataclasses.replace(
@@ -98,7 +102,8 @@ class ArchConfig:
         )
 
 
-_REGISTRY = ("gemma2_2b", "yi_9b", "minicpm_2b", "phi3_mini_3_8b")
+_REGISTRY = ("gemma2_2b", "yi_9b", "minicpm_2b", "phi3_mini_3_8b",
+             "hymba_1_5b", "xlstm_350m")
 
 
 def arch_ids() -> Tuple[str, ...]:

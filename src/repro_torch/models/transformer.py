@@ -1,5 +1,6 @@
-"""Dense transformer stack (port of the dense path of
-`repro.models.transformer`).
+"""Transformer-family stack (port of `repro.models.transformer`): the
+dense family, hymba's hybrid layers (attention and a mamba branch in
+parallel, `models/ssm.py`) and xLSTM stacks (`models/xlstm.py`).
 
 Entry points:
   init_params(seed, arch, device=None)             -> params dict
@@ -17,13 +18,23 @@ layer's weights are autograd leaves of their own). The layer scan is a
 Python loop over layers; with `arch.remat` each layer, and each chunk of
 the chunked cross-entropy, is recomputed in the backward
 (`torch.utils.checkpoint`), as the reference's `jax.checkpoint`s do.
-Caches are stacked per-layer NamedTuples (leading L) that decode updates
-in place. MoE, SSM and xLSTM layers come with ROADMAP A12.
+Caches are dicts of stacked per-layer entries (leading L): "kv" a
+`KVCache` or `PagedKVCache`, and the recurrent states as tuples of
+tensors, "ssm" (h,) for hymba, "mlstm" (C, n, m) and "slstm" (h, c, n, m)
+for xLSTM. Decode and the chunked prefill write every entry in place, so
+the tensors keep their addresses (a captured CUDA graph replays them).
+An xLSTM layer runs only its active branch (the reference runs both and
+selects one: the same output); the other branch's parameters are unused
+and the train step gives them zero gradients. MoE, M-RoPE, embeddings
+input and multi-codebook heads come with ROADMAP A12.
 
 Kernel launches of one training step under "…; backend=pallas" with
-remat and C cross-entropy chunks: B1 2·(7L + C) (forward and recompute),
-B2 and B3 7L + C each; where attention takes flash (yi-9b), B4 2L (its
-Function's forward runs again in each layer's recompute), B5 and B6 L.
+remat and C cross-entropy chunks (C = 1 when the tokens fit one chunk,
+and then the head is not recomputed), P projections a layer summed over
+the layers (7 dense, 9 hybrid, 4 mLSTM and 2 sLSTM): B1 2·(P + C)
+(forward and recompute), B2 and B3 P + C each; where attention takes
+flash (yi-9b), B4 2L (its Function's forward runs again in each layer's
+recompute), B5 and B6 L.
 """
 from __future__ import annotations
 
@@ -36,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bfp import act_tile_shape
 from repro_torch.device import check_on, dtype_of, resolve_device
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           attention_layer)
 from repro_torch.models.layers import (Ctx, ctx_matmul, gelu_ffn, rms_norm,
@@ -43,36 +56,75 @@ from repro_torch.models.layers import (Ctx, ctx_matmul, gelu_ffn, rms_norm,
 from repro_torch.numerics.stats import tensor_stats
 
 BIG_WINDOW = 1 << 30
+# the recurrent-state entries of a cache (tuples of stacked tensors)
+STATE_KEYS = ("ssm", "mlstm", "slstm")
 
 
-def _require_dense(arch: ArchConfig) -> None:
-    if arch.xlstm or arch.ssm or arch.n_experts or arch.mrope \
-            or arch.input_kind != "tokens" or arch.n_codebooks > 1:
+def _require_ported(arch: ArchConfig) -> None:
+    if arch.n_experts or arch.mrope or arch.input_kind != "tokens" \
+            or arch.n_codebooks > 1:
         raise NotImplementedError(
-            f"{arch.name}: only the dense token-input family is ported; "
-            f"the others come with ROADMAP A12")
+            f"{arch.name}: MoE, M-RoPE, embeddings input and multi-codebook "
+            f"heads are not ported yet; they come with ROADMAP A12")
+
+
+def _layer_leaves(arch: ArchConfig):
+    """(name, per-layer shape, init) of every layer parameter, in the
+    reference's order (`_init_layer`): a float init draws a normal at
+    that scale in the arch dtype; the string inits are the reference's
+    f32 constants ("norm": ones, or zeros for zero-centered norms)."""
+    D, F, H, Hkv, hd = (arch.d_model, arch.d_ff, arch.n_heads,
+                        arch.n_kv_heads, arch.hd)
+    if arch.xlstm:
+        return xlstm_mod.xlstm_shapes(D, H)
+    out = [("ln1_norm_scale", (D,), "norm"), ("ln2_norm_scale", (D,), "norm")]
+    if arch.post_norms:
+        out += [("post1_norm_scale", (D,), "norm"),
+                ("post2_norm_scale", (D,), "norm")]
+    out += [("attn_wq", (D, H * hd), D ** -0.5),
+            ("attn_wk", (D, Hkv * hd), D ** -0.5),
+            ("attn_wv", (D, Hkv * hd), D ** -0.5),
+            ("attn_wo", (H * hd, D), (H * hd) ** -0.5)]
+    if arch.ssm:
+        out += [("ssm_branch_norm_scale", (D,), "ones"),
+                ("attn_branch_norm_scale", (D,), "ones")]
+        out += list(ssm_mod.ssm_shapes(D, arch.d_inner, H, arch.ssm_state))
+    out += [("ffn_wg", (D, F), D ** -0.5), ("ffn_wi", (D, F), D ** -0.5),
+            ("ffn_wo", (F, D), F ** -0.5)]
+    return tuple(out)
 
 
 def _layer_shapes(arch: ArchConfig):
-    """(name, per-layer shape, init scale) of every dense layer weight, in
-    the reference's order."""
-    D, F, H, Hkv, hd = (arch.d_model, arch.d_ff, arch.n_heads,
-                        arch.n_kv_heads, arch.hd)
-    return (("attn_wq", (D, H * hd), D ** -0.5),
-            ("attn_wk", (D, Hkv * hd), D ** -0.5),
-            ("attn_wv", (D, Hkv * hd), D ** -0.5),
-            ("attn_wo", (H * hd, D), (H * hd) ** -0.5),
-            ("ffn_wg", (D, F), D ** -0.5),
-            ("ffn_wi", (D, F), D ** -0.5),
-            ("ffn_wo", (F, D), F ** -0.5))
+    """(name, per-layer shape, init scale) of every projection matrix of a
+    layer (the weights drawn from a normal), in the reference's order."""
+    return tuple(r for r in _layer_leaves(arch)
+                 if isinstance(r[2], float) and len(r[1]) == 2)
+
+
+def _constant(init: str, shape, arch: ArchConfig, dev) -> torch.Tensor:
+    """A per-layer f32 constant of the reference's init."""
+    if init == "norm":
+        return torch.full(shape, 0.0 if arch.zero_centered_norm else 1.0,
+                          device=dev)
+    if init == "ones":
+        return torch.ones(shape, device=dev)
+    if init == "zeros":
+        return torch.zeros(shape, device=dev)
+    if init == "a_log":
+        return ssm_mod.ssm_a_log(shape[0], device=dev)
+    if init == "gates_bias":
+        return xlstm_mod.mlstm_gates_bias(shape[0] // 2, device=dev)
+    raise ValueError(f"unknown init {init!r}")
 
 
 def init_params(seed: int, arch: ArchConfig, device=None):
-    """Random weights with the reference's shapes and scales, drawn from a
-    seeded torch.Generator on `device` (the CUDA device by default). The
-    draws differ from the reference's jax ones; tests that compare the two
-    packages load the reference's weights with `from_jax_params`."""
-    _require_dense(arch)
+    """Random weights with the reference's shapes, scales and dtypes
+    (projections in the arch dtype, norm scales, SSM constants and gate
+    biases in f32), drawn from a seeded torch.Generator on `device` (the
+    CUDA device by default). The draws differ from the reference's jax
+    ones; tests that compare the two packages load the reference's
+    weights with `from_jax_params`."""
+    _require_ported(arch)
     dev = resolve_device(device)
     dtype = dtype_of(arch.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -82,21 +134,18 @@ def init_params(seed: int, arch: ArchConfig, device=None):
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * scale).to(dtype)
 
-    ones = 0.0 if arch.zero_centered_norm else 1.0
-    layers: Dict[str, Any] = {
-        "ln1_norm_scale": torch.full((L, D), ones, device=dev),
-        "ln2_norm_scale": torch.full((L, D), ones, device=dev),
-    }
-    if arch.post_norms:
-        layers["post1_norm_scale"] = torch.full((L, D), ones, device=dev)
-        layers["post2_norm_scale"] = torch.full((L, D), ones, device=dev)
-    for name, shape, scale in _layer_shapes(arch):
+    layers: Dict[str, Any] = {}
+    for name, shape, init in _layer_leaves(arch):
+        if isinstance(init, str):
+            layers[name] = _constant(init, shape, arch, dev)[None].repeat(
+                L, *([1] * len(shape)))
+            continue
         t = torch.empty((L, *shape), dtype=dtype, device=dev)
         for i in range(L):
-            t[i] = normal(shape, scale)
+            t[i] = normal(shape, init)
         layers[name] = t
     return {"layers": layers,
-            "final_norm_scale": torch.full((D,), ones, device=dev),
+            "final_norm_scale": _constant("norm", (D,), arch, dev),
             "embed_table": normal((V, D), 0.02),
             "head_w": normal((D, V), D ** -0.5)}
 
@@ -109,8 +158,13 @@ def _np_to_torch(a: np.ndarray) -> torch.Tensor:
 
 def from_jax_params(tree, device=None, dtype: Optional[torch.dtype] = None):
     """Map the reference's `init_params` tree, handed over as numpy arrays,
-    onto the port's params dict with identical names. `dtype` casts the
-    floating weights (ndim >= 2); None keeps every array's dtype."""
+    onto the port's params dict with identical names. With `dtype=None`
+    every leaf keeps the reference's dtype. `dtype` casts every floating
+    leaf with ndim >= 2, and that takes in the stacked per-layer f32
+    vectors too: [L, D] norm scales, hymba's [L, H] `ssm_a_log`,
+    `ssm_dt_bias` and `ssm_d`, xLSTM's [L, 2H] `mlstm_gates_bias`. To
+    keep those f32, load the reference's init at the arch's own dtype
+    with `dtype=None`."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -136,8 +190,9 @@ def _layer_windows(arch: ArchConfig, n_layers: int):
 
 def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
                     cache, want_cache: bool, std_pos: bool = False):
-    """Pre-norm block (gemma2-style post-norms when set). Returns
-    (x, new_cache)."""
+    """Pre-norm block (gemma2-style post-norms when set; hymba's mamba
+    branch in parallel with attention when arch.ssm). Returns
+    (x, new_cache): "kv", and "ssm" for hymba."""
     h = rms_norm(x, lp["ln1_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
     a, new_kv = attention_layer(
@@ -151,6 +206,16 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         flash_ok=(arch.attn_pattern == "global"
                   and arch.attn_softcap is None and std_pos))
     new_cache = {"kv": new_kv} if (want_cache or cache is not None) else None
+    if arch.ssm:
+        s, new_ssm = ssm_mod.ssm_branch(
+            h, lp, ctx, n_heads=arch.n_heads, d_state=arch.ssm_state,
+            chunk=arch.ssm_chunk,
+            state=None if cache is None else cache["ssm"])
+        # hymba: the mean of the per-branch normalized outputs
+        a = 0.5 * (rms_norm(a, lp["attn_branch_norm_scale"], arch.norm_eps)
+                   + rms_norm(s, lp["ssm_branch_norm_scale"], arch.norm_eps))
+        if new_cache is not None:
+            new_cache["ssm"] = new_ssm
     if arch.post_norms:
         a = rms_norm(a, lp["post1_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
@@ -163,6 +228,48 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         f = rms_norm(f, lp["post2_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
     return _residual(x, f, arch), new_cache
+
+
+def _is_slstm(arch: ArchConfig, layer: int) -> bool:
+    """Every slstm_every-th layer of an xLSTM stack is sLSTM."""
+    return bool(arch.xlstm and arch.slstm_every
+                and layer % arch.slstm_every == arch.slstm_every - 1)
+
+
+def _xlstm_block(x, lp, ctx, arch: ArchConfig, is_slstm: bool, cache,
+                 want_cache: bool):
+    """xLSTM layer: the active branch only (the reference evaluates both
+    and selects one with `jnp.where`: the same output). The inactive
+    branch's state passes through unchanged, zeros when there was none.
+    Returns (x, new_cache)."""
+    own, other = ("slstm", "mlstm") if is_slstm else ("mlstm", "slstm")
+    st = None if cache is None else cache[own]
+    if is_slstm:
+        y, new = xlstm_mod.slstm_block(x, lp, ctx, n_heads=arch.n_heads,
+                                       state=st)
+    else:
+        y, new = xlstm_mod.mlstm_block(x, lp, ctx, n_heads=arch.n_heads,
+                                       chunk=arch.ssm_chunk, state=st)
+    if not (want_cache or cache is not None):
+        return y, None
+    if cache is not None:
+        keep = cache[other]
+    elif is_slstm:
+        keep = xlstm_mod.mlstm_state_init(x.shape[0], arch.n_heads,
+                                          arch.d_model, device=x.device)
+    else:
+        keep = xlstm_mod.slstm_state_init(x.shape[0], arch.d_model,
+                                          device=x.device)
+    return y, {own: new, other: keep}
+
+
+def _block(x, lp, ctx, arch: ArchConfig, layer: int, positions, window,
+           cache, want_cache: bool, std_pos: bool):
+    if arch.xlstm:
+        return _xlstm_block(x, lp, ctx, arch, _is_slstm(arch, layer), cache,
+                            want_cache)
+    return _attn_ffn_block(x, lp, ctx, arch, positions, window, cache,
+                           want_cache, std_pos)
 
 
 def _residual(x, branch, arch: ArchConfig):
@@ -187,9 +294,38 @@ def _embed_in(params, batch, arch: ArchConfig, device):
     return x, positions.to(torch.int32)
 
 
+def _like(c, items):
+    """`items` in the container type of cache entry c: the KV NamedTuple,
+    or a state tuple."""
+    items = list(items)
+    return type(c)(*items) if hasattr(c, "_fields") else tuple(items)
+
+
 def _layer_cache(cache, i: int):
-    kv = cache["kv"]
-    return {"kv": type(kv)(*(None if t is None else t[i] for t in kv))}
+    """Layer i's views of a stacked cache: the KV NamedTuple's fields and
+    each recurrent state's tensors, sliced on the leading L axis."""
+    return {k: _like(c, (None if t is None else t[i] for t in c))
+            for k, c in cache.items()}
+
+
+def _write_state(dst, src) -> None:
+    """Copy a layer's new recurrent states into the cache's own tensors,
+    so the stacked state keeps its address (graph replay)."""
+    for k in STATE_KEYS:
+        if k in dst:
+            for d, s in zip(dst[k], src[k]):
+                if d is not s:
+                    d.copy_(s)
+
+
+def _stack_caches(built):
+    """Stack the per-layer prompt caches of a prefill on a leading L."""
+    out = {}
+    for k, c in built[0].items():
+        out[k] = _like(c, (None if c[j] is None
+                           else torch.stack([b[k][j] for b in built])
+                           for j in range(len(c))))
+    return out
 
 
 def _std_positions(batch) -> bool:
@@ -207,17 +343,19 @@ def _std_positions(batch) -> bool:
     return bool((p == want).all())
 
 
-def _remat_block(x, lp, ctx, arch, positions, window, std_pos):
-    return _attn_ffn_block(x, lp, ctx, arch, positions, window, None,
-                           False, std_pos)[0]
+def _remat_block(x, lp, ctx, arch, layer, positions, window, std_pos):
+    return _block(x, lp, ctx, arch, layer, positions, window, None, False,
+                  std_pos)[0]
 
 
 def _run_stack(params, x, positions, arch: ArchConfig, ctx,
                cache=None, want_cache: bool = False,
                std_pos: bool = False):
-    """The layer loop. Decode updates `cache` in place and returns it; a
-    prefill with want_cache stacks the per-layer prompt caches. Under
-    autograd with arch.remat each layer is recomputed in the backward."""
+    """The layer loop. Decode and the chunked prefill update `cache` in
+    place and return it; a prefill with want_cache stacks the per-layer
+    prompt caches. Under autograd with arch.remat each layer is
+    recomputed in the backward (hymba's chunk scan and xLSTM's scans
+    included)."""
     L = arch.n_layers
     windows = _layer_windows(arch, L)
     layers = params["layers"]
@@ -231,23 +369,21 @@ def _run_stack(params, x, positions, arch: ArchConfig, ctx,
         # layer folds the same key and draws the same noise
         lctx = ctx.fold(i)
         if remat:
-            x = checkpoint(_remat_block, x, lp, lctx, arch, positions,
+            x = checkpoint(_remat_block, x, lp, lctx, arch, i, positions,
                            windows[i], std_pos, use_reentrant=False)
             continue
-        x, nc = _attn_ffn_block(x, lp, lctx, arch, positions, windows[i],
-                                None if cache is None
-                                else _layer_cache(cache, i), want_cache,
-                                std_pos)
-        if cache is None and want_cache:
-            built.append(nc["kv"])
+        lc = None if cache is None else _layer_cache(cache, i)
+        x, nc = _block(x, lp, lctx, arch, i, positions, windows[i], lc,
+                       want_cache, std_pos)
+        if lc is not None:
+            _write_state(lc, nc)
+        elif want_cache:
+            built.append(nc)
     if cache is not None:
         return x, cache
     if not want_cache:
         return x, None
-    kv = type(built[0])(*(None if built[0][j] is None
-                          else torch.stack([c[j] for c in built])
-                          for j in range(len(built[0]))))
-    return x, {"kv": kv}
+    return x, _stack_caches(built)
 
 
 def _head_logits(params, x, arch: ArchConfig, ctx):
@@ -271,9 +407,9 @@ def _entry_device(params, ctx, device):
 
 
 def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
-    """Logits [B,S,V] over the batch and the (zero, dense) aux loss. Runs
+    """Logits [B,S,V] over the batch and the aux loss (zero: no MoE). Runs
     on `device`, else ctx.device, else the CUDA device."""
-    _require_dense(arch)
+    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     x, _ = _run_stack(params, x, positions, arch, ctx,
@@ -298,7 +434,7 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     "act_stats", the `TensorStats` of quantizing the residual stream at
     the stack's entry ("embed_out") and exit ("final_hidden") at the
     activation format, each one B7 launch."""
-    _require_dense(arch)
+    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     act_stats = None
@@ -345,7 +481,7 @@ def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
     reads the batch's positions as the reference's un-jitted prefill
     does; the serving stages pass False, as the reference's jitted ones
     see traced positions."""
-    _require_dense(arch)
+    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     if std_pos is None:
@@ -359,7 +495,7 @@ def decode_step(params, batch, cache, arch: ArchConfig, ctx: Ctx,
                 device=None):
     """One multi-token step over the cache (updated in place). batch:
     tokens [B,S] + positions [B,S]."""
-    _require_dense(arch)
+    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     x, cache = _run_stack(params, x, positions, arch, ctx, cache=cache)
@@ -374,10 +510,29 @@ def lane_capacity(arch: ArchConfig, ctx_len: int) -> int:
     return ctx_len
 
 
+def _state_cache(arch: ArchConfig, batch_size: int, dev):
+    """The recurrent-state entries of an empty cache, each tensor stacked
+    [L, B, ...] in f32: hymba's "ssm", xLSTM's "mlstm" and "slstm"."""
+    L, B = arch.n_layers, batch_size
+    stack = lambda st: tuple(t[None].repeat(L, *([1] * t.ndim)) for t in st)
+    if arch.xlstm:
+        return {"mlstm": stack(xlstm_mod.mlstm_state_init(
+                    B, arch.n_heads, arch.d_model, device=dev)),
+                "slstm": stack(xlstm_mod.slstm_state_init(
+                    B, arch.d_model, device=dev))}
+    if arch.ssm:
+        return {"ssm": stack(ssm_mod.ssm_state_init(
+            B, arch.n_heads, arch.d_inner, arch.ssm_state, device=dev))}
+    return {}
+
+
 def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int):
-    """An empty stacked slab cache on the params' device."""
-    _require_dense(arch)
+    """An empty stacked slab cache on the params' device: "kv" (none for
+    xLSTM) and the recurrent states."""
+    _require_ported(arch)
     dev = params["head_w"].device
+    if arch.xlstm:
+        return _state_cache(arch, batch_size, dev)
     L, B, C = arch.n_layers, batch_size, lane_capacity(arch, ctx_len)
     shape = (L, B, arch.n_kv_heads, C, arch.hd)
     pos = torch.full((L, B, C), -1, dtype=torch.int32, device=dev)
@@ -389,15 +544,19 @@ def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int):
     else:
         dt = dict(dtype=dtype_of(arch.dtype), device=dev)
         kv = KVCache(torch.zeros(shape, **dt), torch.zeros(shape, **dt), pos)
-    return {"kv": kv}
+    return {"kv": kv, **_state_cache(arch, B, dev)}
 
 
 def make_paged_cache(params, arch: ArchConfig, batch_size: int,
                      ctx_len: int, n_pages: int, page_size: int):
     """An empty page-pooled cache (DESIGN.md §14): one [L,P+1,Hkv,ps,hd]
     pool, of which the last page is the spare that takes the dropped
-    writes of unallocated slots, and a [L,B,NP] page table of -1."""
-    _require_dense(arch)
+    writes of unallocated slots, and a [L,B,NP] page table of -1. SSM
+    states stay dense per lane (O(1) in sequence length: nothing to
+    page); xLSTM archs have no KV cache to page."""
+    _require_ported(arch)
+    if arch.xlstm:
+        raise ValueError("xlstm archs have no KV cache to page")
     C = lane_capacity(arch, ctx_len)
     if C % page_size:
         raise ValueError(f"page_size {page_size} must divide the lane "
@@ -417,4 +576,4 @@ def make_paged_cache(params, arch: ArchConfig, batch_size: int,
         dt = dict(dtype=dtype_of(arch.dtype), device=dev)
         kv = PagedKVCache(torch.zeros(shape, **dt), torch.zeros(shape, **dt),
                           pos, pt)
-    return {"kv": kv}
+    return {"kv": kv, **_state_cache(arch, batch_size, dev)}

@@ -3,8 +3,9 @@
 
 `PagePool` is the host-side free-list allocator with per-request
 ownership. `insert_prefix`, `clear_pages` and `set_page_table` are the
-cache-structure ops; they dispatch on the cache's type (`KVCache` /
-`PagedKVCache`), not on key names, and write the cache tensors in place.
+cache-structure ops; they dispatch on each cache entry's type
+(`KVCache`, `PagedKVCache`, or a tuple of recurrent-state tensors), not
+on key names, and write the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -91,18 +92,32 @@ def _insert_pages(c: PagedKVCache, p: KVCache, lane: int,
     return c
 
 
+def _insert_state(c: tuple, p: tuple, lane: int) -> tuple:
+    """Write the prefix's recurrent state ([L, 1, ...] each) into lane row
+    `lane` ([L, B, ...])."""
+    for big, small in zip(c, p):
+        big[:, lane:lane + 1] = small.to(big.dtype)
+    return c
+
+
 def insert_prefix(cache, prefix, lane: int, page_ids=None):
     """Insert a prefill-produced prefix cache (B=1, full lane capacity)
     into lane `lane`: `KVCache` takes the whole-lane slab write,
-    `PagedKVCache` the page scatter (`page_ids` required)."""
+    `PagedKVCache` the page scatter (`page_ids` required), and every
+    recurrent state (hymba's ssm, xLSTM's mlstm and slstm: tuples of
+    [L, 1, ...] tensors) the lane-row write."""
     out = {}
     for key, c in cache.items():
         if isinstance(c, PagedKVCache):
             if page_ids is None:
                 raise ValueError("paged cache insert needs page_ids")
             out[key] = _insert_pages(c, prefix[key], lane, page_ids)
-        else:
+        elif isinstance(c, KVCache):
             out[key] = _insert_slab(c, prefix[key], lane)
+        elif isinstance(c, tuple):
+            out[key] = _insert_state(c, prefix[key], lane)
+        else:
+            raise TypeError(f"cache entry {key!r} of type {type(c)}")
     return out
 
 

@@ -86,7 +86,9 @@ def narrow_serving_params(params, arch: ArchConfig, hbfp):
 def prefill_to_decode_cache(cache, arch: ArchConfig, ctx_len: int):
     """Grow a prefill cache (C = prompt length) into a decode cache
     (C = ctx_len ring): k/v mantissas and exponents pad with 0, slot_pos
-    with -1. Dispatches on the KVCache type, not on key names."""
+    with -1. Dispatches on the KVCache type, not on key names: every
+    other entry (the ssm, mlstm and slstm states) is length-independent
+    and passes through untouched."""
     def grow(leaf, fill, axis):
         if leaf is None or leaf.shape[axis] >= ctx_len:
             return leaf

@@ -162,6 +162,14 @@ def _stack_grads(paths, grads: list):
     return out
 
 
+def _grads(loss, leaves):
+    """d loss / d leaves; a leaf the loss does not use (the inactive
+    branch of an xLSTM layer) gets a zero gradient, as the reference's
+    `jnp.where` gives it, so weight decay still moves it."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
 def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
                     taps=None, device=None):
@@ -228,7 +236,7 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         leaves = [t for _, t in _leaves(narrow)]
         if grad_accum == 1:
             loss, metrics = loss_fn(narrow, batch, arch, ctx, device=dev)
-            grads = list(torch.autograd.grad(loss, leaves))
+            grads = list(_grads(loss, leaves))
             acts = metrics.pop("act_stats", None)
             metrics = {k: v.detach() for k, v in metrics.items()}
             if acts is not None:
@@ -240,7 +248,7 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         for a in range(grad_accum):
             mb = {k: v[a] for k, v in batch.items()}
             la, _ = loss_fn(narrow, mb, arch, ctx, device=dev)
-            ga = torch.autograd.grad(la, leaves)
+            ga = _grads(la, leaves)
             acc = [s + g.to(torch.float32) / grad_accum
                    for s, g in zip(acc, ga)]
             loss = loss + la.detach() / grad_accum

@@ -103,14 +103,22 @@ def test_training_entry_points_need_a_gpu():
 
 
 def test_unported_parts_raise_with_their_roadmap_item():
-    """Other model families still raise (A12); step and block schedules,
-    which raised until ROADMAP A9 was done, resolve as the reference's."""
+    """Other model families still raise (A12): the MoE family's config,
+    and `init_params` on a MoE arch built from the reference's config;
+    step and block schedules, which raised until ROADMAP A9 was done,
+    resolve as the reference's."""
+    from repro.configs import get_arch as jget_arch
     from repro.precision import parse_policy as jparse
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import ArchConfig, get_arch
+    from repro_torch.models import init_params
     from repro_torch.precision import parse_policy
     import dataclasses
     with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("hymba-1.5b")
+        get_arch("llama4-scout-17b-a16e")
+    moe = ArchConfig(**dataclasses.asdict(
+        jget_arch("llama4-scout-17b-a16e").smoke()))
+    with pytest.raises(NotImplementedError, match="A12"):
+        init_params(0, moe, device="cpu")
     asd = lambda c: None if c is None else dataclasses.asdict(c)
     for spec in ("4@0,8@90%", "8; b=16@0,b=64@50%"):
         t, j = parse_policy(spec, total_steps=100), jparse(spec,
