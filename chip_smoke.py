@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # one CUDA device; builds the kernels
     python3 chip_smoke.py --b7-times TREE   # B7 of another checkout, timed
     python3 chip_smoke.py --phase recurrent # device, build, recurrent only
+    python3 chip_smoke.py --phase moe       # device, build, moe only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -141,6 +142,27 @@ Phases (any failure exits non-zero before the result line):
                 graphed and eager, then in lockstep: tokens, logits, KV
                 and recurrent states bit for bit; the run-log in
                 chiprun_out/recurrent_serve_run.jsonl;
+ 11c. moe     — ROADMAP A12.3: llama4-scout-17b-a16e (16 experts, top-1,
+                a shared expert) and arctic-480b (128 experts, top-2, a
+                dense residual): (a) each smoke model's training step and
+                served trace (paged and slab) on the card against the
+                CPU; (b) B1 at both archs' served shapes (M = 8, bf16
+                wgmma) and B1-B3 at llama4's training shapes (M = 2048,
+                the 202,048-word head padded to 202,112) against their
+                plain versions, routes checked; (c) llama4 at full width,
+                1 of 48 layers, 1 x 2048 tokens, trained as train-full
+                does: exact B1-B6 launches (7 projections a layer: the
+                3-D expert GEMMs take the sim path, as in the
+                reference), no B7 launch, the aux loss per layer within
+                (0.5, 2.5), the profiled step split into the expert
+                GEMMs, the rest of the MoE layer, the optimizer, the
+                narrowing, B1-B6 and the rest; (d) llama4 at 6 of 48
+                layers, paged and slab, and (e) arctic at 1 of 35, slab,
+                served at full width from one narrowed copy (8 lanes,
+                ctx_len 1024, 8 requests of 32-512 tokens, 16 new), each
+                graphed and eager, then in lockstep: tokens, logits and
+                KV bit for bit, 7L + 1 B1 launches a replay; the run-log
+                in chiprun_out/moe_serve_run.jsonl;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -1389,7 +1411,13 @@ def phase_train(arch_name: str, spec: str = "8; backend=pallas",
 # model regions a profiled step is split by: (module, function) wrapped in
 # a torch.profiler range while the step is profiled (never otherwise)
 REGIONS = {"chunk scan": ("repro_torch.models.ssm", "_chunk_scan"),
-           "sim attention": ("repro_torch.models.attention", "mha")}
+           "sim attention": ("repro_torch.models.attention", "mha"),
+           # the MoE layer's expert GEMMs (moe.py calls ctx_matmul only
+           # for them), and the layer around them
+           "expert GEMMs": ("repro_torch.models.moe", "ctx_matmul"),
+           "MoE routing": ("repro_torch.models.moe", "moe_ffn"),
+           "optimizer": ("repro_torch.train.train_step", "adamw_update"),
+           "narrowing": ("repro_torch.train.train_step", "_narrow_copy")}
 # the kernel groups of a profiled step, by kernel name
 KERNEL_GROUPS = {
     "B1 gemm (fwd)": r"(^|[^_])gemm_kernel<\d+, \d+, false|"
@@ -1695,6 +1723,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
     losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+    aux = [float(ln.split("aux=")[1].split()[0]) for ln in lines]
     spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
              if ev.kind == "span" and ev.data.get("name") == "train/step"]
     step_s = spans[1:]
@@ -1742,7 +1771,8 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     result = dict(arch=arch_name, spec=spec,
                   tile=None if base is None else base.tile, layers=L,
                   params=n_params, tokens=B * S,
-                  losses=losses, loss_fp32_step0=loss_fp32, step_s=step_s,
+                  losses=losses, aux=aux, loss_fp32_step0=loss_fp32,
+                  step_s=step_s,
                   tokens_per_s=tok_s, peak_gib=peak, total_gib=total,
                   launches=counts, routes=routes, profile=prof,
                   timed=None if timer is None else dict(
@@ -2447,6 +2477,250 @@ def phase_recurrent(card: str) -> dict:
     serve["xlstm-350m"] = _rec_serve(card, "xlstm-350m", (False,), sink)
     sink.close()
     log(f"[time] recurrent phase {time.perf_counter() - t0:.1f} s")
+    return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
+                serve=serve, seconds=time.perf_counter() - t0)
+
+
+# moe: the MoE family (ROADMAP A12.3) at full width. llama4-scout (16
+# experts, top-1, a shared expert) trains at 1 of its 48 layers on 1 x
+# 2048 tokens (its f32 master, moments and grads at ~16 bytes a
+# parameter: 4.27 B parameters fill the card) and serves at 6 of 48;
+# arctic-480b (128 experts, top-2, a dense residual) serves at 1 of 35
+# (one layer's experts are 27 GB in bf16). The expert GEMMs' weights are
+# 3-D and take the sim path, as in the reference; attention, the shared
+# expert or dense residual and the head take B1-B6
+MOE_TRAIN = ("llama4-scout-17b-a16e", 1, 2048)
+MOE_SERVE = (("llama4-scout-17b-a16e", 6, (True, False)),
+             ("arctic-480b", 1, (False,)))
+MOE_LANES, MOE_CTX, MOE_NEW = 8, 1024, 16
+MOE_LENS = tuple(32 + (512 - 32) * i // 7 for i in range(8))
+# the training step's profile split: the expert GEMMs (the sim path's
+# per-call weight quantization and batched matmuls, their backward
+# included), the rest of the MoE layer (routing, dispatch and combine,
+# the experts' gating), the optimizer and the narrowing of the weights
+MOE_REGIONS = ("expert GEMMs", "MoE routing", "optimizer", "narrowing")
+# B1-B3 at the shapes only these paths give them, (K, N) with N padded to
+# whole 128-value tiles as kernels/linear.py pads it (202,048 -> 202,112)
+MOE_SHAPES = {
+    "llama4": {"wq": (5120, 5120), "wkv": (5120, 1024),
+               "shared_wgi": (5120, 8192), "shared_wo": (8192, 5120),
+               "head": (5120, 202112)},
+    "arctic": {"wq": (7168, 7168), "wkv": (7168, 1024),
+               "ffn_wgi": (7168, 4864), "ffn_wo": (4864, 7168),
+               "head": (7168, 32000)}}
+MOE_TRAIN_ROUTES = {"hbfp_matmul_fwd": "int8_wgmma",
+                    "hbfp_dgrad": "int8_wgmma"}
+
+
+def _served_b1_case(name, K, N, gen):
+    """B1 as a generate tick runs it (M = 8 bf16 rows, weights narrowed
+    at 8 bits in 128 x 128 tiles and taken as stored) against its plain
+    version: bit-equal, on bf16 wgmma, timed."""
+    import torch
+    from repro_torch.core import HBFP8_16, bfp
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import hbfp_matmul as hm
+    M = 8
+    w = bfp.quantize_weight(torch.randn((K, N), generator=gen,
+                                        device="cuda") * K ** -0.5,
+                            HBFP8_16).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    bm, bk, bn = autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N)
+    kw = dict(mantissa_bits=8, stochastic=False, quantize_w=False, block=0,
+              bm=bm, bk=bk, bn=bn)
+    run = lambda: hm.hbfp_matmul_fwd(x, w, 0, **kw)
+    before = dict(hm.hbfp_matmul_fwd.launches_by_route)
+    yk, yp = run(), hm.hbfp_matmul_plain(x, w, 0, **kw)
+    torch.cuda.synchronize()
+    took = [r for r, n in hm.hbfp_matmul_fwd.launches_by_route.items()
+            if n != before[r]]
+    ok = torch.equal(yk, yp) and torch.isfinite(yk).all()
+    err = float((yk - yp).abs().max())
+    bound, by = _bound_ms(M, K, N, 2, 2, "bf16")
+    kms = _time_ms(run, _reps(run))
+    pms = _time_ms(lambda: hm.hbfp_matmul_plain(x, w, 0, **kw), 2)
+    row = dict(kernel="hbfp_matmul_fwd", weight=name, M=M, K=K, N=N,
+               config="moe_served", route=took[0] if len(took) == 1
+               else str(took), ok=bool(ok), check="EQ", max_abs_err=err,
+               err_over_bound=None, kernel_ms=kms, plain_ms=pms,
+               bound_ms=bound, bound_by=by)
+    log(f"[moe kernel] B1 {name} 8x{K}x{N} served {row['route']} EQ "
+        f"err={err:.3g} kernel_ms={kms:.4f} bound_ms={bound:.4f}({by[0]}) "
+        f"plain_ms={pms:.2f}")
+    if not ok or took != ["bf16_wgmma"]:
+        fail(f"moe served B1 {name}: {row}")
+    del w, x, yk, yp
+    return row
+
+
+def _moe_serve(card: str, arch_name: str, n_layers: int, modes, sink):
+    """`arch_name` at full width and `n_layers` of its depth (random
+    seeded bf16 weights) served under "8; backend=pallas": the serving
+    copy narrowed once and the raw weights freed, every engine then
+    serving that copy (`narrowed=True`); each of `modes` (paged, slab)
+    graphed and eager over the same 8 requests (equal tokens, launches
+    and routes checked), then graphed and eager in lockstep (tokens,
+    every tick's logits and the KV bit for bit, the profiled replay's B1
+    launches). A tick's 8 lanes are one routing group: capacity couples
+    them, so no solo == crowded proof is asked."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.precision import parse_policy
+    from repro_torch.train.serve_step import narrow_serving_params
+    full = get_arch(arch_name)
+    arch = dataclasses.replace(full, n_layers=n_layers)
+    pol = parse_policy("8; backend=pallas")
+    tag = f"[moe serve {arch_name}]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = init_params(0, arch)
+    n_raw = sum(t.numel() for t in _leaves(raw))
+    params = narrow_serving_params(raw, arch, pol)
+    del raw
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} full width, {n_layers} of {full.n_layers} layers (depth "
+        f"cut), {arch.n_experts} experts top-{arch.top_k}, "
+        f"{n_raw / 1e9:.3f} B params; init and narrowing "
+        f"{time.perf_counter() - t0:.1f} s, peak {load_peak:.2f} GiB "
+        f"(raw and narrowed weights together) | {card}")
+    g = torch.Generator().manual_seed(44)
+    prompts = [torch.randint(0, arch.vocab_size, (n,), generator=g).tolist()
+               for n in MOE_LENS]
+    per_call = _projections(arch) + 1
+    lanes = dict(max_batch=MOE_LANES, ctx_len=MOE_CTX, narrowed=True)
+    runs, numbers = {}, {}
+    for paged in modes:
+        mode = "paged" if paged else "slab"
+        for graphed in (True, False):
+            name = f"{arch_name}-{mode}-{'graphed' if graphed else 'eager'}"
+            r = _serve_run(name, dict(paged=paged, cuda_graph=graphed,
+                                      **lanes), arch, params, pol, prompts,
+                           MOE_NEW, sink)
+            _check_serve_run(name, r, arch, len(prompts), MOE_NEW, per_call,
+                             graphed)
+            runs[name], numbers[name] = r, _serve_numbers(r)
+            n = numbers[name]
+            log(f"{tag} {mode}-{'graphed' if graphed else 'eager'}: "
+                f"{r['ticks']} ticks, {r['prefills']} prefills, B1 launches "
+                f"{r['launches']} (all bf16_wgmma), per replay "
+                f"{r.get('per_replay', ('-',))[0]}; tick {n['tick_ms']:.2f}"
+                f" ms wall (median after the first two), decode "
+                f"{n['decode_tok_s']:.1f} tok/s, TTFT p50 "
+                f"{n['ttft_p50_ms']:.1f} ms p95 {n['ttft_p95_ms']:.1f} ms, "
+                f"peak {n['peak_gib']:.2f} GiB | {card}")
+    toks = [r["tokens"] for r in runs.values()]
+    if any(t != toks[0] for t in toks):
+        fail(f"{arch_name}: graphed and eager, paged and slab, give "
+             f"different tokens")
+    for paged in modes:
+        mode = "paged" if paged else "slab"
+        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+                         prompts, MOE_NEW, MOE_NEW - 1, per_call,
+                         profile_at=MOE_NEW // 2)
+        for kind, n in prof.items():
+            numbers[f"{arch_name}-{mode}-{kind}"]["profiled_tick"] = n
+            log(f"{tag} {mode}-{kind}: profiled tick {n['wall_ms']:.2f} ms "
+                f"wall, {n['device_ms']:.2f} ms of kernels (device idle "
+                f"{1 - n['device_ms'] / n['wall_ms']:.1%}), B1 "
+                f"{n['b1_ms']:.2f} ms in {n['b1_gemm_launches']} GEMM "
+                f"launches, {n['kernels']} kernels | {card}")
+    log(f"{tag} graphed == eager over {MOE_NEW - 1} lockstep ticks "
+        f"({', '.join('paged' if p else 'slab' for p in modes)}): tokens, "
+        f"every tick's logits and the KV bit for bit; {per_call} B1 "
+        f"launches a replay")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=n_layers, params=n_raw, load_peak_gib=load_peak,
+                launches=sum(r["launches"] for r in runs.values()),
+                numbers=numbers)
+
+
+def phase_moe(card: str) -> dict:
+    """llama4-scout-17b-a16e and arctic-480b: (a) each smoke model, one
+    training step and a served trace (paged and slab) on the card against
+    the CPU; (b) B1 at both archs' served shapes (M = 8) and B1-B3 at
+    llama4's training shapes (M = 2048) against their plain versions,
+    routes checked; (c) llama4 at full width, 1 of 48 layers, trained
+    through the Trainer (exact B1-B6 launches and routes, no B7, the aux
+    loss per layer near 1, the profiled step split by region); (d, e)
+    llama4 (6 of 48 layers) and arctic (1 of 35) served at full width,
+    graphed against eager."""
+    import torch
+    from repro_torch.kernels import bfp_quantize as bq
+    t0 = time.perf_counter()
+    smoke = {}
+    for a in ("llama4-scout-17b-a16e", "arctic-480b"):
+        smoke[a] = dict(train=phase_train(a), serve={
+            m: _smoke_serve("[moe]", a, (5, 9, 17), paged=p)
+            for m, p in (("paged", True), ("slab", False))})
+    gen = torch.Generator(device="cuda").manual_seed(2424)
+    kernel_rows = []
+    for fam, shapes in MOE_SHAPES.items():
+        for w, (K, N) in shapes.items():
+            kernel_rows.append(_served_b1_case(f"{fam}_{w}", K, N, gen))
+            torch.cuda.empty_cache()
+    for w, (K, N) in MOE_SHAPES["llama4"].items():
+        kernel_rows += _bwd_case(f"llama4_{w}", MOE_TRAIN[2], K, N, True, 8,
+                                 0, False, gen, "moe", route=MOE_TRAIN_ROUTES)
+        torch.cuda.empty_cache()
+    log(f"[time] moe smoke and kernels done at "
+        f"{time.perf_counter() - t0:.1f} s of the phase")
+    arch_name, layers, T = MOE_TRAIN
+    gc.collect()
+    torch.cuda.empty_cache()
+    bq.reset_counts()
+    # the step fills the card (47.7 GiB of f32 master and moments, 8 GiB
+    # of grads, GB-sized temporaries of the head and the experts): its
+    # allocations map pages of expandable segments, so the temporaries
+    # of the backward leave no fragments behind for the optimizer
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        train = phase_train_full(card, arch_name, 1, T, n_layers=layers,
+                                 phase="moe", regions=MOE_REGIONS)
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    b7 = bq.bfp_quantize.launches
+    per_layer = [a / layers for a in train["aux"]]
+    log(f"[moe {arch_name}] aux per layer over the steps "
+        f"{[round(a, 4) for a in per_layer]}; B7 launches {b7}")
+    if b7 or not all(0.5 < a < 2.5 for a in per_layer):
+        fail(f"{arch_name}: B7 launched {b7} times, or an aux per layer "
+             f"outside (0.5, 2.5): {per_layer}")
+    prof = train["profile"]
+    if prof is not None:
+        sh = prof["share"]
+        kern = sum(v for k, v in sh.items() if k.startswith(
+            ("B1", "B2", "B3", "B4", "B5", "B6", "f32 quantize")))
+        log(f"[moe {arch_name}] profiled step by region: "
+            + ", ".join(f"{k} {sh[k]:.1%}" for k in MOE_REGIONS)
+            + f", B1-B6 {kern:.1%}, the rest {sh['everything else']:.1%} "
+            f"({prof['kernels']} kernels, analysed in "
+            f"{prof['analysis_s']:.1f} s)")
+        for row in prof["top"][:8]:
+            log(f"[moe {arch_name}]   {row['ms']:9.2f} ms "
+                f"{row['count']:7d}  {row['kernel']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] moe training done at {time.perf_counter() - t0:.1f} s of "
+        f"the phase")
+    from repro_torch.obs import JSONLSink
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    sink = JSONLSink(os.path.join(out_dir, "moe_serve_run.jsonl"), mode="w")
+    serve = {}
+    for name, n_layers, modes in MOE_SERVE:
+        serve[name] = _moe_serve(card, name, n_layers, modes, sink)
+        log(f"[time] moe {name} serving done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+    sink.close()
+    log(f"[time] moe phase {time.perf_counter() - t0:.1f} s")
     return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
                 serve=serve, seconds=time.perf_counter() - t0)
 
@@ -3255,13 +3529,15 @@ def main() -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
-    if sys.argv[1:] == ["--phase", "recurrent"]:
-        rec = phase_recurrent(card)
+    phases = {"recurrent": phase_recurrent, "moe": phase_moe}
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
+            sys.argv[2] in phases:
+        out = phases[sys.argv[2]](card)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out",
-                               "chip_smoke_recurrent.json"), "w") as f:
-            json.dump(rec, f, indent=1)
-        log(f"[time] --phase recurrent done at "
+                               f"chip_smoke_{sys.argv[2]}.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        log(f"[time] --phase {sys.argv[2]} done at "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
     bwd = phase_bwd()
@@ -3294,7 +3570,9 @@ def main() -> int:
     log(f"[time] serve done at {time.perf_counter() - t0:.1f} s")
     rec = phase_recurrent(card)
     log(f"[time] recurrent done at {time.perf_counter() - t0:.1f} s")
-    bwd = bwd + rec["kernel_rows"]
+    moe = phase_moe(card)
+    log(f"[time] moe done at {time.perf_counter() - t0:.1f} s")
+    bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "card": card, "build": build,
@@ -3303,7 +3581,7 @@ def main() -> int:
                    "adaptive_smoke": adapt_smoke, "train_full": train,
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
-                   "serve": serve, "recurrent": rec},
+                   "serve": serve, "recurrent": rec, "moe": moe},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -3327,9 +3605,11 @@ def main() -> int:
                          "adaptive_yi": adapt["launches"][k],
                          **acc_paths(k),
                          "train_hymba": rec_train["hymba-1.5b"]["launches"][k],
-                         "train_xlstm": rec_train["xlstm-350m"]["launches"][k]}
+                         "train_xlstm": rec_train["xlstm-350m"]["launches"][k],
+                         "train_llama4": moe["train"]["launches"][k]}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
-                  for a, r in rec["serve"].items()}
+                  for a, r in (*rec["serve"].items(),
+                               *moe["serve"].items())}
     b1_paths = {"serve": serve_launches, **rec_served,
                 **by_path("hbfp_matmul_fwd")}
     # main-path launches by route: training, the adaptive run and the
@@ -3339,6 +3619,7 @@ def main() -> int:
         r: train["routes"][k][r] + train_yi["routes"][k][r]
         + sr["routes"][k][r] + adapt["launches"][f"{k}/{r}"]
         + acc_route(k, r) + sum(t["routes"][k][r] for t in rec_train.values())
+        + moe["train"]["routes"][k][r]
         + (served if r == "bf16_wgmma" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
@@ -3349,8 +3630,8 @@ def main() -> int:
         "source": src + "hbfp_matmul_fwd.cu",
         "replaces": "src/repro/kernels/hbfp_matmul.py:140",
         "held_against": "hbfp_matmul_plain",
-        # every main path: yi-9b, hymba-1.5b and xlstm-350m serving, and
-        # the training paths
+        # every main path: yi-9b, hymba-1.5b, xlstm-350m, llama4-scout
+        # and arctic-480b serving, and the training paths
         "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         # one generate tick's eight served shapes (seven projections of a
@@ -3376,11 +3657,12 @@ def main() -> int:
     fref = "src/repro/kernels/hbfp_flash_attn.py:"
     flash_route = lambda k: {r: train_yi["routes"][k][r]
                              + adapt["launches"][f"{k}/{r}"]
-                             + acc_route(k, r)
+                             + acc_route(k, r) + moe["train"]["routes"][k][r]
                              for r in ("int8_wgmma", "cuda_core")}
-    b456 = [_flash_entry(k, flash, {"train_yi": train_yi["launches"][k],
-                                    "adaptive_yi": adapt["launches"][k],
-                                    **acc_paths(k)},
+    b456 = [_flash_entry(k, flash, {
+                "train_yi": train_yi["launches"][k],
+                "adaptive_yi": adapt["launches"][k], **acc_paths(k),
+                "train_llama4": moe["train"]["launches"][k]},
                          fref + line,
                          src + ("hbfp_flash_fwd_sm90.cuh"
                                 if k == "hbfp_flash_fwd"

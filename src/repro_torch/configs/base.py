@@ -103,7 +103,8 @@ class ArchConfig:
 
 
 _REGISTRY = ("gemma2_2b", "yi_9b", "minicpm_2b", "phi3_mini_3_8b",
-             "hymba_1_5b", "xlstm_350m")
+             "hymba_1_5b", "xlstm_350m", "llama4_scout_17b_a16e",
+             "arctic_480b")
 
 
 def arch_ids() -> Tuple[str, ...]:

@@ -1,0 +1,24 @@
+"""Llama-4 Scout 17B-A16E [hf:meta-llama/Llama-4-Scout-17B-16E; unverified].
+
+48L d_model=5120 40H (GQA kv=8) d_ff=8192 vocab=202048, MoE 16 experts
+top-1 + shared expert; early-fusion multimodal (text path only in the
+backbone; vision frontend out of scope per assignment).
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama4-scout-17b-a16e",
+    family="moe",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=202048,
+    head_dim=128,
+    rope_theta=500000.0,
+    n_experts=16,
+    top_k=1,
+    shared_expert=True,
+    dtype="bfloat16",
+)

@@ -98,17 +98,42 @@ def resolve_param_cfg(cfg, name: str,
     return fp(name, role) if fp is not None else cfg
 
 
+# elements of a matrix quantized at once under nearest rounding (bounds
+# the f32 temporaries of a large head to ~256 MB each)
+_ROW_BLOCK_ELEMS = 1 << 26
+
+
+def _quantize_matrix(w: torch.Tensor, c: HBFPConfig, wide: bool,
+                     key: Optional[int]) -> torch.Tensor:
+    """quantize_weight of one slice. A large matrix under nearest rounding
+    goes in blocks of whole tile rows: the same tiles, so the same
+    result, with block-sized temporaries. Stochastic rounding draws by
+    element position in the whole slice, so it stays whole."""
+    rows = w.shape[0] if w.ndim == 2 else 0
+    block = 0
+    if rows and c.tile and c.rounding != "stochastic" and key is None:
+        block = (_ROW_BLOCK_ELEMS // max(w.shape[1], 1)) // c.tile * c.tile
+    if not block or block >= rows:
+        return bfp.quantize_weight(w, c, key, wide=wide)
+    out = torch.empty_like(w)
+    for r0 in range(0, rows, block):
+        out[r0:r0 + block] = bfp.quantize_weight(w[r0:r0 + block], c,
+                                                 wide=wide)
+    return out
+
+
 def quantize_leaf(leaf: torch.Tensor, c: HBFPConfig, wide: bool,
                   key: Optional[int] = None) -> torch.Tensor:
     """quantize_weight over a stacked [L, ...] tensor one leading slice at a
-    time (`leaf_slices`): the tiles never cross the leading axis, so the
-    nearest result is the whole tensor's while the f32 temporaries stay
-    one layer large. `key` is the leaf's `param_key`."""
+    time (`leaf_slices`; a MoE leaf [L, E, D, F] one [D, F] slice at a
+    time): the tiles never cross the leading axes, so the nearest result
+    is the whole tensor's while the f32 temporaries stay one slice large.
+    `key` is the leaf's `param_key`."""
     if leaf.ndim < 3:
-        return bfp.quantize_weight(leaf, c, key, wide=wide)
+        return _quantize_matrix(leaf, c, wide, key)
     out = torch.empty_like(leaf)
     for idx, s, k in leaf_slices(leaf, key):
-        out[idx] = bfp.quantize_weight(s, c, k, wide=wide)
+        out[idx] = _quantize_matrix(s, c, wide, k)
     return out
 
 

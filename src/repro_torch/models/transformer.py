@@ -1,6 +1,8 @@
 """Transformer-family stack (port of `repro.models.transformer`): the
 dense family, hymba's hybrid layers (attention and a mamba branch in
-parallel, `models/ssm.py`) and xLSTM stacks (`models/xlstm.py`).
+parallel, `models/ssm.py`), xLSTM stacks (`models/xlstm.py`) and the MoE
+family (`models/moe.py`: llama4-scout's shared expert, arctic's dense
+residual).
 
 Entry points:
   init_params(seed, arch, device=None)             -> params dict
@@ -25,16 +27,20 @@ for xLSTM. Decode and the chunked prefill write every entry in place, so
 the tensors keep their addresses (a captured CUDA graph replays them).
 An xLSTM layer runs only its active branch (the reference runs both and
 selects one: the same output); the other branch's parameters are unused
-and the train step gives them zero gradients. MoE, M-RoPE, embeddings
-input and multi-codebook heads come with ROADMAP A12.
+and the train step gives them zero gradients. A MoE layer's aux
+load-balance loss is carried out of the layer (out of its checkpoint
+too) and summed over the layers. M-RoPE, embeddings input and
+multi-codebook heads come with ROADMAP A12.
 
 Kernel launches of one training step under "…; backend=pallas" with
 remat and C cross-entropy chunks (C = 1 when the tokens fit one chunk,
 and then the head is not recomputed), P projections a layer summed over
-the layers (7 dense, 9 hybrid, 4 mLSTM and 2 sLSTM): B1 2·(P + C)
+the layers (7 dense, 9 hybrid, 4 mLSTM and 2 sLSTM; 7 MoE: four
+attention and the three of the shared expert or dense residual, as the
+expert GEMMs' weights are 3-D and take the sim path): B1 2·(P + C)
 (forward and recompute), B2 and B3 P + C each; where attention takes
-flash (yi-9b), B4 2L (its Function's forward runs again in each layer's
-recompute), B5 and B6 L.
+flash (yi-9b, llama4-scout, arctic), B4 2L (its Function's forward runs
+again in each layer's recompute), B5 and B6 L.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bfp import act_tile_shape
 from repro_torch.device import check_on, dtype_of, resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (KVCache, PagedKVCache,
@@ -61,18 +68,18 @@ STATE_KEYS = ("ssm", "mlstm", "slstm")
 
 
 def _require_ported(arch: ArchConfig) -> None:
-    if arch.n_experts or arch.mrope or arch.input_kind != "tokens" \
-            or arch.n_codebooks > 1:
+    if arch.mrope or arch.input_kind != "tokens" or arch.n_codebooks > 1:
         raise NotImplementedError(
-            f"{arch.name}: MoE, M-RoPE, embeddings input and multi-codebook "
+            f"{arch.name}: M-RoPE, embeddings input and multi-codebook "
             f"heads are not ported yet; they come with ROADMAP A12")
 
 
 def _layer_leaves(arch: ArchConfig):
     """(name, per-layer shape, init) of every layer parameter, in the
     reference's order (`_init_layer`): a float init draws a normal at
-    that scale in the arch dtype; the string inits are the reference's
-    f32 constants ("norm": ones, or zeros for zero-centered norms)."""
+    that scale in the arch dtype, ("f32", scale) one in f32 (the MoE
+    router); the string inits are the reference's f32 constants
+    ("norm": ones, or zeros for zero-centered norms)."""
     D, F, H, Hkv, hd = (arch.d_model, arch.d_ff, arch.n_heads,
                         arch.n_kv_heads, arch.hd)
     if arch.xlstm:
@@ -89,14 +96,21 @@ def _layer_leaves(arch: ArchConfig):
         out += [("ssm_branch_norm_scale", (D,), "ones"),
                 ("attn_branch_norm_scale", (D,), "ones")]
         out += list(ssm_mod.ssm_shapes(D, arch.d_inner, H, arch.ssm_state))
-    out += [("ffn_wg", (D, F), D ** -0.5), ("ffn_wi", (D, F), D ** -0.5),
-            ("ffn_wo", (F, D), F ** -0.5)]
+    if arch.n_experts:
+        out += list(moe_mod.moe_shapes(
+            D, F, arch.n_experts, dense_residual=arch.moe_dense_residual,
+            dense_ff=F, shared_expert=arch.shared_expert))
+    else:
+        out += [("ffn_wg", (D, F), D ** -0.5), ("ffn_wi", (D, F), D ** -0.5),
+                ("ffn_wo", (F, D), F ** -0.5)]
     return tuple(out)
 
 
 def _layer_shapes(arch: ArchConfig):
     """(name, per-layer shape, init scale) of every projection matrix of a
-    layer (the weights drawn from a normal), in the reference's order."""
+    layer that the kernels see (the 2-D weights drawn from a normal in the
+    arch dtype), in the reference's order: not the MoE experts (3-D, the
+    sim path) nor the f32 router (FP by name)."""
     return tuple(r for r in _layer_leaves(arch)
                  if isinstance(r[2], float) and len(r[1]) == 2)
 
@@ -119,20 +133,20 @@ def _constant(init: str, shape, arch: ArchConfig, dev) -> torch.Tensor:
 
 def init_params(seed: int, arch: ArchConfig, device=None):
     """Random weights with the reference's shapes, scales and dtypes
-    (projections in the arch dtype, norm scales, SSM constants and gate
-    biases in f32), drawn from a seeded torch.Generator on `device` (the
-    CUDA device by default). The draws differ from the reference's jax
-    ones; tests that compare the two packages load the reference's
-    weights with `from_jax_params`."""
+    (projections in the arch dtype; norm scales, SSM constants, gate
+    biases and the MoE router in f32), drawn from a seeded
+    torch.Generator on `device` (the CUDA device by default). The draws
+    differ from the reference's jax ones; tests that compare the two
+    packages load the reference's weights with `from_jax_params`."""
     _require_ported(arch)
     dev = resolve_device(device)
     dtype = dtype_of(arch.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     L, D, V = arch.n_layers, arch.d_model, arch.vocab_size
 
-    def normal(shape, scale):
+    def normal(shape, scale, dt=dtype):
         return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * scale).to(dtype)
+                            dtype=torch.float32) * scale).to(dt)
 
     layers: Dict[str, Any] = {}
     for name, shape, init in _layer_leaves(arch):
@@ -140,9 +154,11 @@ def init_params(seed: int, arch: ArchConfig, device=None):
             layers[name] = _constant(init, shape, arch, dev)[None].repeat(
                 L, *([1] * len(shape)))
             continue
-        t = torch.empty((L, *shape), dtype=dtype, device=dev)
+        dt, scale = (torch.float32, init[1]) if isinstance(init, tuple) \
+            else (dtype, init)
+        t = torch.empty((L, *shape), dtype=dt, device=dev)
         for i in range(L):
-            t[i] = normal(shape, init)
+            t[i] = normal(shape, scale, dt)
         layers[name] = t
     return {"layers": layers,
             "final_norm_scale": _constant("norm", (D,), arch, dev),
@@ -191,8 +207,10 @@ def _layer_windows(arch: ArchConfig, n_layers: int):
 def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
                     cache, want_cache: bool, std_pos: bool = False):
     """Pre-norm block (gemma2-style post-norms when set; hymba's mamba
-    branch in parallel with attention when arch.ssm). Returns
-    (x, new_cache): "kv", and "ssm" for hymba."""
+    branch in parallel with attention when arch.ssm; the MoE FFN when
+    arch.n_experts). Returns (x, new_cache, aux): the cache's "kv", and
+    "ssm" for hymba; aux the MoE load-balance loss, None without
+    experts."""
     h = rms_norm(x, lp["ln1_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
     a, new_kv = attention_layer(
@@ -222,12 +240,21 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
     x = _residual(x, a, arch)
     h = rms_norm(x, lp["ln2_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
-    f = gelu_ffn(h, lp, ctx) if arch.ffn_act == "geglu" \
-        else swiglu_ffn(h, lp, ctx)
+    aux = None
+    if arch.n_experts:
+        f, aux = moe_mod.moe_ffn(
+            h, lp, ctx, n_experts=arch.n_experts, top_k=arch.top_k,
+            capacity_factor=arch.capacity_factor, n_groups=arch.moe_groups,
+            dense_residual=arch.moe_dense_residual,
+            shared_expert=arch.shared_expert)
+    elif arch.ffn_act == "geglu":
+        f = gelu_ffn(h, lp, ctx)
+    else:
+        f = swiglu_ffn(h, lp, ctx)
     if arch.post_norms:
         f = rms_norm(f, lp["post2_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
-    return _residual(x, f, arch), new_cache
+    return _residual(x, f, arch), new_cache, aux
 
 
 def _is_slstm(arch: ArchConfig, layer: int) -> bool:
@@ -265,9 +292,10 @@ def _xlstm_block(x, lp, ctx, arch: ArchConfig, is_slstm: bool, cache,
 
 def _block(x, lp, ctx, arch: ArchConfig, layer: int, positions, window,
            cache, want_cache: bool, std_pos: bool):
+    """One layer: (x, new_cache, aux), aux None but for a MoE layer."""
     if arch.xlstm:
-        return _xlstm_block(x, lp, ctx, arch, _is_slstm(arch, layer), cache,
-                            want_cache)
+        return (*_xlstm_block(x, lp, ctx, arch, _is_slstm(arch, layer),
+                              cache, want_cache), None)
     return _attn_ffn_block(x, lp, ctx, arch, positions, window, cache,
                            want_cache, std_pos)
 
@@ -344,24 +372,29 @@ def _std_positions(batch) -> bool:
 
 
 def _remat_block(x, lp, ctx, arch, layer, positions, window, std_pos):
-    return _block(x, lp, ctx, arch, layer, positions, window, None, False,
-                  std_pos)[0]
+    """A checkpointed layer's (x, aux): the aux of a MoE layer leaves the
+    checkpoint beside x."""
+    x, _, aux = _block(x, lp, ctx, arch, layer, positions, window, None,
+                       False, std_pos)
+    return x, aux
 
 
 def _run_stack(params, x, positions, arch: ArchConfig, ctx,
                cache=None, want_cache: bool = False,
                std_pos: bool = False):
-    """The layer loop. Decode and the chunked prefill update `cache` in
-    place and return it; a prefill with want_cache stacks the per-layer
-    prompt caches. Under autograd with arch.remat each layer is
-    recomputed in the backward (hymba's chunk scan and xLSTM's scans
-    included)."""
+    """The layer loop: (x, cache, aux). Decode and the chunked prefill
+    update `cache` in place and return it; a prefill with want_cache
+    stacks the per-layer prompt caches. Under autograd with arch.remat
+    each layer is recomputed in the backward (hymba's chunk scan, xLSTM's
+    scans and the MoE routing included). aux is the MoE layers' aux
+    losses summed over the layers, an f32 zero without experts."""
     L = arch.n_layers
     windows = _layer_windows(arch, L)
     layers = params["layers"]
     remat = (arch.remat and cache is None and not want_cache
              and torch.is_grad_enabled())
     built = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(L):
         lp = layers[i] if isinstance(layers, (list, tuple)) \
             else {k: v[i] for k, v in layers.items()}
@@ -369,21 +402,24 @@ def _run_stack(params, x, positions, arch: ArchConfig, ctx,
         # layer folds the same key and draws the same noise
         lctx = ctx.fold(i)
         if remat:
-            x = checkpoint(_remat_block, x, lp, lctx, arch, i, positions,
-                           windows[i], std_pos, use_reentrant=False)
-            continue
-        lc = None if cache is None else _layer_cache(cache, i)
-        x, nc = _block(x, lp, lctx, arch, i, positions, windows[i], lc,
-                       want_cache, std_pos)
-        if lc is not None:
-            _write_state(lc, nc)
-        elif want_cache:
-            built.append(nc)
+            x, la = checkpoint(_remat_block, x, lp, lctx, arch, i,
+                               positions, windows[i], std_pos,
+                               use_reentrant=False)
+        else:
+            lc = None if cache is None else _layer_cache(cache, i)
+            x, nc, la = _block(x, lp, lctx, arch, i, positions, windows[i],
+                               lc, want_cache, std_pos)
+            if lc is not None:
+                _write_state(lc, nc)
+            elif want_cache:
+                built.append(nc)
+        if la is not None:
+            aux = aux + la
     if cache is not None:
-        return x, cache
+        return x, cache, aux
     if not want_cache:
-        return x, None
-    return x, _stack_caches(built)
+        return x, None, aux
+    return x, _stack_caches(built), aux
 
 
 def _head_logits(params, x, arch: ArchConfig, ctx):
@@ -407,14 +443,15 @@ def _entry_device(params, ctx, device):
 
 
 def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
-    """Logits [B,S,V] over the batch and the aux loss (zero: no MoE). Runs
-    on `device`, else ctx.device, else the CUDA device."""
+    """Logits [B,S,V] over the batch and the aux loss (the MoE layers'
+    load-balance losses summed; zero without experts). Runs on `device`,
+    else ctx.device, else the CUDA device."""
     _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
-    x, _ = _run_stack(params, x, positions, arch, ctx,
-                      std_pos=_std_positions(batch))
-    return _logits(params, x, arch, ctx), torch.zeros((), device=dev)
+    x, _, aux = _run_stack(params, x, positions, arch, ctx,
+                           std_pos=_std_positions(batch))
+    return _logits(params, x, arch, ctx), aux
 
 
 def _ce(params, xc, lc, arch: ArchConfig, ctx):
@@ -430,7 +467,9 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     """Next-token CE, the LM head and softmax-CE computed in `loss_chunk`
     token chunks (each recomputed in the backward under arch.remat), so
     the f32 [tokens, vocab] logits exist one chunk at a time. Returns
-    (loss, {"nll", "aux", "loss"}); with `ctx.act_tap` the metrics gain
+    (loss, {"nll", "aux", "loss"}), loss = nll + aux_weight·aux (aux the
+    MoE layers' summed load-balance loss, zero without experts); with
+    `ctx.act_tap` the metrics gain
     "act_stats", the `TensorStats` of quantizing the residual stream at
     the stack's entry ("embed_out") and exit ("final_hidden") at the
     activation format, each one B7 launch."""
@@ -444,8 +483,8 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
                                 act_tile_shape(t.ndim, ctx.cfg.act_block))
 
         act_stats = {"embed_out": tap(x)}
-    x, _ = _run_stack(params, x, positions, arch, ctx,
-                      std_pos=_std_positions(batch))
+    x, _, aux = _run_stack(params, x, positions, arch, ctx,
+                           std_pos=_std_positions(batch))
     if act_stats is not None:
         act_stats["final_hidden"] = tap(x)
     x = rms_norm(x, params["final_norm_scale"], arch.norm_eps,
@@ -466,7 +505,6 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     else:
         tot = _ce(params, xt, lt, arch, ctx)
     nll = tot / T
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     loss = nll + aux_weight * aux
     metrics = {"nll": nll, "aux": aux, "loss": loss}
     if act_stats is not None:
@@ -486,8 +524,8 @@ def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
     x, positions = _embed_in(params, batch, arch, dev)
     if std_pos is None:
         std_pos = _std_positions(batch)
-    x, cache = _run_stack(params, x, positions, arch, ctx, want_cache=True,
-                          std_pos=std_pos)
+    x, cache, _ = _run_stack(params, x, positions, arch, ctx,
+                             want_cache=True, std_pos=std_pos)
     return _logits(params, x[:, -1:], arch, ctx), cache
 
 
@@ -498,7 +536,7 @@ def decode_step(params, batch, cache, arch: ArchConfig, ctx: Ctx,
     _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
-    x, cache = _run_stack(params, x, positions, arch, ctx, cache=cache)
+    x, cache, _ = _run_stack(params, x, positions, arch, ctx, cache=cache)
     return _logits(params, x, arch, ctx), cache
 
 

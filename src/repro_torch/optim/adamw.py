@@ -3,7 +3,10 @@
 The arithmetic per element is the reference's, in the same order of f32
 operations. Unlike the reference's functional update, the port updates the
 moments in place and walks stacked [L, ...] leaves one layer slice at a
-time, so the f32 temporaries stay one layer large. Leaves are visited in
+time, so the f32 temporaries stay one layer large; within a slice the
+update's chain runs in place where that keeps the reference's operations
+(at most three slice-sized temporaries, not seven: a 1-B-parameter
+embedding or head is 4 GB a temporary). Leaves are visited in
 the reference's `jax.tree.leaves` order (dict keys sorted), which is also
 the order of the global grad-norm sum.
 """
@@ -94,11 +97,18 @@ def adamw_update(grads, state: OptState, params, *, lr, b1: float = 0.9,
             if scale is not None:
                 gf = gf * scale
             m.mul_(b1).add_(gf * (1 - b1))
-            v.mul_(b2).add_(gf * (1 - b2) * gf)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            sq = gf * (1 - b2)
+            v.mul_(b2).add_(sq.mul_(gf))
+            del gf, sq
+            # u = (m / bc1) / (sqrt(v / bc2) + eps), op for op
+            den = v / bc2
+            den.sqrt_().add_(eps)
+            u = m / bc1
+            u.div_(den)
+            del den
             if decay:
-                u = u + weight_decay * ps.to(torch.float32)
-            u = -lr_t * u
+                u.add_(weight_decay * ps.to(torch.float32))
+            u.mul_(-lr_t)
             if apply is not None:
                 apply(n, p, i if many else None, u)
             else:

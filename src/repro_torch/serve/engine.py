@@ -46,7 +46,10 @@ identical). Paged decode is bit-identical to the dense slab engine
 (`paged=False`) by construction; tests/test_torch_serve.py pins it.
 
 Weights are the narrow-BFP serving copy (paper §4.2: 8-bit mantissa
-weights at inference); with arch.bfp_kv_cache the pages store 8-bit BFP
+weights at inference), narrowed at construction; `narrowed=True` takes
+params that already are `narrow_serving_params(params, arch, hbfp)` as
+they are, so several engines share one copy (an arctic-480b layer's
+experts are 27 GB). With arch.bfp_kv_cache the pages store 8-bit BFP
 K/V. Observability as before (DESIGN.md §12) plus: "serve/prefill" /
 "serve/insert" spans, "serve/preempt" events, page-pool gauges, and a
 bounded `request_stats` (stats_cap most-recent completions are kept;
@@ -109,7 +112,8 @@ class ServeEngine:
                  async_prefill: bool = False,
                  sampling: Optional[SamplingParams] = None,
                  stats_cap: int = 4096, device=None,
-                 cuda_graph: Optional[bool] = None):
+                 cuda_graph: Optional[bool] = None,
+                 narrowed: bool = False):
         self.arch = arch
         self.device = resolve_device(device)
         on_cuda = self.device.type == "cuda"
@@ -152,7 +156,8 @@ class ServeEngine:
         self._t_submit: Dict[int, float] = {}
         self.hbfp = _serve_cfg(hbfp)
         check_on(params["head_w"], self.device, "params")
-        self.params = narrow_serving_params(params, arch, hbfp)
+        self.params = params if narrowed else \
+            narrow_serving_params(params, arch, hbfp)
         self.max_batch = max_batch
         self.ctx_len = ctx_len
         self.C = lane_capacity(arch, ctx_len)

@@ -103,9 +103,11 @@ def test_training_entry_points_need_a_gpu():
 
 
 def test_unported_parts_raise_with_their_roadmap_item():
-    """Other model families still raise (A12): the MoE family's config,
-    and `init_params` on a MoE arch built from the reference's config;
-    step and block schedules, which raised until ROADMAP A9 was done,
+    """Other model families still raise (A12): qwen2-vl's (M-RoPE,
+    embeddings input) and musicgen's (multi-codebook heads) configs, and
+    `init_params` on each built from the reference's smoke config. The
+    MoE family, which raised until A12.3 was done, resolves and builds.
+    Step and block schedules, which raised until ROADMAP A9 was done,
     resolve as the reference's."""
     from repro.configs import get_arch as jget_arch
     from repro.precision import parse_policy as jparse
@@ -113,12 +115,18 @@ def test_unported_parts_raise_with_their_roadmap_item():
     from repro_torch.models import init_params
     from repro_torch.precision import parse_policy
     import dataclasses
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("llama4-scout-17b-a16e")
-    moe = ArchConfig(**dataclasses.asdict(
-        jget_arch("llama4-scout-17b-a16e").smoke()))
-    with pytest.raises(NotImplementedError, match="A12"):
-        init_params(0, moe, device="cpu")
+    for name in ("qwen2-vl-72b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            get_arch(name)
+        arch = ArchConfig(**dataclasses.asdict(jget_arch(name).smoke()))
+        with pytest.raises(NotImplementedError, match="A12"):
+            init_params(0, arch, device="cpu")
+    moe = get_arch("llama4-scout-17b-a16e").smoke()
+    assert dataclasses.asdict(moe) == dataclasses.asdict(
+        jget_arch("llama4-scout-17b-a16e").smoke())
+    assert get_arch("arctic-480b").n_experts == 128
+    params = init_params(0, moe, device="cpu")
+    assert params["layers"]["moe_wg"].shape == (2, 4, 128, 256)
     asd = lambda c: None if c is None else dataclasses.asdict(c)
     for spec in ("4@0,8@90%", "8; b=16@0,b=64@50%"):
         t, j = parse_policy(spec, total_steps=100), jparse(spec,
