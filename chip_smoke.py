@@ -5,6 +5,7 @@
     python3 chip_smoke.py --b7-times TREE   # B7 of another checkout, timed
     python3 chip_smoke.py --phase recurrent # device, build, recurrent only
     python3 chip_smoke.py --phase moe       # device, build, moe only
+    python3 chip_smoke.py --phase vlm_audio # device, build, vlm_audio only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -87,13 +88,14 @@ Phases (any failure exits non-zero before the result line):
    8b. accuracy — the paper's claim, loss against fp32 (ROADMAP A8): the
                 13 rows of benchmarks/design_space.py's grid at yi-9b
                 smoke, 40 steps from the port's init and data, on the card
-                and on the CPU (a second process, at the same time), each
+                and on the CPU (three processes of two threads, at the
+                same time), each
                 row's tail loss (mean of the last 5) and delta against
                 fp32 within the CPU test's tolerance (0.01 at fp32 and
                 m 8, 0.06 at m 4), with the step at which each row's
                 card and CPU losses part and the spread of their
-                per-step gaps; then minicpm-2b (all 40 layers) and
-                phi3-mini (8 of 32 layers) at full width, 40 steps of
+                per-step gaps; then minicpm-2b (8 of 40 layers) and
+                phi3-mini (4 of 32 layers) at full width, 40 steps of
                 1 x 4096 markov tokens at LR 3e-4 on each family's
                 schedule under fp32, "8; backend=pallas", HBFPConfig(8,
                 16, tile=24) and HBFPConfig(4, 16, tile=24) on pallas:
@@ -106,10 +108,11 @@ Phases (any failure exits non-zero before the result line):
                 yi-9b serving shapes;
  10. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
- 11. serve    — yi-9b at full width (random seeded bf16 weights) served by
-                the port's ServeEngine: 12 overloading requests, paged and
-                slab, each with the generate tick captured as a CUDA graph
-                (the default) and eager (cuda_graph=False): equal tokens,
+ 11. serve    — yi-9b at full width, 16 of 48 layers (random seeded
+                bf16 weights), served by the port's ServeEngine: 12
+                overloading requests, paged and slab, each with the
+                generate tick captured as a CUDA graph (the default) and
+                eager (cuda_graph=False): equal tokens,
                 every tick after the first a replay, B1's launches per
                 replay recorded at capture (7L+1, bf16 wgmma) and matched
                 by the profiler on one replayed tick, one serve/step span
@@ -128,8 +131,8 @@ Phases (any failure exits non-zero before the result line):
                 versions at the shapes only these paths give them
                 (hymba's padded K 1664 and N 6528, xLSTM's N = 8 gate
                 projection, whose B2 takes the CUDA cores); (b) hymba
-                at full width and depth (32 layers, 1 x 4096 tokens) and
-                (c) xlstm (24 layers, 1 x 2048) trained as train-full
+                at full width, 8 of 32 layers, 1 x 4096 tokens, and
+                (c) xlstm (8 of 24 layers, 1 x 2048) trained as train-full
                 does: exact B1-B3 launches (9 projections a hybrid
                 layer, 4 an mLSTM and 2 an sLSTM layer, and the head),
                 B1/B2 on int8 wgmma (but xLSTM's gate dgrads), B3 on
@@ -163,6 +166,28 @@ Phases (any failure exits non-zero before the result line):
                 graphed and eager, then in lockstep: tokens, logits and
                 KV bit for bit, 7L + 1 B1 launches a replay; the run-log
                 in chiprun_out/moe_serve_run.jsonl;
+ 11d. vlm_audio — ROADMAP A12.4-5: qwen2-vl-72b (M-RoPE, embeddings
+                input) and musicgen-large (embeddings input, four codebook
+                heads): (a) each smoke model's training step (qwen2-vl
+                also with an image-grid span, off flash) and the
+                serve-step stages (a prefill and 4 decode steps) on the
+                card against the CPU; (b) B1 at both archs' served shapes
+                (M = 8, bf16 wgmma) and B1-B3 at their training shapes (M
+                = 4096 and 3072, qwen2-vl's 152,064-word head included)
+                against their plain versions, routes checked; (c)
+                qwen2-vl at full width, 3 of 80 layers, 1 x 4096, and (d)
+                musicgen at all 48 layers, 2 x 1536 frames, trained as
+                train-full does: exact B1-B6 launches (K heads: B1
+                2·(P + K·C), or 2P + K in one CE chunk), step-0 loss
+                within 2% of fp32, the profiled step split by region; (e)
+                both served through the serve-step stages (qwen2-vl at 16
+                of 80 layers, musicgen at 48): a prefill of 8 x 512
+                seeded frames into a 1,024-slot slab, 32 decode ticks on
+                seeded next-frame embeddings, graphed (`GraphedStage`
+                over fixed input buffers) and eager from a clone of the
+                prefill cache: every tick's logits and the cache bit for
+                bit, 7L + K B1 launches a replay (bf16 wgmma), matched by
+                the profiler;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -408,9 +433,17 @@ ACC_ROWS = (("fp32", 0, None),) + tuple(
     ("sched8_b16_b64@50%", 8, "8; b=16@0,b=64@50%"),
     ("hbfp4_b16_pallas", 4, "4; b=16; backend=pallas"),
     ("hbfp4_16_t24", 4, (None, 24)), ("hbfp8_16_t24", 8, (None, 24)))
+# (a)'s CPU half runs beside the card in ACC_CPU_PROCS processes of
+# ACC_CPU_THREADS threads, the rows dealt out in turn. One process of the
+# default 8 OpenMP threads beside the card's own process oversubscribed
+# the H100 machine's 8 cores (342 s for the 13 rows); on that host 2 and
+# 4 threads give the losses of 8 bit for bit, 1, 6 and 7 do not
+ACC_CPU_PROCS, ACC_CPU_THREADS = 3, 2
 # (b) full width: (family, layers; 0 = all), 1 x 4096 markov tokens, one
-# LR a family on its own schedule, four policies (name, spec, (m, tile))
-ACC_FULL = (("minicpm-2b", 0), ("phi3-mini-3.8b", 8))
+# LR a family on its own schedule, four policies (name, spec, (m, tile)).
+# minicpm-2b at 8 of 40 layers and phi3-mini at 4 of 32 (40 and 8 took
+# ~290 s of the script's time limit)
+ACC_FULL = (("minicpm-2b", 8), ("phi3-mini-3.8b", 4))
 ACC_TOKENS = 4096
 ACC_LR = 3e-4
 ACC_WARMUP = 4
@@ -1351,12 +1384,14 @@ def _rel_fro(a, b) -> float:
 
 
 def phase_train(arch_name: str, spec: str = "8; backend=pallas",
-                key=None):
+                key=None, grid: bool = False):
     """One smoke step of `arch_name` (f32, `spec`) on the card (the
     kernels) and on the CPU (their plain versions) from the same state,
     batch and key: loss, grads and the parameter updates. yi-9b's
     attention takes flash (B4-B6), gemma2's never does. A stochastic spec
-    draws the same xorshift noise from `key` on both devices."""
+    draws the same xorshift noise from `key` on both devices. `grid`
+    gives qwen2-vl's batch an image-grid span of M-RoPE positions, which
+    keeps attention off flash."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1376,6 +1411,8 @@ def phase_train(arch_name: str, spec: str = "8; backend=pallas",
     card = TrainState(to(cpu.params), OptState(0, to(cpu.opt.mu),
                                                to(cpu.opt.nu)), 0)
     batch = batch_for_arch(arch, 2, 32, kind="markov", device="cpu")
+    if grid:
+        batch["positions"] = _grid_positions(2, 32)
     out, flash = {}, {}
     for dev, state in (("cpu", cpu), ("cuda", card)):
         step = make_step(arch, spec, sched, device=dev)
@@ -1390,7 +1427,8 @@ def phase_train(arch_name: str, spec: str = "8; backend=pallas",
     g_err = max(_rel_fro(gc[n], gg[n]) for n in gc)
     u_err = max(_rel_fro(pc[n] - p0[n], pg[n].cpu() - p0[n]) for n in pc)
     p_err = max(float((pc[n] - pg[n].cpu()).abs().max()) for n in pc)
-    log(f"[train] {arch_name} smoke {spec!r} one step card vs cpu: loss "
+    log(f"[train] {arch_name} smoke {spec!r}{' image grid' if grid else ''}"
+        f" one step card vs cpu: loss "
         f"{lg:.6f} vs "
         f"{lc:.6f}, grads rel-fro {g_err:.3g}, updates rel-fro "
         f"{u_err:.3g}, max |dparam| {p_err:.3g}; B4 plain calls on the "
@@ -1401,10 +1439,11 @@ def phase_train(arch_name: str, spec: str = "8; backend=pallas",
         fail(f"{arch_name} {spec!r}: card training step disagrees with the "
              f"CPU step")
     takes_flash = (not arch.xlstm and arch.attn_pattern == "global"
-                   and arch.attn_softcap is None)
+                   and arch.attn_softcap is None and not grid)
     if takes_flash != (flash["cpu"][0] > 0 and flash["cuda"][1] > 0):
         fail(f"{arch_name}: flash taken {flash}, expected {takes_flash}")
-    return dict(spec=spec, loss_card=lg, loss_cpu=lc, grads_rel_fro=g_err,
+    return dict(spec=spec, grid=grid, loss_card=lg, loss_cpu=lc,
+                grads_rel_fro=g_err,
                 updates_rel_fro=u_err, max_abs_param=p_err)
 
 
@@ -1597,15 +1636,16 @@ def _projections(arch) -> int:
 
 def _train_launches(arch, T: int, steps: int = 3) -> dict:
     """B1-B6 launches of `steps` training steps over T tokens a step under
-    "8; backend=pallas" with remat: the P projections and the head, each
-    recomputed in the backward (B1 twice), the head once a CE chunk; when
-    T fits one loss chunk the CE is not chunked and the head not
-    recomputed. Flash (B4 twice a layer, B5 and B6 once) on full-causal
-    attention without a softcap."""
-    P, lc = _projections(arch), arch.loss_chunk
+    "8; backend=pallas" with remat: the P projections and the K heads (K
+    codebooks, else 1), each recomputed in the backward (B1 twice), each
+    head once a CE chunk; when T fits one loss chunk (or is no whole
+    number of chunks) the CE is not chunked and the heads not recomputed.
+    Flash (B4 twice a layer, B5 and B6 once) on full-causal attention
+    without a softcap."""
+    P, lc, K = _projections(arch), arch.loss_chunk, arch.n_codebooks
     C = T // lc if lc and T > lc and T % lc == 0 else 0
-    b1 = 2 * (P + C) if C else 2 * P + 1
-    b23 = P + (C or 1)
+    b1 = 2 * (P + K * C) if C else 2 * P + K
+    b23 = P + K * (C or 1)
     fl = arch.n_layers if (not arch.xlstm and arch.attn_pattern == "global"
                            and arch.attn_softcap is None) else 0
     return {"hbfp_matmul_fwd": steps * b1, "hbfp_dgrad": steps * b23,
@@ -1643,6 +1683,18 @@ class _WallTimer:
         setattr(self.mod, self.fn, self.orig)
 
 
+def _at_depth(arch_name: str, n_layers: int = 0):
+    """`arch_name`'s config at `n_layers` of its depth (0: all) and the
+    words that say which."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(arch_name)
+    arch = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    L = arch.n_layers
+    return arch, (f"{L} of {full.n_layers} layers (depth cut)"
+                  if L < full.n_layers else f"{L} layers (no depth cut)")
+
+
 def phase_train_full(card: str, arch_name: str, B: int, S: int,
                      n_layers: int = 0, spec: str = "8; backend=pallas",
                      base=None, phase: str = "train-full", regions=(),
@@ -1650,17 +1702,16 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
                      timed=None):
     """`arch_name` at full width (n_layers > 0 cuts the depth), the policy
     `spec` (on the HBFPConfig `base` when given), B x S tokens of markov
-    data (loss_chunk 2048), constant LR 1e-4, through the Trainer (seed
+    data (seeded embeddings and uniform labels for an embeddings arch;
+    loss_chunk 2048), constant LR 1e-4, through the Trainer (seed
     SR_SEED): a warm-up step, then 3 steps whose launches are counted
     exactly, and a profiled step (split by the model `regions` too;
     none without `profile`). Every B1 launch must take int8 wgmma, every
     B2 launch too but `b2_cuda_core` of them on the CUDA cores, every B3
     bf16 wgmma. `timed` = (module, function): its host time over the 3
     counted steps (`_WallTimer`)."""
-    import dataclasses
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.data import SyntheticLM
+    from repro_torch.data import batch_for_arch
     from repro_torch.kernels import hbfp_flash_attn as fa
     from repro_torch.kernels import hbfp_matmul as hm
     from repro_torch.models import loss_fn
@@ -1670,8 +1721,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.train import Trainer, init_train_state, make_step
     from repro_torch.train.train_step import _narrow_copy
-    full = get_arch(arch_name)
-    arch = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+    arch, depth = _at_depth(arch_name, n_layers)
     L = arch.n_layers
     tag = f"[{phase} {arch_name}]"
     torch.cuda.reset_peak_memory_stats()
@@ -1679,18 +1729,18 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     state = init_train_state(0, arch)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in named_leaves(state.params))
-    depth = (f"{L} of {full.n_layers} layers (depth cut)" if L < full.n_layers
-             else f"{L} layers (no depth cut)")
     log(f"{tag} full width: {depth}, d_model {arch.d_model}, "
         f"{arch.n_heads}/{arch.n_kv_heads} heads x {arch.hd}, d_ff "
         f"{arch.d_ff}, vocab {arch.vocab_size}, {n_params / 1e9:.3f} B "
         f"params, init {time.perf_counter() - t0:.1f} s")
-    pipe = SyntheticLM(arch.vocab_size, S + 1, B, seed=0)
+    # Markov tokens, or the stub frontend's seeded embeddings with uniform
+    # (codebook) labels
+    data = lambda i: batch_for_arch(arch, B, S, step=i, kind="markov")
     # fp32 reference: the same weights and batch with plain matmuls and
     # the sim-path attention
     with torch.no_grad():
         ref = _narrow_copy(state.params, None, torch.bfloat16)
-        loss_fp32 = float(loss_fn(ref, pipe.batch(0), arch, Ctx())[0])
+        loss_fp32 = float(loss_fn(ref, data(0), arch, Ctx())[0])
         del ref
     torch.cuda.empty_cache()
     sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
@@ -1699,7 +1749,7 @@ def phase_train_full(card: str, arch_name: str, B: int, S: int,
     step = make_step(arch, spec if base is None else
                      parse_policy(spec, base=base), sched)
     sink = MemorySink()
-    trainer = Trainer(train_step=step, init_state=state, data_fn=pipe.batch,
+    trainer = Trainer(train_step=step, init_state=state, data_fn=data,
                       recorder=Recorder([sink]), seed=SR_SEED)
     lines = []
     trainer.run(1, log_every=1, log_fn=lines.append)       # warm-up
@@ -1981,6 +2031,9 @@ def _sr_proofs(card: str):
     return out
 
 
+# yi-9b serves at full width and 16 of its 48 layers (all 48 took ~115 s
+# of the script's time limit, the eager runs host-bound)
+SERVE_LAYERS = 16
 SERVE_LANES, SERVE_CTX, SERVE_NEW = 8, 1024, 32
 SERVE_LOCKSTEP = 34     # ticks: past the first completions and refills
 # one generate tick's B1 GEMM kernel as the profiler names it (fwd, not
@@ -2217,16 +2270,15 @@ def _sampled_solo_crowded(arch, params, pol, prompts, n_new):
 
 def phase_serve(card: str):
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.obs import JSONLSink
     from repro_torch.precision import parse_policy
-    arch = get_arch("yi-9b")
+    arch, depth = _at_depth("yi-9b", SERVE_LAYERS)
     pol = parse_policy("8; backend=pallas")
     t0 = time.perf_counter()
     params = init_params(0, arch)
     torch.cuda.synchronize()
-    log(f"[serve] yi-9b full width, {arch.n_layers} layers (no depth cut), "
+    log(f"[serve] yi-9b full width, {depth}, "
         f"params {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B, "
         f"init {time.perf_counter() - t0:.1f} s")
     g = torch.Generator().manual_seed(42)
@@ -2301,10 +2353,13 @@ def phase_serve(card: str):
 
 
 # recurrent: the hybrid and xLSTM families (ROADMAP A12.1-2) at full
-# width and depth. hymba-1.5b trains on 1 x 4096 tokens (its 1,024-token
+# width, trained and served at 8 of their layers (hymba's 32 and xlstm's
+# 24 took ~135 s of the script's time limit; xlstm's 8 hold one sLSTM
+# layer, its 8th). hymba-1.5b trains on 1 x 4096 tokens (its 1,024-token
 # sliding window on the sim path, the chunk scan in 32 chunks), xlstm-350m
 # on 1 x 2048 (its sLSTM scan runs token by token); the profiled step is
 # split by these regions
+REC_LAYERS = {"hymba-1.5b": 8, "xlstm-350m": 8}
 REC_TRAIN = (("hymba-1.5b", 4096, ("chunk scan", "sim attention")),
              ("xlstm-350m", 2048, ()))
 # xlstm's step is timed, not profiled: the time in its sLSTM loops
@@ -2331,24 +2386,25 @@ REC_KERNEL_CASES = (
      {"hbfp_matmul_fwd": "int8_wgmma", "hbfp_dgrad": "cuda_core"}))
 
 
-def _rec_serve(card: str, arch_name: str, modes, sink) -> dict:
-    """`arch_name` at full width (random seeded bf16 weights) served under
+def _rec_serve(card: str, arch_name: str, n_layers: int, modes,
+               sink) -> dict:
+    """`arch_name` at full width and `n_layers` of its depth (random seeded
+    bf16 weights) served under
     "8; backend=pallas": each of `modes` (paged, slab) graphed and eager
     over the same requests (equal tokens, launches and routes checked),
     then graphed and eager in lockstep (tokens, every tick's logits, the
     KV and recurrent states bit for bit, the profiled replay's B1
     launches)."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.precision import parse_policy
-    arch = get_arch(arch_name)
+    arch, depth = _at_depth(arch_name, n_layers)
     pol = parse_policy("8; backend=pallas")
     t0 = time.perf_counter()
     params = init_params(0, arch)
     torch.cuda.synchronize()
     tag = f"[recurrent serve {arch_name}]"
-    log(f"{tag} full width, {arch.n_layers} layers (no depth cut), params "
+    log(f"{tag} full width, {depth}, params "
         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B, init "
         f"{time.perf_counter() - t0:.1f} s")
     g = torch.Generator().manual_seed(43)
@@ -2436,14 +2492,14 @@ def phase_recurrent(card: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s of the phase")
     train = {}
     for arch_name, T, regions in REC_TRAIN:
-        from repro_torch.configs import get_arch
-        arch = get_arch(arch_name)
+        arch, _ = _at_depth(arch_name, REC_LAYERS[arch_name])
         # xLSTM: every mLSTM layer's gate dgrad (N = 8) takes the CUDA
         # cores, in each of the 3 counted steps
         gates = 3 * sum(i % arch.slstm_every != arch.slstm_every - 1
                         for i in range(arch.n_layers)) if arch.xlstm else 0
         train[arch_name] = phase_train_full(
-            card, arch_name, 1, T, phase="recurrent", regions=regions,
+            card, arch_name, 1, T, n_layers=REC_LAYERS[arch_name],
+            phase="recurrent", regions=regions,
             b2_cuda_core=gates, profile=bool(regions),
             timed=REC_TIMED.get(arch_name))
         r = train[arch_name]
@@ -2470,11 +2526,14 @@ def phase_recurrent(card: str) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     sink = JSONLSink(os.path.join(out_dir, "recurrent_serve_run.jsonl"),
                      mode="w")
-    serve = {"hymba-1.5b": _rec_serve(card, "hymba-1.5b", (True, False),
-                                      sink)}
+    serve = {"hymba-1.5b": _rec_serve(card, "hymba-1.5b",
+                                      REC_LAYERS["hymba-1.5b"],
+                                      (True, False), sink)}
     log(f"[time] recurrent hymba serving done at "
         f"{time.perf_counter() - t0:.1f} s of the phase")
-    serve["xlstm-350m"] = _rec_serve(card, "xlstm-350m", (False,), sink)
+    serve["xlstm-350m"] = _rec_serve(card, "xlstm-350m",
+                                     REC_LAYERS["xlstm-350m"], (False,),
+                                     sink)
     sink.close()
     log(f"[time] recurrent phase {time.perf_counter() - t0:.1f} s")
     return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
@@ -2512,7 +2571,7 @@ MOE_TRAIN_ROUTES = {"hbfp_matmul_fwd": "int8_wgmma",
                     "hbfp_dgrad": "int8_wgmma"}
 
 
-def _served_b1_case(name, K, N, gen):
+def _served_b1_case(name, K, N, gen, phase="moe"):
     """B1 as a generate tick runs it (M = 8 bf16 rows, weights narrowed
     at 8 bits in 128 x 128 tiles and taken as stored) against its plain
     version: bit-equal, on bf16 wgmma, timed."""
@@ -2540,15 +2599,15 @@ def _served_b1_case(name, K, N, gen):
     kms = _time_ms(run, _reps(run))
     pms = _time_ms(lambda: hm.hbfp_matmul_plain(x, w, 0, **kw), 2)
     row = dict(kernel="hbfp_matmul_fwd", weight=name, M=M, K=K, N=N,
-               config="moe_served", route=took[0] if len(took) == 1
+               config=f"{phase}_served", route=took[0] if len(took) == 1
                else str(took), ok=bool(ok), check="EQ", max_abs_err=err,
                err_over_bound=None, kernel_ms=kms, plain_ms=pms,
                bound_ms=bound, bound_by=by)
-    log(f"[moe kernel] B1 {name} 8x{K}x{N} served {row['route']} EQ "
+    log(f"[{phase} kernel] B1 {name} 8x{K}x{N} served {row['route']} EQ "
         f"err={err:.3g} kernel_ms={kms:.4f} bound_ms={bound:.4f}({by[0]}) "
         f"plain_ms={pms:.2f}")
     if not ok or took != ["bf16_wgmma"]:
-        fail(f"moe served B1 {name}: {row}")
+        fail(f"{phase} served B1 {name}: {row}")
     del w, x, yk, yp
     return row
 
@@ -2721,6 +2780,343 @@ def phase_moe(card: str) -> dict:
             f"{time.perf_counter() - t0:.1f} s of the phase")
     sink.close()
     log(f"[time] moe phase {time.perf_counter() - t0:.1f} s")
+    return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
+                serve=serve, seconds=time.perf_counter() - t0)
+
+
+# vlm_audio: the last two families (ROADMAP A12.4-5) at full width, both
+# fed embeddings by a stub frontend. qwen2-vl-72b (M-RoPE, GQA 8, d_ff
+# 29,568, vocab 152,064) trains at 3 of its 80 layers on 1 x 4096 tokens
+# (3.879 B parameters: 0.878 B a layer and a 1.246-B head, ~46.5 GB of f32
+# master and moments) and serves at 16 of 80 (15.29 B, the size llama4
+# served at 6 layers); musicgen-large (four codebook heads of 2,048 words)
+# trains and serves at all 48 layers, on 2 x 1536 frames (MusicGen trains
+# on 30-s segments of 1,500 frames at 50 Hz). (name, layers (0 = all),
+# B, S)
+VA_TRAIN = (("qwen2-vl-72b", 3, 1, 4096), ("musicgen-large", 0, 2, 1536))
+VA_SERVE = (("qwen2-vl-72b", 16), ("musicgen-large", 0))
+# served: 8 lanes, a slab cache of 1,024 slots, a prefill of 512 seeded
+# frames a lane, then VA_TICKS decode ticks on seeded next-frame
+# embeddings (no token feedback: the frontend supplies each frame); the
+# tick at VA_PROFILE_AT of each run is profiled
+VA_LANES, VA_CTX, VA_PROMPT, VA_TICKS, VA_PROFILE_AT = 8, 1024, 512, 32, 16
+# B1-B3 at the training shapes only these paths give them, {weight: (M,
+# K, N)}: the projections at the step's tokens, a head at its CE chunk's
+# (qwen2-vl's 4,096 tokens in two chunks of 2,048; musicgen's 3,072 in
+# one, so its four heads share the projections' shape); every N and K is
+# a whole number of 128-value stages; B1 also at M = 8 (the generate
+# tick) on the same weights
+VA_SHAPES = {
+    "qwen2vl": {"wq": (4096, 8192, 8192), "wkv": (4096, 8192, 1024),
+                "ffn_wgi": (4096, 8192, 29568),
+                "ffn_wo": (4096, 29568, 8192),
+                "head": (2048, 8192, 152064)},
+    "musicgen": {"wqkvo_head": (3072, 2048, 2048),
+                 "ffn_wgi": (3072, 2048, 8192),
+                 "ffn_wo": (3072, 8192, 2048)}}
+VA_REGIONS = ("optimizer", "narrowing")
+
+
+def _grid_positions(b: int, s: int):
+    """[3, b, s] int32 M-RoPE positions of 4 text tokens, a 2 x 4 image
+    and text again: text has t = h = w, the image's patches share t and
+    take h and w from their row and column, the text after it resumes at
+    the largest position + 1 (Qwen2-VL §2.1). s >= 16."""
+    import torch
+    p = torch.zeros((3, s), dtype=torch.int32)
+    p[:, :4] = torch.arange(4)
+    r, c = torch.arange(8) // 4, torch.arange(8) % 4
+    p[0, 4:12], p[1, 4:12], p[2, 4:12] = 4, 4 + r, 4 + c
+    p[:, 12:] = torch.arange(8, 8 + s - 12)
+    return p[:, None].expand(3, b, s).contiguous()
+
+
+def _text_positions(arch, b: int, s: int, device=None):
+    """Text positions 0 .. s-1, [b, s] int32 ([3, b, s] under M-RoPE)."""
+    import torch
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=device)[None].expand(b, s)
+    return (pos[None].expand(3, b, s) if arch.mrope else pos).contiguous()
+
+
+def _smoke_stages(arch_name: str, grid: bool = False) -> dict:
+    """`arch_name` smoke in f32 served through the serve-step stages on the
+    card (kernel path) and on the CPU (plain path) from the same weights:
+    a 12-frame prefill of 2 lanes over seeded embeddings (with an
+    image-grid span when `grid`), then 4 decode steps on next-frame
+    embeddings; every step's logits within 2e-3·max|cpu|."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.precision import parse_policy
+    from repro_torch.train.serve_step import (make_decode_fn,
+                                              make_prefill_fn,
+                                              narrow_serving_params,
+                                              prefill_to_decode_cache)
+    arch = dataclasses.replace(get_arch(arch_name).smoke(), dtype="float32")
+    pol = parse_policy("8; backend=pallas")
+    B, P, n_dec = 2, 12, 4
+    g = torch.Generator().manual_seed(12)
+    emb = torch.randn((B, P + n_dec, arch.d_model), generator=g)
+    pos = _grid_positions(B, P + n_dec) if grid else \
+        _text_positions(arch, B, P + n_dec)
+    p_cpu = init_params(7, arch, device="cpu")
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.cuda()
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", to(p_cpu))):
+        sp = narrow_serving_params(params, arch, pol)
+        pre = make_prefill_fn(arch, pol, device=dev)
+        dec = make_decode_fn(arch, pol, device=dev)
+        b = lambda s0, s1: {"embeds": emb[:, s0:s1].to(dev),
+                            "positions": pos[..., s0:s1].to(dev)}
+        lg, cache = pre(sp, b(0, P))
+        cache = prefill_to_decode_cache(cache, arch, 32)
+        steps = [lg.float().cpu()]
+        for t in range(P, P + n_dec):
+            lg, cache = dec(sp, b(t, t + 1), cache)
+            steps.append(lg.float().cpu())
+        out[dev] = steps
+    K = arch.n_codebooks
+    shape = (B, 1, K, arch.vocab_size) if K > 1 else (B, 1, arch.vocab_size)
+    errs = []
+    for a, c in zip(out["cpu"], out["cuda"]):
+        if tuple(c.shape) != shape or not torch.isfinite(c).all():
+            fail(f"{arch_name}: bad card logits {tuple(c.shape)}")
+        errs.append(float((a - c).abs().max() / a.abs().max()))
+    log(f"[vlm_audio] {arch_name} smoke f32 stages{' image grid' if grid else ''}"
+        f" card vs cpu: prefill and {n_dec} decode steps max|d|/max|cpu| "
+        f"{[f'{e:.3g}' for e in errs]} (tol 2e-3)")
+    if max(errs) > 2e-3:
+        fail(f"{arch_name}: card stage logits disagree with the CPU path")
+    return dict(grid=grid, rel_errs=errs)
+
+
+def _clone_cache(cache):
+    return {k: type(c)(*(None if t is None else t.clone() for t in c))
+            for k, c in cache.items()}
+
+
+def _va_serve(card: str, arch_name: str, n_layers: int) -> dict:
+    """`arch_name` at full width and `n_layers` of its depth (0: all;
+    random seeded bf16 weights) served through the serve-step stages under
+    "8; backend=pallas": the serving copy narrowed once and the raw
+    weights freed; a prefill of VA_LANES x VA_PROMPT seeded frames into a
+    slab cache of VA_CTX slots; VA_TICKS decode ticks on seeded next-frame
+    embeddings, the tick a `GraphedStage` over fixed input buffers
+    (embeds [8,1,D], positions [3,8,1] or [8,1]); the same ticks eagerly
+    from a clone of the prefill cache. Graphed == eager in every tick's
+    logits and the cache, bit for bit; 7L + K B1 launches a replay, all
+    bf16 wgmma, matched by the profiler on one replayed tick."""
+    import torch
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.models import init_params
+    from repro_torch.precision import parse_policy
+    from repro_torch.serve.graph import GraphedStage
+    from repro_torch.train.serve_step import (make_decode_fn,
+                                              make_prefill_fn,
+                                              narrow_serving_params,
+                                              prefill_to_decode_cache)
+    arch, depth = _at_depth(arch_name, n_layers)
+    L, K, D = arch.n_layers, arch.n_codebooks, arch.d_model
+    pol = parse_policy("8; backend=pallas")
+    tag = f"[vlm_audio serve {arch_name}]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = init_params(0, arch)
+    n_raw = sum(t.numel() for t in _leaves(raw))
+    params = narrow_serving_params(raw, arch, pol)
+    del raw
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    load_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} full width, {depth}, {n_raw / 1e9:.3f} B params; init and "
+        f"narrowing {time.perf_counter() - t0:.1f} s, peak {load_peak:.2f} "
+        f"GiB (raw and narrowed weights together) | {card}")
+    torch.cuda.reset_peak_memory_stats()
+    prefill_fn = make_prefill_fn(arch, pol)
+    decode_fn = make_decode_fn(arch, pol)
+    B, P = VA_LANES, VA_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    emb = torch.randn((B, P, D), generator=gen, device="cuda")
+    nxt = torch.randn((VA_TICKS, B, 1, D), generator=gen, device="cuda")
+    per_call = _projections(arch) + K
+    hm.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lg0, cache = prefill_fn(params, {"embeds": emb})   # text positions
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    fwd = hm.hbfp_matmul_fwd
+    pre_launches, pre_routes = fwd.launches, dict(fwd.launches_by_route)
+    shape = (B, 1, K, arch.vocab_size) if K > 1 else (B, 1, arch.vocab_size)
+    if tuple(lg0.shape) != shape or not torch.isfinite(lg0).all():
+        fail(f"{arch_name}: bad prefill logits {tuple(lg0.shape)}")
+    if pre_launches != per_call or pre_routes["bf16_wgmma"] != per_call:
+        fail(f"{arch_name}: prefill B1 launches {pre_routes}, expected "
+             f"{per_call} on bf16_wgmma")
+    cache = prefill_to_decode_cache(cache, arch, VA_CTX)
+    eager_cache = _clone_cache(cache)
+    # the graphed tick's fixed input buffers
+    e_buf = torch.empty((B, 1, D), device="cuda")
+    p_buf = torch.empty_like(_text_positions(arch, B, 1, device="cuda"))
+    batch = {"embeds": e_buf, "positions": p_buf}
+    stage = GraphedStage(lambda: decode_fn(params, batch, cache)[0])
+    runs, prof = {}, {}
+    for kind in ("graphed", "eager"):
+        hm.reset_counts()
+        logits, tick_ms = [], []
+        for t in range(VA_TICKS):
+            e_buf.copy_(nxt[t])
+            p_buf.fill_(P + t)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if kind == "graphed":
+                run = stage
+            else:
+                run = lambda: decode_fn(params, {"embeds": nxt[t],
+                                                 "positions": p_buf.clone()},
+                                        eager_cache)[0]
+            if t == VA_PROFILE_AT:
+                out, prof[kind] = _profile_tick(run)
+            else:
+                out = run()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+            logits.append(out.clone())
+        runs[kind] = dict(logits=logits, tick_ms=tick_ms,
+                          launches=fwd.launches,
+                          routes=dict(fwd.launches_by_route))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    g, e = runs["graphed"], runs["eager"]
+    for t, (a, b) in enumerate(zip(g["logits"], e["logits"])):
+        if tuple(a.shape) != shape or not torch.isfinite(a).all():
+            fail(f"{arch_name}: bad tick {t} logits {tuple(a.shape)}")
+        if not torch.equal(a, b):
+            fail(f"{arch_name}: tick {t} logits graphed != eager by "
+                 f"{float((a - b).abs().max())}")
+    for key in cache:
+        for name, a, b in zip(cache[key]._fields, cache[key],
+                              eager_cache[key]):
+            if a is not None and not torch.equal(a, b):
+                fail(f"{arch_name}: cache {key}.{name} graphed != eager")
+    want = (per_call, {"int8_wgmma": 0, "bf16_wgmma": per_call,
+                       "cuda_core": 0})
+    if stage.calls != VA_TICKS or stage.replays != VA_TICKS - 1 \
+            or stage.per_replay["hbfp_matmul_fwd"] != want:
+        fail(f"{arch_name}: stage calls {stage.calls}, replays "
+             f"{stage.replays}, B1 per replay "
+             f"{stage.per_replay['hbfp_matmul_fwd']}, expected {want}")
+    for kind, r in runs.items():
+        n = VA_TICKS * per_call
+        if r["launches"] != n or r["routes"]["bf16_wgmma"] != n:
+            fail(f"{arch_name} {kind}: B1 launches {r['routes']}, expected "
+                 f"{n} on bf16_wgmma")
+        if prof[kind]["b1_gemm_launches"] != per_call:
+            fail(f"{arch_name} {kind}: the profiled tick ran "
+                 f"{prof[kind]['b1_gemm_launches']} B1 GEMM kernels, "
+                 f"expected {per_call}")
+    numbers = {}
+    for kind, r in runs.items():
+        steady = sorted(ms for t, ms in enumerate(r["tick_ms"])
+                        if t >= 2 and t != VA_PROFILE_AT)
+        n = prof[kind]
+        numbers[kind] = dict(tick_ms=steady[len(steady) // 2],
+                             tick_ms_first=r["tick_ms"][:2],
+                             profiled_tick=n)
+        log(f"{tag} {kind}: tick {numbers[kind]['tick_ms']:.2f} ms wall "
+            f"(median of ticks 2-{VA_TICKS - 1} unprofiled; first two "
+            f"{[round(x, 1) for x in r['tick_ms'][:2]]}), profiled tick "
+            f"{n['wall_ms']:.2f} ms wall, {n['device_ms']:.2f} ms of "
+            f"kernels (device idle {1 - n['device_ms'] / n['wall_ms']:.1%}), "
+            f"B1 {n['b1_ms']:.2f} ms in {n['b1_gemm_launches']} GEMM "
+            f"launches, {n['kernels']} kernels | {card}")
+    log(f"{tag} prefill {B} x {P} frames {prefill_ms:.1f} ms ({per_call} "
+        f"B1 launches, bf16_wgmma); graphed == eager over {VA_TICKS} ticks:"
+        f" every tick's logits and the cache bit for bit; {per_call} B1 "
+        f"launches a replay (7L + K = 7·{L} + {K}); peak {peak:.2f} GiB | "
+        f"{card}")
+    del params, cache, eager_cache, stage, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=L, params=n_raw, load_peak_gib=load_peak,
+                peak_gib=peak, prefill_ms=prefill_ms, per_replay=per_call,
+                launches=pre_launches + 2 * VA_TICKS * per_call,
+                numbers=numbers)
+
+
+def phase_vlm_audio(card: str) -> dict:
+    """qwen2-vl-72b and musicgen-large: (a) each smoke model, one training
+    step and the serve-step stages (a prefill and 4 decode steps) on the
+    card against the CPU, qwen2-vl also with an image-grid span; (b) B1 at
+    both archs' served shapes (M = 8) and B1-B3 at their training shapes
+    (M = 4096 and 3072, qwen2-vl's head at its CE chunk's 2048, the
+    heads included) against their plain versions,
+    routes checked; (c) qwen2-vl at full width, 3 of 80 layers, and (d)
+    musicgen at all 48, trained through the Trainer (exact B1-B6 launches
+    on their tensor-core routes, step-0 loss within 2% of fp32); (e) both
+    served at full width through the serve-step stages, the decode tick
+    graphed against eager."""
+    import torch
+    t0 = time.perf_counter()
+    smoke = {}
+    for a in ("qwen2-vl-72b", "musicgen-large"):
+        smoke[a] = dict(train=[phase_train(a)], serve=[_smoke_stages(a)])
+    smoke["qwen2-vl-72b"]["train"].append(phase_train("qwen2-vl-72b",
+                                                      grid=True))
+    smoke["qwen2-vl-72b"]["serve"].append(_smoke_stages("qwen2-vl-72b",
+                                                        grid=True))
+    gen = torch.Generator(device="cuda").manual_seed(2525)
+    kernel_rows = []
+    for fam, shapes in VA_SHAPES.items():
+        for w, (M, K, N) in shapes.items():
+            kernel_rows.append(_served_b1_case(f"{fam}_{w}", K, N, gen,
+                                               "vlm_audio"))
+            kernel_rows += _bwd_case(f"{fam}_{w}", M, K, N, True, 8, 0,
+                                     False, gen, "vlm_audio",
+                                     route=MOE_TRAIN_ROUTES)
+            torch.cuda.empty_cache()
+    log(f"[time] vlm_audio smoke and kernels done at "
+        f"{time.perf_counter() - t0:.1f} s of the phase")
+    train = {}
+    for arch_name, layers, B, S in VA_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        # qwen2-vl's step fills the card as llama4's does (f32 master,
+        # moments and grads of 3.9 B parameters, GB-sized head
+        # temporaries): expandable segments leave no fragments behind
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            train[arch_name] = phase_train_full(
+                card, arch_name, B, S, n_layers=layers, phase="vlm_audio",
+                regions=VA_REGIONS)
+        finally:
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+        prof = train[arch_name]["profile"]
+        if prof is not None:
+            sh = prof["share"]
+            kern = sum(v for k, v in sh.items() if k.startswith(
+                ("B1", "B2", "B3", "B4", "B5", "B6", "f32 quantize")))
+            log(f"[vlm_audio {arch_name}] profiled step by region: "
+                + ", ".join(f"{k} {sh[k]:.1%}" for k in VA_REGIONS)
+                + f", B1-B6 {kern:.1%}, the rest "
+                f"{sh['everything else']:.1%} ({prof['kernels']} kernels)")
+            for row in prof["top"][:6]:
+                log(f"[vlm_audio {arch_name}]   {row['ms']:9.2f} ms "
+                    f"{row['count']:7d}  {row['kernel']}")
+        log(f"[time] vlm_audio {arch_name} training done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = {}
+    for arch_name, layers in VA_SERVE:
+        serve[arch_name] = _va_serve(card, arch_name, layers)
+        log(f"[time] vlm_audio {arch_name} serving done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+    log(f"[time] vlm_audio phase {time.perf_counter() - t0:.1f} s")
     return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
                 serve=serve, seconds=time.perf_counter() - t0)
 
@@ -3174,10 +3570,11 @@ def _tail(losses) -> float:
     return sum(losses[-5:]) / 5
 
 
-def _acc_smoke_losses(dev: str) -> dict:
-    """(a)'s rows on `dev` ("cuda" or "cpu"): {row: its 40 losses} at
-    yi-9b smoke (bf16) from the port's own init (drawn on the CPU, copied
-    to the card) and data."""
+def _acc_smoke_losses(dev: str, names=None, threads: int = 0) -> dict:
+    """(a)'s rows on `dev` ("cuda" or "cpu"), all or those `names`: {row:
+    its 40 losses} at yi-9b smoke (bf16) from the port's own init (drawn
+    on the CPU, copied to the card) and data; on `threads` CPU threads
+    when given."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
@@ -3190,8 +3587,12 @@ def _acc_smoke_losses(dev: str) -> dict:
     to = lambda t: {k: to(v) for k, v in t.items()} \
         if isinstance(t, dict) else t.to(dev)
     pipe = SyntheticLM(arch.vocab_size, 33, 8, seed=0, device=dev)
+    if threads:
+        torch.set_num_threads(threads)
     losses = {}
     for name, m, spec in ACC_ROWS:
+        if names is not None and name not in names:
+            continue
         state = init_train_state(0, arch, device="cpu")
         if dev != "cpu":
             state = TrainState(to(state.params), OptState(
@@ -3252,22 +3653,16 @@ def _acc_full(card: str, family: str, n_layers: int, bound: float) -> dict:
     under ACC_POLICIES (fp32 first) from one init: loss curves, deltas
     against fp32, step times, peak memory, exact launch counts and routes
     of B1-B6."""
-    import dataclasses
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.core import HBFPConfig
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import make_schedule
     from repro_torch.optim.adamw import named_leaves
     from repro_torch.precision import parse_policy
     from repro_torch.train import init_train_state, make_step
-    full = get_arch(family)
-    arch = dataclasses.replace(full, n_layers=n_layers) if n_layers \
-        else full
+    arch, depth = _at_depth(family, n_layers)
     L = arch.n_layers
     tag = f"[accuracy {family}]"
-    depth = (f"{L} of {full.n_layers} layers (depth cut)"
-             if L < full.n_layers else f"{L} layers (no depth cut)")
     sched = make_schedule(arch.lr_schedule, base_lr=ACC_LR,
                           warmup_steps=ACC_WARMUP, total_steps=ACC_STEPS)
     pipe = SyntheticLM(arch.vocab_size, ACC_TOKENS + 1, 1, seed=0)
@@ -3364,13 +3759,18 @@ def phase_accuracy(card: str) -> dict:
     card, (b) minicpm-2b and phi3-mini at full width, the bound on HBFP8
     tile 24's delta max(0.1, 3x its smoke delta on the card) and HBFP8
     tile 24 no worse than HBFP4 tile 24 plus ACC_CONTROL_NOISE; (a)'s CPU
-    half runs in a second process beside both and is checked last."""
+    half runs in ACC_CPU_PROCS processes beside both and is checked
+    last."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
-            "spawn")) as pool:
-        on_cpu = pool.submit(_acc_smoke_losses, "cpu")
+    with ProcessPoolExecutor(ACC_CPU_PROCS,
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        names = [r[0] for r in ACC_ROWS]
+        on_cpu = [pool.submit(_acc_smoke_losses, "cpu",
+                              names[i::ACC_CPU_PROCS], ACC_CPU_THREADS)
+                  for i in range(ACC_CPU_PROCS)]
         _reset_counts()
         by_dev = {"cuda": _acc_smoke_losses("cuda")}
         counts, _ = _counts()
@@ -3381,8 +3781,12 @@ def phase_accuracy(card: str) -> dict:
             - _tail(by_dev["cuda"]["fp32"])
         bound = max(0.1, 3 * abs(d8))
         full = {f: _acc_full(card, f, n, bound) for f, n in ACC_FULL}
-        by_dev["cpu"] = on_cpu.result()
-    log(f"[accuracy smoke] the CPU half (a second process) done by "
+        log(f"[accuracy] the card's half done by "
+            f"{time.perf_counter() - t0:.1f} s")
+        by_dev["cpu"] = {n: ls for f in on_cpu for n, ls in
+                         f.result().items()}
+    log(f"[accuracy smoke] the CPU half ({ACC_CPU_PROCS} processes of "
+        f"{ACC_CPU_THREADS} threads) done by "
         f"{time.perf_counter() - t0:.1f} s")
     smoke = _acc_smoke_check(by_dev, counts, routes)
     return dict(smoke=smoke, full=full, bound=bound)
@@ -3529,7 +3933,8 @@ def main() -> int:
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
-    phases = {"recurrent": phase_recurrent, "moe": phase_moe}
+    phases = {"recurrent": phase_recurrent, "moe": phase_moe,
+              "vlm_audio": phase_vlm_audio}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -3572,7 +3977,9 @@ def main() -> int:
     log(f"[time] recurrent done at {time.perf_counter() - t0:.1f} s")
     moe = phase_moe(card)
     log(f"[time] moe done at {time.perf_counter() - t0:.1f} s")
-    bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"]
+    va = phase_vlm_audio(card)
+    log(f"[time] vlm_audio done at {time.perf_counter() - t0:.1f} s")
+    bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"] + va["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "card": card, "build": build,
@@ -3581,7 +3988,8 @@ def main() -> int:
                    "adaptive_smoke": adapt_smoke, "train_full": train,
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
-                   "serve": serve, "recurrent": rec, "moe": moe},
+                   "serve": serve, "recurrent": rec, "moe": moe,
+                   "vlm_audio": va},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -3599,6 +4007,8 @@ def main() -> int:
     acc_route = lambda k, r: sum(run["routes"][k][r]
                                  for rs in acc_runs.values() for run in rs)
     rec_train = rec["train"]
+    va_train = {"train_qwen2vl": va["train"]["qwen2-vl-72b"],
+                "train_musicgen": va["train"]["musicgen-large"]}
     by_path = lambda k: {"train_gemma2": train["launches"][k],
                          "train_yi": train_yi["launches"][k],
                          "train_sr_gemma2": sr["launches"][k],
@@ -3606,10 +4016,12 @@ def main() -> int:
                          **acc_paths(k),
                          "train_hymba": rec_train["hymba-1.5b"]["launches"][k],
                          "train_xlstm": rec_train["xlstm-350m"]["launches"][k],
-                         "train_llama4": moe["train"]["launches"][k]}
+                         "train_llama4": moe["train"]["launches"][k],
+                         **{p: t["launches"][k] for p, t in va_train.items()}}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
                   for a, r in (*rec["serve"].items(),
-                               *moe["serve"].items())}
+                               *moe["serve"].items(),
+                               *va["serve"].items())}
     b1_paths = {"serve": serve_launches, **rec_served,
                 **by_path("hbfp_matmul_fwd")}
     # main-path launches by route: training, the adaptive run and the
@@ -3620,6 +4032,7 @@ def main() -> int:
         + sr["routes"][k][r] + adapt["launches"][f"{k}/{r}"]
         + acc_route(k, r) + sum(t["routes"][k][r] for t in rec_train.values())
         + moe["train"]["routes"][k][r]
+        + sum(t["routes"][k][r] for t in va_train.values())
         + (served if r == "bf16_wgmma" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
@@ -3630,8 +4043,9 @@ def main() -> int:
         "source": src + "hbfp_matmul_fwd.cu",
         "replaces": "src/repro/kernels/hbfp_matmul.py:140",
         "held_against": "hbfp_matmul_plain",
-        # every main path: yi-9b, hymba-1.5b, xlstm-350m, llama4-scout
-        # and arctic-480b serving, and the training paths
+        # every main path: yi-9b, hymba-1.5b, xlstm-350m, llama4-scout,
+        # arctic-480b, qwen2-vl-72b and musicgen-large serving, and the
+        # training paths
         "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         # one generate tick's eight served shapes (seven projections of a
@@ -3658,11 +4072,14 @@ def main() -> int:
     flash_route = lambda k: {r: train_yi["routes"][k][r]
                              + adapt["launches"][f"{k}/{r}"]
                              + acc_route(k, r) + moe["train"]["routes"][k][r]
+                             + sum(t["routes"][k][r]
+                                   for t in va_train.values())
                              for r in ("int8_wgmma", "cuda_core")}
     b456 = [_flash_entry(k, flash, {
                 "train_yi": train_yi["launches"][k],
                 "adaptive_yi": adapt["launches"][k], **acc_paths(k),
-                "train_llama4": moe["train"]["launches"][k]},
+                "train_llama4": moe["train"]["launches"][k],
+                **{p: t["launches"][k] for p, t in va_train.items()}},
                          fref + line,
                          src + ("hbfp_flash_fwd_sm90.cuh"
                                 if k == "hbfp_flash_fwd"

@@ -3,8 +3,7 @@
 The fields and `.smoke()` match the reference exactly, so one config
 describes the same model in both packages. `policy()` is not ported: the
 port resolves `precision` strings with its own `repro_torch.precision`.
-Only the architectures of ported slices are registered; the others raise
-and name the ROADMAP item that adds them.
+Every architecture of the reference is registered.
 """
 from __future__ import annotations
 
@@ -102,9 +101,9 @@ class ArchConfig:
         )
 
 
-_REGISTRY = ("gemma2_2b", "yi_9b", "minicpm_2b", "phi3_mini_3_8b",
-             "hymba_1_5b", "xlstm_350m", "llama4_scout_17b_a16e",
-             "arctic_480b")
+_REGISTRY = ("qwen2_vl_72b", "yi_9b", "gemma2_2b", "minicpm_2b",
+             "phi3_mini_3_8b", "arctic_480b", "llama4_scout_17b_a16e",
+             "musicgen_large", "hymba_1_5b", "xlstm_350m")
 
 
 def arch_ids() -> Tuple[str, ...]:
@@ -114,7 +113,5 @@ def arch_ids() -> Tuple[str, ...]:
 def get_arch(name: str) -> ArchConfig:
     mod = name.replace("-", "_").replace(".", "_")
     if mod not in _REGISTRY:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP A12); ported: "
-            f"{arch_ids()}")
+        raise KeyError(f"unknown arch {name!r}; known: {arch_ids()}")
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG

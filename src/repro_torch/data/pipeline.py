@@ -72,18 +72,23 @@ class SyntheticLM:
 def batch_for_arch(arch: ArchConfig, batch_size: int, seq_len: int,
                    step: int = 0, seed: int = 0, kind: str = "uniform",
                    device=None) -> dict:
-    """A train batch {"tokens", "labels"} [batch_size, seq_len] for a
-    token-input arch, on `device` (the CUDA device by default)."""
-    if arch.input_kind != "tokens" or arch.n_codebooks > 1:
-        raise NotImplementedError(
-            f"{arch.name}: embedding and codebook inputs come with ROADMAP "
-            f"A12")
-    if kind == "markov":
-        return SyntheticLM(arch.vocab_size, seq_len + 1, batch_size, seed,
-                           device=device).batch(step)
+    """A train batch matching the arch's input kind, on `device` (the CUDA
+    device by default): "embeds" [B,S,D] f32 normals for an embeddings
+    arch (the stub frontend's output), else "tokens" [B,S] ([B,S,K] with
+    K codebooks); "labels" [B,S], or [B,S,K] with K codebooks. "markov"
+    applies to single-codebook token input."""
     dev = resolve_device(device)
+    K = arch.n_codebooks
+    if kind == "markov" and arch.input_kind == "tokens" and K == 1:
+        return SyntheticLM(arch.vocab_size, seq_len + 1, batch_size, seed,
+                           device=dev).batch(step)
     gen = _generator(seed, step)
-    shape = (batch_size, seq_len)
-    tokens = torch.randint(0, arch.vocab_size, shape, generator=gen)
-    labels = torch.randint(0, arch.vocab_size, shape, generator=gen)
-    return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    shape = (batch_size, seq_len) + ((K,) if K > 1 else ())
+    b = {}
+    if arch.input_kind == "embeddings":
+        b["embeds"] = torch.randn((batch_size, seq_len, arch.d_model),
+                                  generator=gen)
+    else:
+        b["tokens"] = torch.randint(0, arch.vocab_size, shape, generator=gen)
+    b["labels"] = torch.randint(0, arch.vocab_size, shape, generator=gen)
+    return {k: v.to(dev) for k, v in b.items()}

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels.common import max_exponent, pow2
 from repro_torch.kernels.hbfp_flash_attn import FlashAttention, FlashSpec
-from repro_torch.models.layers import apply_rope, ctx_matmul, softcap
+from repro_torch.models.layers import (apply_mrope, apply_rope, ctx_matmul,
+                                       softcap)
 from repro_torch.precision import role_width_for
 
 NEG_INF = -1e30
@@ -236,16 +237,18 @@ def _paged_append(cache: PagedKVCache, k, v, tok_pos, bfp_cache: bool,
 
 
 def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
-                    positions, rope_theta=10000.0, window=None,
-                    attn_cap=None, q_chunk=512, cache=None,
+                    positions, rope_theta=10000.0, mrope: bool = False,
+                    window=None, attn_cap=None, q_chunk=512, cache=None,
                     return_cache: bool = False, bfp_cache: bool = False,
                     flash_ok: bool = False):
-    """x: [B,S,D]; positions: [B,S]. Without a cache (training, prefill)
-    the block attends causally within x; with one (decode, chunked
-    prefill) the S incoming tokens are appended to their ring slots first
-    and the block attends over the cache. flash_ok: the arch's pattern is
-    full-causal without softcap and the positions are standard, so the
-    reference would take its flash kernel here."""
+    """x: [B,S,D]; positions: [B,S], or [3,B,S] under M-RoPE, whose
+    temporal component is the token's position for the mask and the
+    cache. Without a cache (training, prefill) the block attends causally
+    within x; with one (decode, chunked prefill) the S incoming tokens
+    are appended to their ring slots first and the block attends over the
+    cache. flash_ok: the arch's pattern is full-causal without softcap
+    and the positions are standard, so the reference would take its flash
+    kernel here."""
     B, S, D = x.shape
     q = ctx_matmul(x, p["attn_wq"], ctx, "wq")
     k = ctx_matmul(x, p["attn_wk"], ctx, "wk")
@@ -253,9 +256,10 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
     q = q.reshape(B, S, n_heads, head_dim).transpose(1, 2)
     k = k.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
     v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    tok_pos = positions
+    rot = apply_mrope if mrope else apply_rope
+    q = rot(q, positions, rope_theta)
+    k = rot(k, positions, rope_theta)
+    tok_pos = positions[0] if mrope else positions
 
     if cache is None:
         # the reference's static flash gate (repro/models/attention.py)

@@ -46,6 +46,30 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta: float = 1e6,
+                sections=(0.25, 0.375, 0.375)):
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191 §2.1): the frequency
+    axis splits into temporal, height and width sections, each rotated by
+    its own position component. x: [B, H, S, hd]; positions3: [3, B, S]
+    int (t = h = w for text, which reduces to `apply_rope`)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    s0 = int(half * sections[0])
+    s1 = int(half * sections[1])
+    sizes = (s0, s1, half - s0 - s1)
+    inv = rope_freqs(hd, theta, device=x.device)
+    parts, start = [], 0
+    for comp, sz in enumerate(sizes):
+        pos = positions3[comp][:, None, :, None].to(torch.float32)
+        parts.append(pos * inv[start:start + sz])
+        start += sz
+    ang = torch.cat(parts, dim=-1)                    # [B, 1, S, half]
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 _UNSET = object()
 
 # ctx_matmul sites that are one of the named attention roles

@@ -1,8 +1,9 @@
 """Transformer-family stack (port of `repro.models.transformer`): the
 dense family, hymba's hybrid layers (attention and a mamba branch in
-parallel, `models/ssm.py`), xLSTM stacks (`models/xlstm.py`) and the MoE
+parallel, `models/ssm.py`), xLSTM stacks (`models/xlstm.py`), the MoE
 family (`models/moe.py`: llama4-scout's shared expert, arctic's dense
-residual).
+residual), qwen2-vl (M-RoPE, embeddings input) and musicgen (embeddings
+input, one head per codebook).
 
 Entry points:
   init_params(seed, arch, device=None)             -> params dict
@@ -12,9 +13,16 @@ Entry points:
   prefill(params, batch, arch, ctx)                -> (logits_last, cache)
   decode_step(params, batch, cache, arch, ctx)     -> (logits, cache)
 
+`batch` keys: "tokens" [B,S] (or [B,S,K] codebook tokens, whose
+embeddings are summed) or "embeds" [B,S,D] for an arch with
+input_kind "embeddings"; "positions" [B,S], or [3,B,S] under M-RoPE
+(synthesized as arange when absent); "labels" [B,S], or [B,S,K] with K
+codebooks.
+
 Parameters keep the reference's nested-dict layout: a "layers" dict of
-tensors stacked on a leading L axis, "embed_table", "head_w" and
-"final_norm_scale", so parameter names are byte-identical. "layers" may
+tensors stacked on a leading L axis, "embed_table" (token input only),
+"head_w" ([D,V], or [K,D,V] with K codebooks) and "final_norm_scale",
+so parameter names are byte-identical. "layers" may
 also be a list of per-layer dicts (the train step's narrow copy, so each
 layer's weights are autograd leaves of their own). The layer scan is a
 Python loop over layers; with `arch.remat` each layer, and each chunk of
@@ -29,18 +37,19 @@ An xLSTM layer runs only its active branch (the reference runs both and
 selects one: the same output); the other branch's parameters are unused
 and the train step gives them zero gradients. A MoE layer's aux
 load-balance loss is carried out of the layer (out of its checkpoint
-too) and summed over the layers. M-RoPE, embeddings input and
-multi-codebook heads come with ROADMAP A12.
+too) and summed over the layers.
 
 Kernel launches of one training step under "…; backend=pallas" with
-remat and C cross-entropy chunks (C = 1 when the tokens fit one chunk,
-and then the head is not recomputed), P projections a layer summed over
-the layers (7 dense, 9 hybrid, 4 mLSTM and 2 sLSTM; 7 MoE: four
-attention and the three of the shared expert or dense residual, as the
-expert GEMMs' weights are 3-D and take the sim path): B1 2·(P + C)
-(forward and recompute), B2 and B3 P + C each; where attention takes
-flash (yi-9b, llama4-scout, arctic), B4 2L (its Function's forward runs
-again in each layer's recompute), B5 and B6 L.
+remat, C cross-entropy chunks and K heads (K = 1 but for musicgen's
+codebooks; each head is its own [D,V] product), P projections a layer
+summed over the layers (7 dense, 9 hybrid, 4 mLSTM and 2 sLSTM; 7 MoE:
+four attention and the three of the shared expert or dense residual, as
+the expert GEMMs' weights are 3-D and take the sim path): B1 2·(P + K·C)
+(forward and recompute), or 2P + K when the tokens fit one chunk (the
+head is then not recomputed); B2 and B3 P + K·C each; where attention
+takes flash (yi-9b, llama4-scout, arctic, qwen2-vl with text positions,
+musicgen), B4 2L (its Function's forward runs again in each layer's
+recompute), B5 and B6 L.
 """
 from __future__ import annotations
 
@@ -65,13 +74,6 @@ from repro_torch.numerics.stats import tensor_stats
 BIG_WINDOW = 1 << 30
 # the recurrent-state entries of a cache (tuples of stacked tensors)
 STATE_KEYS = ("ssm", "mlstm", "slstm")
-
-
-def _require_ported(arch: ArchConfig) -> None:
-    if arch.mrope or arch.input_kind != "tokens" or arch.n_codebooks > 1:
-        raise NotImplementedError(
-            f"{arch.name}: M-RoPE, embeddings input and multi-codebook "
-            f"heads are not ported yet; they come with ROADMAP A12")
 
 
 def _layer_leaves(arch: ArchConfig):
@@ -135,10 +137,11 @@ def init_params(seed: int, arch: ArchConfig, device=None):
     """Random weights with the reference's shapes, scales and dtypes
     (projections in the arch dtype; norm scales, SSM constants, gate
     biases and the MoE router in f32), drawn from a seeded
-    torch.Generator on `device` (the CUDA device by default). The draws
+    torch.Generator on `device` (the CUDA device by default): no
+    "embed_table" for embeddings input, a [K, D, V] "head_w" with K
+    codebooks. The draws
     differ from the reference's jax ones; tests that compare the two
     packages load the reference's weights with `from_jax_params`."""
-    _require_ported(arch)
     dev = resolve_device(device)
     dtype = dtype_of(arch.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -160,10 +163,13 @@ def init_params(seed: int, arch: ArchConfig, device=None):
         for i in range(L):
             t[i] = normal(shape, scale, dt)
         layers[name] = t
-    return {"layers": layers,
-            "final_norm_scale": _constant("norm", (D,), arch, dev),
-            "embed_table": normal((V, D), 0.02),
-            "head_w": normal((D, V), D ** -0.5)}
+    params = {"layers": layers,
+              "final_norm_scale": _constant("norm", (D,), arch, dev)}
+    if arch.input_kind == "tokens":
+        params["embed_table"] = normal((V, D), 0.02)
+    K = arch.n_codebooks
+    params["head_w"] = normal((K, D, V) if K > 1 else (D, V), D ** -0.5)
+    return params
 
 
 def _np_to_torch(a: np.ndarray) -> torch.Tensor:
@@ -216,7 +222,8 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
     a, new_kv = attention_layer(
         h, lp, ctx, n_heads=arch.n_heads, n_kv_heads=arch.n_kv_heads,
         head_dim=arch.hd, positions=positions, rope_theta=arch.rope_theta,
-        window=window, attn_cap=arch.attn_softcap, q_chunk=arch.q_chunk,
+        mrope=arch.mrope, window=window, attn_cap=arch.attn_softcap,
+        q_chunk=arch.q_chunk,
         cache=None if cache is None else cache["kv"],
         return_cache=want_cache, bfp_cache=arch.bfp_kv_cache,
         # flash masks by block index, so it also needs the standard
@@ -311,14 +318,28 @@ def _residual(x, branch, arch: ArchConfig):
 
 
 def _embed_in(params, batch, arch: ArchConfig, device):
-    tok = torch.as_tensor(batch["tokens"], device=device).long()
-    x = params["embed_table"][tok] * arch.emb_scale
+    """(x [B,S,D], positions): the stub frontend's embeddings cast to the
+    arch dtype, or the token embeddings (codebook tokens [B,S,K] summed
+    over K), times emb_scale. Absent positions are the arange, broadcast
+    to [3,B,S] under M-RoPE. No host sync: a graphed decode tick runs
+    this."""
+    if arch.input_kind == "embeddings":
+        x = torch.as_tensor(batch["embeds"], device=device).to(
+            dtype_of(arch.dtype))
+    else:
+        tok = torch.as_tensor(batch["tokens"], device=device).long()
+        x = params["embed_table"][tok]
+        if arch.n_codebooks > 1 and tok.ndim == 3:
+            x = x.sum(dim=2)
+    x = x * arch.emb_scale
     B, S = x.shape[:2]
     if "positions" in batch:
         positions = torch.as_tensor(batch["positions"], device=device)
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=device)[None].expand(B, S)
+        if arch.mrope:
+            positions = positions[None].expand(3, B, S)
     return x, positions.to(torch.int32)
 
 
@@ -423,9 +444,17 @@ def _run_stack(params, x, positions, arch: ArchConfig, ctx,
 
 
 def _head_logits(params, x, arch: ArchConfig, ctx):
-    """LM head on [..., D] hidden states -> f32 logits [..., V]."""
+    """LM head on [..., D] hidden states -> f32 logits [..., V], or
+    [..., K, V] with K codebooks: one [D,V] product a head, at sites
+    "head0".."head{K-1}" (which fold the reference's key: its first four
+    bytes, "head", the same for every head)."""
     hcfg = ctx.cfg if (ctx.cfg and ctx.cfg.quantize_lm_head) else None
-    logits = ctx_matmul(x, params["head_w"], ctx, "head", cfg=hcfg)
+    if arch.n_codebooks > 1:
+        logits = torch.stack(
+            [ctx_matmul(x, params["head_w"][k], ctx, f"head{k}", cfg=hcfg)
+             for k in range(arch.n_codebooks)], dim=-2)
+    else:
+        logits = ctx_matmul(x, params["head_w"], ctx, "head", cfg=hcfg)
     logits = logits / arch.logit_divisor
     return softcap(logits.to(torch.float32), arch.final_softcap)
 
@@ -443,10 +472,10 @@ def _entry_device(params, ctx, device):
 
 
 def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
-    """Logits [B,S,V] over the batch and the aux loss (the MoE layers'
-    load-balance losses summed; zero without experts). Runs on `device`,
-    else ctx.device, else the CUDA device."""
-    _require_ported(arch)
+    """Logits [B,S,V] ([B,S,K,V] with K codebooks) over the batch of
+    tokens or embeds, and the aux loss (the MoE layers' load-balance
+    losses summed; zero without experts). Runs on `device`, else
+    ctx.device, else the CUDA device."""
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     x, _, aux = _run_stack(params, x, positions, arch, ctx,
@@ -455,10 +484,11 @@ def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
 
 
 def _ce(params, xc, lc, arch: ArchConfig, ctx):
-    """Summed next-token CE of one token chunk: head, softcap, logsumexp."""
-    logits = _head_logits(params, xc, arch, ctx)             # [t, V] f32
+    """Summed next-token CE of one token chunk: head, softcap, logsumexp.
+    lc: [t], or [t, K] with K codebooks."""
+    logits = _head_logits(params, xc, arch, ctx)        # [t, (K,) V] f32
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc[:, None]).squeeze(-1)
+    ll = torch.gather(logits, -1, lc[..., None]).squeeze(-1)
     return (lse - ll).sum()
 
 
@@ -466,14 +496,15 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
             aux_weight: float = 0.01, device=None):
     """Next-token CE, the LM head and softmax-CE computed in `loss_chunk`
     token chunks (each recomputed in the backward under arch.remat), so
-    the f32 [tokens, vocab] logits exist one chunk at a time. Returns
+    the f32 [tokens, vocab] logits exist one chunk at a time; with K
+    codebooks the labels are [B,S,K] and the CE is the mean over the
+    T·K of them. Returns
     (loss, {"nll", "aux", "loss"}), loss = nll + aux_weight·aux (aux the
     MoE layers' summed load-balance loss, zero without experts); with
     `ctx.act_tap` the metrics gain
     "act_stats", the `TensorStats` of quantizing the residual stream at
     the stack's entry ("embed_out") and exit ("final_hidden") at the
     activation format, each one B7 launch."""
-    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     act_stats = None
@@ -493,7 +524,7 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
-    lt = labels.reshape(T)
+    lt = labels.reshape(T, *labels.shape[2:])
     lc = arch.loss_chunk
     if lc and T > lc and T % lc == 0:
         remat = arch.remat and torch.is_grad_enabled()
@@ -504,7 +535,7 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
                          if remat else _ce(*args))
     else:
         tot = _ce(params, xt, lt, arch, ctx)
-    nll = tot / T
+    nll = tot / labels.numel()
     loss = nll + aux_weight * aux
     metrics = {"nll": nll, "aux": aux, "loss": loss}
     if act_stats is not None:
@@ -514,12 +545,12 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
 
 def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
             std_pos: Optional[bool] = None):
-    """Forward over the prompt; returns (last-token logits [B,1,V], cache).
-    Runs on `device`, else ctx.device, else the CUDA device. std_pos None
+    """Forward over the prompt (tokens or embeds, positions [B,S] or
+    [3,B,S]); returns (last-token logits [B,1,V], [B,1,K,V] with K
+    codebooks, cache). Runs on `device`, else ctx.device, else the CUDA device. std_pos None
     reads the batch's positions as the reference's un-jitted prefill
     does; the serving stages pass False, as the reference's jitted ones
     see traced positions."""
-    _require_ported(arch)
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     if std_pos is None:
@@ -532,8 +563,8 @@ def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
 def decode_step(params, batch, cache, arch: ArchConfig, ctx: Ctx,
                 device=None):
     """One multi-token step over the cache (updated in place). batch:
-    tokens [B,S] + positions [B,S]."""
-    _require_ported(arch)
+    tokens [B,S] or embeds [B,S,D], and positions [B,S] ([3,B,S] under
+    M-RoPE)."""
     dev = _entry_device(params, ctx, device)
     x, positions = _embed_in(params, batch, arch, dev)
     x, cache, _ = _run_stack(params, x, positions, arch, ctx, cache=cache)
@@ -567,7 +598,6 @@ def _state_cache(arch: ArchConfig, batch_size: int, dev):
 def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int):
     """An empty stacked slab cache on the params' device: "kv" (none for
     xLSTM) and the recurrent states."""
-    _require_ported(arch)
     dev = params["head_w"].device
     if arch.xlstm:
         return _state_cache(arch, batch_size, dev)
@@ -592,7 +622,6 @@ def make_paged_cache(params, arch: ArchConfig, batch_size: int,
     writes of unallocated slots, and a [L,B,NP] page table of -1. SSM
     states stay dense per lane (O(1) in sequence length: nothing to
     page); xLSTM archs have no KV cache to page."""
-    _require_ported(arch)
     if arch.xlstm:
         raise ValueError("xlstm archs have no KV cache to page")
     C = lane_capacity(arch, ctx_len)

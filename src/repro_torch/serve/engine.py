@@ -45,6 +45,11 @@ prompt + generated-so-far — sampling keys make the recomputed tokens
 identical). Paged decode is bit-identical to the dense slab engine
 (`paged=False`) by construction; tests/test_torch_serve.py pins it.
 
+The engine serves token input: an arch with input_kind "embeddings"
+(qwen2-vl, musicgen) is refused at construction, as the reference's
+engine builds token batches only; those archs serve through the
+serve-step stages (`train/serve_step.py`).
+
 Weights are the narrow-BFP serving copy (paper §4.2: 8-bit mantissa
 weights at inference), narrowed at construction; `narrowed=True` takes
 params that already are `narrow_serving_params(params, arch, hbfp)` as
@@ -114,6 +119,14 @@ class ServeEngine:
                  stats_cap: int = 4096, device=None,
                  cuda_graph: Optional[bool] = None,
                  narrowed: bool = False):
+        if arch.input_kind != "tokens":
+            raise NotImplementedError(
+                f"{arch.name}: the engine serves token input only, as the "
+                f"reference's does (its stages feed back sampled tokens); "
+                f"serve an input_kind={arch.input_kind!r} arch through the "
+                f"serve-step stages (train/serve_step.py: make_prefill_fn, "
+                f"make_decode_fn), with the frontend supplying each "
+                f"frame's embeddings")
         self.arch = arch
         self.device = resolve_device(device)
         on_cuda = self.device.type == "cuda"

@@ -1,6 +1,6 @@
 """Rules of the port: it imports neither jax nor the reference package,
 its entry points (serving and training) run on the card unless the CPU is
-asked for, unported parts raise naming their ROADMAP item, and its
+asked for, every architecture of the reference resolves and builds, and its
 kernels are held to their plain versions on the card (the `gpu`-marked
 test, which skips where there is no CUDA device). The schedules, the
 controller loop and checkpoints, which raised until they were ported, are
@@ -103,24 +103,33 @@ def test_training_entry_points_need_a_gpu():
 
 
 def test_unported_parts_raise_with_their_roadmap_item():
-    """Other model families still raise (A12): qwen2-vl's (M-RoPE,
-    embeddings input) and musicgen's (multi-codebook heads) configs, and
-    `init_params` on each built from the reference's smoke config. The
-    MoE family, which raised until A12.3 was done, resolves and builds.
-    Step and block schedules, which raised until ROADMAP A9 was done,
-    resolve as the reference's."""
+    """Every model family of the reference is ported: qwen2-vl's (M-RoPE,
+    embeddings input) and musicgen's (multi-codebook heads) configs,
+    which raised until A12.4-5 were done, resolve with the reference's
+    smoke fields and build (no embedding table, musicgen's [K, D, V]
+    head), and so does every other registered arch. The MoE family,
+    which raised until A12.3 was done, resolves and builds. Step and
+    block schedules, which raised until ROADMAP A9 was done, resolve as
+    the reference's."""
+    from repro.configs import arch_ids as jarch_ids
     from repro.configs import get_arch as jget_arch
     from repro.precision import parse_policy as jparse
-    from repro_torch.configs import ArchConfig, get_arch
+    from repro_torch.configs import arch_ids, get_arch
     from repro_torch.models import init_params
     from repro_torch.precision import parse_policy
     import dataclasses
-    for name in ("qwen2-vl-72b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            get_arch(name)
-        arch = ArchConfig(**dataclasses.asdict(jget_arch(name).smoke()))
-        with pytest.raises(NotImplementedError, match="A12"):
-            init_params(0, arch, device="cpu")
+    assert sorted(arch_ids()) == sorted(jarch_ids())
+    for name in arch_ids():
+        assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(
+            jget_arch(name))
+    for name, head in (("qwen2-vl-72b", (128, 512)),
+                       ("musicgen-large", (4, 128, 512))):
+        arch = get_arch(name).smoke()
+        assert dataclasses.asdict(arch) == dataclasses.asdict(
+            jget_arch(name).smoke())
+        params = init_params(0, arch, device="cpu")
+        assert "embed_table" not in params
+        assert tuple(params["head_w"].shape) == head
     moe = get_arch("llama4-scout-17b-a16e").smoke()
     assert dataclasses.asdict(moe) == dataclasses.asdict(
         jget_arch("llama4-scout-17b-a16e").smoke())
