@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase recurrent # device, build, recurrent only
     python3 chip_smoke.py --phase moe       # device, build, moe only
     python3 chip_smoke.py --phase vlm_audio # device, build, vlm_audio only
+    python3 chip_smoke.py --phase autotune  # device, build, autotune only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -29,6 +30,26 @@ Phases (any failure exits non-zero before the result line):
                 M below one 64-token stage), and the adaptive path's
                 weights narrowed at 8 bits in 24 x 24 tiles; the device
                 time of one B1, B2 and B3 call by kernel (passes vs GEMM);
+  3b. autotune — ROADMAP A6, on a temp table (REPRO_AUTOTUNE_TABLE, put
+                back after; nothing under results/): gemma2-2b at full
+                width, 2 of 26 layers, 2 x 2048 tokens, trained from one
+                init (warm-up + 3 steps) on the empty table, its call
+                sites' keys read from resolve_spec; B1, B2 and B3 at its
+                wq (4096 x 2304 x 2048) and ffn_wo (4096 x 9216 x 2304)
+                tuned over the reference's whole menu (32-256 per tile
+                edge, 64 candidates an op) through kernels/ops.py, every
+                candidate first held to its plain version on the card
+                (B1/B2 bit-equal, B3 within its bound) on the route its
+                tiles give, one JSON line an op (default and winner
+                tiles, times, routes, speedup); B1 tuned at yi-9b's decode
+                wq (M = 8 lanes, served bf16 weights); the same training
+                on the tuned table (the sites resolve the winners, the
+                rest the defaults; launch counts equal the untuned run's;
+                every launch on its tiles' route; step-0 loss within 2% of
+                fp32), both runs' step times; yi-9b at full width, 2 of 48
+                layers, served graphed against eager on the table for 8
+                lockstep ticks, bit for bit, the replay's B1 launches on
+                their tiles' routes;
   4. flash    — B4 (forward, with and without lse), B5 (dq) and B6 (dk,
                 dv) against their plain versions at yi-9b's training
                 attention (B·H 32, S 4096, hd 128, bf16, m 8, causal),
@@ -208,6 +229,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2194,9 +2216,10 @@ def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
               profile_at=20):
     """A graphed and an eager engine stepped together: the step outputs
     and every tick's logits equal, then the lane state of the cache, bit
-    for bit. Tick `profile_at` of each runs under the profiler: the
-    replay must run exactly the recorded B1 launches. Returns the two
-    profiled ticks' numbers."""
+    for bit. Tick `profile_at` of each (none when None) runs under the
+    profiler: the replay must run exactly the recorded B1 launches.
+    Returns the two profiled ticks' numbers and the graphed stage's
+    launches per replay."""
     import torch
     from repro_torch.serve import ServeEngine
     g = ServeEngine(arch, params, pol, **kw)
@@ -2232,12 +2255,13 @@ def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
                  f"{n['b1_gemm_launches']} B1 GEMM kernels, recorded "
                  f"{per_call} a tick ({n['kernels']} kernels, "
                  f"{n['pad_records']} of {PROFILE_PAD} padding records)")
-    if len(prof) != 2:
+    if profile_at is not None and len(prof) != 2:
         fail(f"lockstep {kw}: tick {profile_at} was not profiled")
+    per_replay = g._tick.per_replay
     del g, e
     gc.collect()
     torch.cuda.empty_cache()
-    return prof
+    return prof, per_replay
 
 
 def _sampled_solo_crowded(arch, params, pol, prompts, n_new):
@@ -2320,7 +2344,7 @@ def phase_serve(card: str):
     log("[serve] graphed == eager == paged == slab greedy tokens on the "
         "whole trace")
     for mode, paged in (("paged", True), ("slab", False)):
-        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+        prof, _ = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
                          prompts, SERVE_NEW, SERVE_LOCKSTEP, per_call)
         for kind, n in prof.items():
             numbers[f"{mode}-{kind}"]["profiled_tick"] = n
@@ -2443,7 +2467,7 @@ def _rec_serve(card: str, arch_name: str, n_layers: int, modes,
              f"different tokens")
     for paged in modes:
         mode = "paged" if paged else "slab"
-        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+        prof, _ = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
                          prompts, REC_NEW, REC_NEW - 1, per_call,
                          profile_at=REC_NEW // 2)
         for kind, n in prof.items():
@@ -2678,7 +2702,7 @@ def _moe_serve(card: str, arch_name: str, n_layers: int, modes, sink):
              f"different tokens")
     for paged in modes:
         mode = "paged" if paged else "slab"
-        prof = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
+        prof, _ = _lockstep(dict(paged=paged, **lanes), arch, params, pol,
                          prompts, MOE_NEW, MOE_NEW - 1, per_call,
                          profile_at=MOE_NEW // 2)
         for kind, n in prof.items():
@@ -3119,6 +3143,531 @@ def phase_vlm_audio(card: str) -> dict:
     log(f"[time] vlm_audio phase {time.perf_counter() - t0:.1f} s")
     return dict(smoke=smoke, kernel_rows=kernel_rows, train=train,
                 serve=serve, seconds=time.perf_counter() - t0)
+
+
+# autotune: the tuning table (ROADMAP A6). B1-B3 are tuned over the
+# reference's whole menu at two of gemma2-2b's training GEMMs (2 x 2048
+# tokens: M = 4096) and B1 at yi-9b's decode wq (M = the served lanes),
+# into a temp table; gemma2-2b trains at full width and 2 of its 26
+# layers, and yi-9b serves at 2 of its 48, reading that table through
+# resolve_spec. Every later phase runs untuned: the table is gone by then
+AT_TRAIN = ("gemma2-2b", 2, 2, 2048)      # arch, layers, batch, tokens
+AT_SITES = ("wq", "ffn_wo")               # of TRAIN_SHAPES
+AT_SERVE = ("yi-9b", 2)                   # arch, layers
+AT_DECODE = "wq"                          # of SERVE_SHAPES (wo shares it)
+AT_TICKS = 8
+AT_NEW = 16                               # tokens a request generates
+AT_OPS = {"matmul_fwd": "hbfp_matmul_fwd", "matmul_dgrad": "hbfp_dgrad",
+          "matmul_wgrad": "hbfp_wgrad"}
+
+
+class _GemmLog:
+    """While open, records each `kernels/linear.py` call site's
+    resolve_spec (its logical M, K, N, the key's dtype, the config and the
+    spec it returned) and each B1-B3 launch made from there (the kernel,
+    the padded operands' shapes, w's dtype and the tiles), by wrapping the
+    names linear.py calls them by."""
+
+    NAMES = ("resolve_spec", "hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")
+
+    def __enter__(self):
+        from repro_torch.kernels import linear
+        self.mod = linear
+        self.orig = {n: getattr(linear, n) for n in self.NAMES}
+        self.specs, self.launches = [], []
+
+        def resolve_spec(cfg, M, K, N, dtype="float32", dgrad_cfg=None,
+                         wgrad_cfg=None):
+            spec = self.orig["resolve_spec"](cfg, M, K, N, dtype, dgrad_cfg,
+                                             wgrad_cfg)
+            self.specs.append(dict(shape=(M, K, N), dtype=dtype, cfg=cfg,
+                                   spec=spec))
+            return spec
+        linear.resolve_spec = resolve_spec
+        for name in self.NAMES[1:]:
+            setattr(linear, name, self._launcher(name))
+        return self
+
+    def _launcher(self, name):
+        f = self.orig[name]
+
+        def launch(a, b, seed=None, **kw):
+            self.launches.append(dict(kernel=name, a=tuple(a.shape),
+                                      b=tuple(b.shape), w_dtype=b.dtype,
+                                      **kw))
+            return f(a, b, seed, **kw)
+        return launch
+
+    def __exit__(self, *exc):
+        for name, f in self.orig.items():
+            setattr(self.mod, name, f)
+
+    def site(self, shape) -> dict:
+        """The one key a call site at this logical shape uses: its dtype,
+        widths, block and quantize_w (the same on every call)."""
+        recs = {(r["dtype"], r["cfg"].mantissa_bits, r["spec"].m_dgrad,
+                 r["spec"].m_wgrad, r["spec"].block, r["spec"].quantize_w)
+                for r in self.specs if r["shape"] == tuple(shape)}
+        if len(recs) != 1:
+            fail(f"autotune: the call site at {shape} used keys {recs}")
+        dtype, m, m_d, m_w, block, qw = recs.pop()
+        if m_d or m_w:
+            fail(f"autotune: per-role widths at {shape}: {m_d}, {m_w}")
+        w_dtypes = {str(r["w_dtype"]).replace("torch.", "")
+                    for r in self.launches
+                    if r["kernel"] == "hbfp_matmul_fwd"
+                    and _launch_shape(r) == tuple(shape)}
+        if len(w_dtypes) != 1:
+            fail(f"autotune: B1 at {shape} took weights in {w_dtypes}")
+        return dict(dtype=dtype, mantissa_bits=m, block=block,
+                    quantize_w=qw, w_dtype=w_dtypes.pop())
+
+
+def _launch_shape(r) -> tuple:
+    """A recorded launch's (M, K, N), padded: B2's g is [M, N] against w
+    [K, N], B1's and B3's first operand is [M, K]."""
+    if r["kernel"] == "hbfp_dgrad":
+        return r["a"][0], r["b"][0], r["a"][1]
+    return r["a"][0], r["a"][1], r["b"][1]
+
+
+def _launch_route(r) -> str:
+    """The route `gemm_route` / `wgrad_route` give one recorded launch at
+    its clipped tiles."""
+    from repro_torch.kernels import hbfp_matmul as hm
+    M, K, N = _launch_shape(r)
+    if r["kernel"] == "hbfp_wgrad":
+        return hm.wgrad_route(mantissa_bits=r["mantissa_bits"], M=M, K=K,
+                              N=N, bm=min(r["bm"], M))
+    return hm.gemm_route("fwd" if r["kernel"] == "hbfp_matmul_fwd"
+                         else "dgrad", mantissa_bits=r["mantissa_bits"],
+                         quantize_w=r["quantize_w"], block=r["block"],
+                         bk=min(r["bk"], K), bn=min(r["bn"], N), N=N,
+                         w_dtype=r["w_dtype"])
+
+
+def _predicted_routes(launches) -> dict:
+    """B1-B3 launches by the route their tiles give."""
+    out = {k: {"int8_wgmma": 0, "bf16_wgmma": 0, "cuda_core": 0}
+           for k in GEMM_KERNELS}
+    for r in launches:
+        out[r["kernel"]][_launch_route(r)] += 1
+    return out
+
+
+def _at_operands(M, K, N, quantize_w, w_dtype, gen):
+    """x (bf16 activations), w (as the site holds it: the training compute
+    copy, or the served copy narrowed at 8 bits in 128 x 128 tiles) and g
+    (the bf16 grad of y, cast to f32 as the autograd Function does)."""
+    import torch
+    from repro_torch.core import HBFP8_16, bfp
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    if not quantize_w:
+        w = bfp.quantize_weight(w, HBFP8_16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    g = (torch.randn((M, N), generator=gen, device="cuda") * 1e-3).to(
+        torch.bfloat16).float()
+    return x, w.to(w_dtype), g
+
+
+def _at_check(op, tiles, x, w, g, site):
+    """One candidate against its plain version on the card, at its tiles:
+    B1/B2 through the ops wrappers, bit-equal at block 0 (else within
+    BLOCK_TOL of the largest output), B3 with its dequantized operands
+    bit-equal and dw within `_wgrad_ok`'s bound. Returns (route taken,
+    route its tiles give, ok, max |Δ|)."""
+    import torch
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.kernels import ops
+    bm, bk, bn = tiles
+    m, block, qw = site["mantissa_bits"], site["block"], site["quantize_w"]
+    kw = dict(mantissa_bits=m, block=block, bm=bm, bk=bk, bn=bn)
+    fn = getattr(hm, AT_OPS[op])
+    before = dict(fn.launches_by_route)
+    M, K, N = x.shape[0], w.shape[0], w.shape[1]
+    if op == "matmul_wgrad":
+        yk, xh, gh = hm.hbfp_wgrad(x, g, operands=True, **kw)
+        yp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, operands=True, **kw)
+        ok, err, _ = _wgrad_ok(yk, yp, xh, gh, M)
+        ok = ok and torch.equal(xh, xhp) and torch.equal(gh, ghp)
+        want = hm.wgrad_route(mantissa_bits=m, M=M, K=K, N=N,
+                              bm=min(bm, M))
+        del xh, gh, xhp, ghp
+    else:
+        fwd = op == "matmul_fwd"
+        a = x if fwd else g
+        yk = (ops.hbfp_matmul if fwd else ops.hbfp_dgrad)(
+            a, w, quantize_w=qw, **kw)
+        yp = (hm.hbfp_matmul_plain if fwd else hm.hbfp_dgrad_plain)(
+            a, w, quantize_w=qw, **kw)
+        err = float((yk - yp).abs().max())
+        ok = torch.equal(yk, yp) if block == 0 else \
+            err <= BLOCK_TOL * float(yp.abs().max())
+        want = hm.gemm_route("fwd" if fwd else "dgrad", mantissa_bits=m,
+                             quantize_w=qw, block=block, bk=min(bk, K),
+                             bn=min(bn, N), N=N, w_dtype=w.dtype)
+    torch.cuda.synchronize()
+    ok = ok and bool(torch.isfinite(yk).all())
+    took = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    del yk, yp
+    return (took[0] if len(took) == 1 else str(took)), want, ok, err
+
+
+def _at_tune(card, name, M, K, N, site, ops_, gen, rec) -> dict:
+    """Every candidate of each op at one site checked against its plain
+    version (route logged and held to its tiles'), then timed and the
+    winner recorded by `autotune_op` through the ops wrappers; one JSON
+    line an op."""
+    import torch
+    from repro_torch.kernels import autotune, ops
+    x, w, g = _at_operands(M, K, N, site["quantize_w"],
+                           getattr(torch, site["w_dtype"]), gen)
+    m, block, qw = site["mantissa_bits"], site["block"], site["quantize_w"]
+    runs = {"matmul_fwd": lambda t: ops.hbfp_matmul(
+                x, w, mantissa_bits=m, quantize_w=qw, block=block,
+                bm=t[0], bk=t[1], bn=t[2]),
+            "matmul_dgrad": lambda t: ops.hbfp_dgrad(
+                g, w, mantissa_bits=m, quantize_w=qw, block=block,
+                bm=t[0], bk=t[1], bn=t[2]),
+            "matmul_wgrad": lambda t: ops.hbfp_wgrad(
+                x, g, mantissa_bits=m, block=block, bm=t[0], bk=t[1],
+                bn=t[2])}
+    kind = "int8" if qw and m <= 8 and block == 0 else \
+        "bf16" if m <= 8 else "f32"
+    ops2 = 2.0 * M * K * N
+    bounds = {"matmul_fwd": _bound_ms(M, K, N, 2, w.element_size(), kind),
+              "matmul_dgrad": _bound(ops2, 4 * M * N + w.element_size() * K
+                                     * N + 4 * M * K, kind),
+              "matmul_wgrad": _bound(ops2, 2 * M * K + 4 * M * N + 4 * K * N,
+                                     "bf16" if m <= 8 else "f32")}
+    out = {}
+    for op in ops_:
+        default = autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N)
+        cands = autotune.candidates(M, K, N)
+        if default not in cands:
+            cands = (default,) + cands
+        routes, errs = {}, []
+        for t in cands:
+            took, want, ok, err = _at_check(op, t, x, w, g, site)
+            log(f"[autotune] {op} {name} {M}x{K}x{N} tiles {t}: {took} "
+                f"{'ok' if ok else 'MISMATCH'} err={err:.3g}")
+            if took != want or not ok:
+                fail(f"autotune {op} {name} tiles {t}: took {took}, its "
+                     f"tiles give {want}, matches its plain version: {ok}")
+            routes[t] = took
+            errs.append(err)
+        best, rep = autotune.autotune_op(
+            op, runs[op], M, K, N, dtype=site["dtype"], mantissa_bits=m,
+            block=block, recorder=rec,
+            log=lambda msg: log(f"[autotune time] {msg.strip()}"))
+        best, default = tuple(best), tuple(rep["default_tiles"])
+        if rep["n_candidates"] != len(cands) or \
+                rep["backend"] != torch.cuda.get_device_name(0):
+            fail(f"autotune {op} {name}: report {rep}")
+        by_route = {}
+        for r in routes.values():
+            by_route[r] = by_route.get(r, 0) + 1
+        line = dict(autotune=op, site=name, shape=[M, K, N],
+                    key=autotune.cache_key(op, M, K, N, site["dtype"], m,
+                                           block),
+                    quantize_w=qw, w_dtype=site["w_dtype"],
+                    n_candidates=rep["n_candidates"],
+                    candidates_by_route=by_route,
+                    default_tiles=list(default), default_us=rep["default_us"],
+                    default_route=routes[default], tiles=list(best),
+                    us=rep["us"], route=routes[best],
+                    speedup=rep["speedup"], max_abs_err=max(errs),
+                    bound_us=bounds[op][0] * 1e3, bound_by=bounds[op][1],
+                    card=card)
+        log(json.dumps(line))
+        out[op] = line
+    del x, w, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _at_train(card, arch, tag, loss_fp32, tuned, log_sink) -> dict:
+    """gemma2-2b from one init (seed 0) under "8; backend=pallas": a
+    warm-up step, then 3 counted steps, their resolve_spec calls and
+    B1-B3 launches recorded. Checks: exact launch counts, every launch on
+    the route its tiles give, the call sites at `tuned` ({shape: {op:
+    tiles}}) resolved to those tiles and every other site to the clipped
+    defaults, step-0 loss finite and within 2% of fp32. The run's events
+    also go to `log_sink`."""
+    import torch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.obs import MemorySink, Recorder
+    from repro_torch.optim import make_schedule
+    from repro_torch.train import Trainer, init_train_state, make_step
+    _, _, B, S = AT_TRAIN
+    data = lambda i: batch_for_arch(arch, B, S, step=i, kind="markov")
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    sink = MemorySink()
+    trainer = Trainer(train_step=make_step(arch, "8; backend=pallas", sched),
+                      init_state=init_train_state(0, arch), data_fn=data,
+                      recorder=Recorder([sink, log_sink], run_id=tag),
+                      seed=SR_SEED)
+    lines = []
+    trainer.run(1, log_every=1, log_fn=lines.append)       # warm-up
+    torch.cuda.synchronize()
+    hm.reset_counts()
+    with _GemmLog() as gl:
+        trainer.run(4, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counts = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
+    routes = {k: dict(getattr(hm, k).launches_by_route)
+              for k in GEMM_KERNELS}
+    plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS)
+    want = {k: v for k, v in _train_launches(arch, B * S).items()
+            if k in GEMM_KERNELS}
+    predicted = _predicted_routes(gl.launches)
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+    step_s = [ev.data["dur_us"] / 1e6 for ev in sink.events
+              if ev.kind == "span" and ev.data.get("name") == "train/step"][1:]
+    log(f"[autotune {tag}] launches over 3 steps {counts} (expected "
+        f"{want}), by route {routes}; step times "
+        f"{[round(t, 3) for t in step_s]} s; step-0 loss {losses[0]:.4f} "
+        f"vs fp32 {loss_fp32:.4f} | {card}")
+    if counts != want or plain:
+        fail(f"autotune {tag}: launches {counts} != {want} or plain {plain}")
+    if routes != predicted:
+        fail(f"autotune {tag}: launches by route {routes}, their tiles give "
+             f"{predicted}")
+    for r in gl.specs:
+        M, K, N = r["shape"]
+        got = (r["spec"].fwd, r["spec"].dgrad, r["spec"].wgrad)
+        exp = tuple(tuned[r["shape"]][op] if r["shape"] in tuned else
+                    autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N)
+                    for op in AT_OPS)
+        if got != exp:
+            fail(f"autotune {tag}: resolve_spec at {r['shape']} gave {got}, "
+                 f"expected {exp}")
+    for r in gl.launches:
+        shape = _launch_shape(r)
+        if shape in tuned:
+            op = next(o for o, k in AT_OPS.items() if k == r["kernel"])
+            if (r["bm"], r["bk"], r["bn"]) != tuned[shape][op]:
+                fail(f"autotune {tag}: {r['kernel']} at {shape} launched "
+                     f"tiles {(r['bm'], r['bk'], r['bn'])}")
+    if not all(torch.isfinite(torch.tensor(losses))):
+        fail(f"autotune {tag}: non-finite loss {losses}")
+    if abs(losses[0] - loss_fp32) > 0.02 * abs(loss_fp32):
+        fail(f"autotune {tag}: step-0 loss {losses[0]} not within 2% of "
+             f"fp32 {loss_fp32}")
+    sites = {s: gl.site((TRAIN_M,) + TRAIN_SHAPES[s]) for s in AT_SITES}
+    prof = _profile_step(trainer, 5)
+    b13 = None
+    if prof is not None:
+        b13 = prof["device_ms"] * sum(
+            v for k, v in prof["share"].items() if k.startswith(
+                ("B1", "B2", "B3", "f32 quantize")))
+        log(f"[autotune {tag}] profiled step: {prof['wall_ms']:.1f} ms "
+            f"wall, {prof['device_ms']:.1f} ms of kernels, B1-B3 "
+            f"{b13:.2f} ms | {card}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=counts, routes=routes, losses=losses,
+                loss_fp32_step0=loss_fp32, step_s=step_s,
+                sites=sites, n_spec_calls=len(gl.specs), profile=prof,
+                b1_b3_device_ms=b13)
+
+
+def _at_serve(card, tuned_shape, best) -> dict:
+    """yi-9b at full width, AT_SERVE's layers: a graphed and an eager
+    engine in lockstep for AT_TICKS ticks (tokens, every tick's logits
+    and the cache bit for bit), each decode launch at `tuned_shape` on
+    the tuned tiles `best`, and the graphed replay's B1 launches on the
+    routes the launches' tiles give."""
+    import torch
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.models import init_params
+    from repro_torch.precision import parse_policy
+    arch, depth = _at_depth(*AT_SERVE)
+    pol = parse_policy("8; backend=pallas")
+    params = init_params(0, arch)
+    g = torch.Generator().manual_seed(42)
+    prompts = [torch.randint(0, arch.vocab_size, (n,), generator=g).tolist()
+               for n in (32, 48, 64, 80, 96, 112, 128, 144)]
+    per_call = 7 * arch.n_layers + 1
+    kw = dict(paged=True, max_batch=SERVE_LANES, ctx_len=512)
+    hm.reset_counts()
+    with _GemmLog() as gl:
+        _, per_replay = _lockstep(kw, arch, params, pol, prompts, AT_NEW,
+                                  AT_TICKS, per_call, profile_at=None)
+    torch.cuda.synchronize()
+    routes = dict(hm.hbfp_matmul_fwd.launches_by_route)
+    decode = [r for r in gl.launches if r["a"][0] == SERVE_LANES]
+    at_site = [r for r in decode if _launch_shape(r) == tuned_shape]
+    ticks = len(decode) // per_call
+    pred = {}
+    for r in decode:
+        rt = _launch_route(r)
+        pred[rt] = pred.get(rt, 0) + 1
+    per_tick = {rt: n // ticks for rt, n in pred.items()}
+    got = per_replay["hbfp_matmul_fwd"]
+    log(f"[autotune serve] yi-9b {depth}: graphed == eager over {AT_TICKS} "
+        f"lockstep ticks; B1 per replay {got}, the tiles give {per_tick}; "
+        f"{len(at_site)} launches at {tuned_shape} on tiles "
+        f"{sorted({(r['bm'], r['bk'], r['bn']) for r in at_site})} | "
+        f"{card}")
+    if len(decode) != ticks * per_call or \
+            any(n % ticks for n in pred.values()):
+        fail(f"autotune serve: {len(decode)} decode launches in whole "
+             f"ticks of {per_call}?")
+    if got[0] != per_call or {k: v for k, v in got[1].items() if v} != \
+            per_tick:
+        fail(f"autotune serve: B1 per replay {got}, expected {per_call} "
+             f"on {per_tick}")
+    if len(at_site) != 2 * arch.n_layers * ticks or any(
+            (r["bm"], r["bk"], r["bn"]) != best for r in at_site):
+        fail(f"autotune serve: the launches at {tuned_shape} did not all "
+             f"take the tuned tiles {best}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=arch.n_layers, per_replay=got, per_tick=per_tick,
+                launches=hm.hbfp_matmul_fwd.launches, routes=routes,
+                ticks=AT_TICKS)
+
+
+def _at_decode_site(arch, params, pol) -> dict:
+    """The decode call site's key and weights' dtype, read from
+    resolve_spec and B1's launch during one eager tick at full width."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(arch, params, pol, max_batch=SERVE_LANES, ctx_len=64,
+                      cuda_graph=False)
+    eng.submit(list(range(1, 17)), max_new_tokens=2)
+    with _GemmLog() as gl:
+        eng.step()
+        eng.step()
+    K, N = SERVE_SHAPES[AT_DECODE]
+    site = gl.site((SERVE_LANES, K, N))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return site
+
+
+def phase_autotune(card: str) -> dict:
+    """ROADMAP A6 on the card, with REPRO_AUTOTUNE_TABLE at a temp file
+    (restored after, with the cache dropped; nothing is written under
+    results/): (e, untuned) gemma2-2b at full width, AT_TRAIN's layers,
+    trained from one init on an empty table, its call sites' keys read
+    from resolve_spec; (b, c) B1-B3 at AT_SITES tuned over the reference's
+    whole menu through the ops wrappers, every candidate checked against
+    its plain version on its route first; (d) B1 tuned at yi-9b's decode
+    wq; (e, tuned) the same training on the table; (f) yi-9b served
+    graphed against eager on the table."""
+    import tempfile
+    import torch
+    from repro_torch.analysis.report import follow_runlog
+    from repro_torch.kernels import autotune
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.layers import Ctx
+    from repro_torch.obs import JSONLSink, MemorySink, Recorder
+    from repro_torch.precision import parse_policy
+    from repro_torch.train import init_train_state
+    from repro_torch.train.train_step import _narrow_copy
+    from repro_torch.data import batch_for_arch
+    t0 = time.perf_counter()
+    stat = lambda p: os.stat(p).st_mtime_ns if os.path.exists(p) else None
+    results_before = stat(autotune.DEFAULT_TABLE_PATH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    table = os.path.join(tmp, "table.json")
+    prev = os.environ.get(autotune.TABLE_ENV)
+    os.environ[autotune.TABLE_ENV] = table
+    autotune.invalidate_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    log_path = os.path.join(ROOT, "chiprun_out", "autotune_run.jsonl")
+    log_sink = JSONLSink(log_path, mode="w")
+    try:
+        arch, depth = _at_depth(AT_TRAIN[0], AT_TRAIN[1])
+        _, _, B, S = AT_TRAIN
+        with torch.no_grad():
+            ref = _narrow_copy(init_train_state(0, arch).params, None,
+                               torch.bfloat16)
+            loss_fp32 = float(loss_fn(ref, batch_for_arch(
+                arch, B, S, step=0, kind="markov"), arch, Ctx())[0])
+            del ref
+        torch.cuda.empty_cache()
+        log(f"[autotune] {AT_TRAIN[0]} full width, {depth}, {B} x {S} "
+            f"tokens; table {table}")
+        train = {"untuned": _at_train(card, arch, "untuned", loss_fp32, {},
+                                      log_sink)}
+        log(f"[time] autotune untuned training done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+        sink = MemorySink()
+        rec = Recorder([sink, log_sink], run_id="tune")
+        gen = torch.Generator(device="cuda").manual_seed(2626)
+        tuned, lines = {}, {}
+        for s in AT_SITES:
+            K, N = TRAIN_SHAPES[s]
+            lines[s] = _at_tune(card, s, TRAIN_M, K, N,
+                                train["untuned"]["sites"][s], tuple(AT_OPS),
+                                gen, rec)
+            tuned[(TRAIN_M, K, N)] = {op: tuple(v["tiles"])
+                                      for op, v in lines[s].items()}
+        log(f"[time] autotune training GEMMs tuned at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+        train["tuned"] = _at_train(card, arch, "tuned", loss_fp32, tuned,
+                                   log_sink)
+        if train["tuned"]["launches"] != train["untuned"]["launches"]:
+            fail("autotune: tuned and untuned steps launch B1-B3 a "
+                 "different number of times")
+        log(f"[autotune] gemma2-2b step s untuned "
+            f"{[round(t, 3) for t in train['untuned']['step_s']]}, tuned "
+            f"{[round(t, 3) for t in train['tuned']['step_s']]} | {card}")
+        log(f"[time] autotune tuned training done at "
+            f"{time.perf_counter() - t0:.1f} s of the phase")
+        sarch, _ = _at_depth(*AT_SERVE)
+        pol = parse_policy("8; backend=pallas")
+        params = init_params(0, sarch)
+        dsite = _at_decode_site(sarch, params, pol)
+        del params
+        gc.collect()
+        K, N = SERVE_SHAPES[AT_DECODE]
+        lines["decode_" + AT_DECODE] = _at_tune(
+            card, "decode_" + AT_DECODE, SERVE_LANES, K, N, dsite,
+            ("matmul_fwd",), gen, rec)
+        best = tuple(lines["decode_" + AT_DECODE]["matmul_fwd"]["tiles"])
+        serve = _at_serve(card, (SERVE_LANES, K, N), best)
+        with open(table) as f:
+            entries = json.load(f)
+        kinds = [e.kind for e in sink.events]
+        if kinds.count("autotune/search") != 7 or \
+                kinds.count("autotune/winner") != 7 or len(entries) != 7:
+            fail(f"autotune: {len(entries)} table entries, events {kinds}")
+    finally:
+        log_sink.close()
+        if prev is None:
+            os.environ.pop(autotune.TABLE_ENV, None)
+        else:
+            os.environ[autotune.TABLE_ENV] = prev
+        autotune.invalidate_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if stat(autotune.DEFAULT_TABLE_PATH) != results_before:
+        fail(f"autotune: {autotune.DEFAULT_TABLE_PATH} was written")
+    # the run-log through the port's renderer: every winner, both runs'
+    # progress lines
+    rendered = []
+    counts = follow_runlog(log_path, out=rendered.append)
+    for ln in rendered:
+        if ln.startswith("[autotune]"):
+            log(f"[autotune report] {ln}")
+    if counts.get("autotune/winner") != 7 or \
+            counts.get("train/progress", 0) < 2 * 4:
+        fail(f"autotune: the run-log rendered {counts}")
+    log(f"[autotune] run-log {os.path.relpath(log_path, ROOT)}: "
+        f"{rendered[-1].strip()}")
+    secs = time.perf_counter() - t0
+    log(f"[time] autotune phase {secs:.1f} s")
+    return dict(train=train, ops=lines, serve=serve, table=entries,
+                decode_site=dsite, seconds=secs)
 
 
 def _adapt_policy():
@@ -3934,7 +4483,7 @@ def main() -> int:
     name, card = phase_device()
     build = phase_build()
     phases = {"recurrent": phase_recurrent, "moe": phase_moe,
-              "vlm_audio": phase_vlm_audio}
+              "vlm_audio": phase_vlm_audio, "autotune": phase_autotune}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -3947,6 +4496,8 @@ def main() -> int:
         return 0
     bwd = phase_bwd()
     log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
+    at = phase_autotune(card)
+    log(f"[time] autotune done at {time.perf_counter() - t0:.1f} s")
     flash = phase_flash()
     log(f"[time] flash kernels done at {time.perf_counter() - t0:.1f} s")
     quant = phase_quantize()
@@ -3989,7 +4540,7 @@ def main() -> int:
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve, "recurrent": rec, "moe": moe,
-                   "vlm_audio": va},
+                   "vlm_audio": va, "autotune": at},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -4009,6 +4560,8 @@ def main() -> int:
     rec_train = rec["train"]
     va_train = {"train_qwen2vl": va["train"]["qwen2-vl-72b"],
                 "train_musicgen": va["train"]["musicgen-large"]}
+    # the autotune phase's gemma2-2b steps on an empty and a tuned table
+    at_train = {f"autotune_gemma2_{t}": r for t, r in at["train"].items()}
     by_path = lambda k: {"train_gemma2": train["launches"][k],
                          "train_yi": train_yi["launches"][k],
                          "train_sr_gemma2": sr["launches"][k],
@@ -4017,12 +4570,14 @@ def main() -> int:
                          "train_hymba": rec_train["hymba-1.5b"]["launches"][k],
                          "train_xlstm": rec_train["xlstm-350m"]["launches"][k],
                          "train_llama4": moe["train"]["launches"][k],
-                         **{p: t["launches"][k] for p, t in va_train.items()}}
+                         **{p: t["launches"][k] for p, t in va_train.items()},
+                         **{p: t["launches"][k] for p, t in at_train.items()}}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
                   for a, r in (*rec["serve"].items(),
                                *moe["serve"].items(),
                                *va["serve"].items())}
     b1_paths = {"serve": serve_launches, **rec_served,
+                "autotune_serve_yi": at["serve"]["launches"],
                 **by_path("hbfp_matmul_fwd")}
     # main-path launches by route: training, the adaptive run and the
     # accuracy runs counted per route; every served launch was checked to
@@ -4033,7 +4588,9 @@ def main() -> int:
         + acc_route(k, r) + sum(t["routes"][k][r] for t in rec_train.values())
         + moe["train"]["routes"][k][r]
         + sum(t["routes"][k][r] for t in va_train.values())
+        + sum(t["routes"][k][r] for t in at_train.values())
         + (served if r == "bf16_wgmma" else 0)
+        + (at["serve"]["routes"][r] if k == "hbfp_matmul_fwd" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
                           by_route("hbfp_matmul_fwd", serve_launches

@@ -79,6 +79,23 @@ class HBFPConfig:
         return self.with_(tile=b, act_block=b)
 
 
+def resolve(spec, step: int = 0, layer_name: Optional[str] = None
+            ) -> Optional["HBFPConfig"]:
+    """The concrete HBFPConfig of a precision spec at (step, layer): `spec`
+    is None (FP32), an HBFPConfig (static), or anything with a
+    `.resolve(step, layer_name)` method, such as a
+    `schedule_precision.PrecisionSchedule` (duck-typed, so this module
+    imports no schedule)."""
+    if spec is None or isinstance(spec, HBFPConfig):
+        return spec
+    r = getattr(spec, "resolve", None)
+    if r is None:
+        raise TypeError(f"not a precision spec: {type(spec).__name__}")
+    return r(step, layer_name)
+
+
 HBFP8_16 = HBFPConfig(mantissa_bits=8, wide_mantissa_bits=16)
 HBFP12_16 = HBFPConfig(mantissa_bits=12, wide_mantissa_bits=16)
+# the paper's FPGA tile size
+HBFP8_16_T24 = HBFPConfig(mantissa_bits=8, wide_mantissa_bits=16, tile=24)
 FP32 = None

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.hbfp_matmul import _launch, _ptr
+from repro_torch.kernels.ref import NEG_INF  # noqa: F401  (masked score)
 from repro_torch.kernels.ref import _flash_blocks, _flash_scale, flash_delta
 from repro_torch.kernels.ref import hbfp_flash_attn_ref as hbfp_flash_fwd_plain
 from repro_torch.kernels.ref import hbfp_flash_dkv_ref as hbfp_flash_dkv_plain
@@ -301,6 +302,12 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = hbfp_flash_attention_bwd(q, k, v, o, lse,
                                               do.contiguous(), **ctx.kw)
         return None, dq, dk, dv
+
+
+def flash_attention_vjp(spec: FlashSpec, q, k, v):
+    """Training flash attention under the reference's name: o from B4,
+    with B5 and B6 as its backward (`FlashAttention`)."""
+    return FlashAttention.apply(spec, q, k, v)
 
 
 reset_counts()

@@ -139,10 +139,6 @@ def resolve_spec(cfg, M: int, K: int, N: int, dtype: str = "float32",
         block=block)
 
 
-def _dtype_name(dt: torch.dtype) -> str:
-    return str(dt).replace("torch.", "")
-
-
 def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
                        seed: Optional[int] = None, *,
                        dgrad_cfg=None, wgrad_cfg=None) -> torch.Tensor:
@@ -162,7 +158,8 @@ def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
             raise ValueError("stochastic rounding requires a seed")
     else:
         seed = 0
-    spec = resolve_spec(cfg, x2.shape[0], K, N, dtype=_dtype_name(x.dtype),
+    spec = resolve_spec(cfg, x2.shape[0], K, N,
+                        dtype=autotune.dtype_name(x.dtype),
                         dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg)
     y = _MatmulFn.apply(x2, w, spec, int(seed))
     return y.reshape(*x.shape[:-1], N)

@@ -43,6 +43,10 @@ class PagePool:
     def occupancy(self) -> float:
         return self.used_pages / self.n_pages
 
+    def owned(self, rid: int) -> List[int]:
+        """A copy of the page ids `rid` holds, in allocation order."""
+        return list(self._owned.get(rid, ()))
+
     def alloc(self, rid: int, n: int) -> Optional[List[int]]:
         """Take `n` pages for request `rid`; None (nothing taken) when the
         pool cannot satisfy it."""

@@ -15,6 +15,8 @@ import dataclasses
 import torch
 
 _M32 = 0xFFFFFFFF
+# the value a masked logit takes
+NEG_INF = float("-inf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +62,7 @@ def _mask_top_k(logits, k: int):
     if k <= 0 or k >= logits.shape[-1]:
         return logits
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
-    return torch.where(logits >= kth, logits, float("-inf"))
+    return torch.where(logits >= kth, logits, NEG_INF)
 
 
 def _mask_top_p(logits, p: float):
@@ -71,7 +73,7 @@ def _mask_top_p(logits, p: float):
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < p
     thr = torch.where(keep, srt, float("inf")).amin(dim=-1, keepdim=True)
-    return torch.where(logits >= thr, logits, float("-inf"))
+    return torch.where(logits >= thr, logits, NEG_INF)
 
 
 def sample_tokens(logits: torch.Tensor, rids, poss,
