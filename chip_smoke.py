@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase moe       # device, build, moe only
     python3 chip_smoke.py --phase vlm_audio # device, build, vlm_audio only
     python3 chip_smoke.py --phase autotune  # device, build, autotune only
+    python3 chip_smoke.py --phase dist      # device, build, dist only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -209,6 +210,38 @@ Phases (any failure exits non-zero before the result line):
                 prefill cache: every tick's logits and the cache bit for
                 bit, 7L + K B1 launches a replay (bf16 wgmma), matched by
                 the profiler;
+ 11e. dist    — ROADMAP A13, data-parallel training with ZeRO-1 on two
+                ranks of the one card (gloo, by placement: NCCL refuses
+                two ranks on one device): (a) B7 against its plain
+                version, bit for bit in all five outputs, at the (1, 512)
+                tiling of every gradient leaf of gemma2-2b at 4 layers
+                (the 256,000 x 2,304 embedding's the largest), routes
+                checked, timed; (b) one process's gradients (gemma2-2b
+                at full width, 4 of 26 layers, 2 x 2048 markov tokens)
+                through the compressed reduce on a one-rank NCCL group
+                (B7 on every leaf; N = 1 returns each leaf's dequantized
+                packing); (c) two ranks (processes of this script,
+                `--dist-rank`, the libraries built here first) train it
+                on 1 x 2048 tokens each through `make_step(...,
+                mesh=make_host_mesh())` and the Trainer, a warm-up step
+                and 3 counted: exact B1-B3 launches a rank on their
+                training routes, step times, peaks, bytes and host
+                seconds a step by collective kind, the collectives
+                staged through host memory; `compressed_psum_tree` on
+                each rank's gradients of a fifth batch: B7's launches
+                and routes, wire bytes int8 against f32, the error
+                against the plain mean (<= 0.02), residual +
+                decompress(packed) == g exactly; (d) the master gathered
+                to rank 0, which then takes the same 4 steps alone on
+                the full batch (the other rank waiting): losses and
+                updates within tests/test_torch_dp_train.py's bf16
+                tolerance; (e) at gemma2-2b smoke width, a run
+                preempted at step 3 and resumed from its step-2
+                checkpoint bit for bit against the uninterrupted run,
+                its step-4 checkpoint (written whole on rank 0) loaded
+                in one process (a full-width one is ~18 GB, and one call
+                of the card's tool may write 45 GiB, ~37 of them the
+                earlier phases' checkpoints);
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -478,6 +511,15 @@ ACC_BOUND_ROW = "hbfp8_16_t24"     # whose full-width delta is bounded
 # tail (the CPU test's m 4 tolerance): a check the bound alone cannot make
 ACC_CONTROL_ROW = "hbfp4_16_t24"
 ACC_CONTROL_NOISE = 0.06
+# dist (ROADMAP A13): gemma2-2b at 4 of 26 layers on two ranks of one card
+DIST_ARCH, DIST_LAYERS, DIST_RANKS = "gemma2-2b", 4, 2
+DIST_B, DIST_S = 2, 2048            # global batch: 1 x 2048 tokens a rank
+DIST_SPEC = "8; backend=pallas"
+DIST_STEPS = 4                      # a warm-up step, then 3 counted
+# tests/test_torch_dp_train.py's bf16 tolerance (each rank rounds its
+# weight-gradient half to bf16 before the reduce adds the halves)
+DIST_TOL = dict(loss=2e-3, updates=0.25)
+DIST_COMPRESS_TOL = 0.02            # the reference test's bound
 
 
 def log(*a):
@@ -2064,6 +2106,9 @@ B1_GEMM = r"tc_gemm_kernel<\d+, \w+, \w+, false, false>"
 
 
 PROFILE_PAD = 4000      # spin kernels before a profiled tick (see below)
+# profiled ticks a lockstep may take: the profiler can drop a tick's
+# records (a count it reports short), never add any
+PROFILE_TRIES = 3
 
 
 def _profile_tick(stage):
@@ -2217,9 +2262,12 @@ def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
     """A graphed and an eager engine stepped together: the step outputs
     and every tick's logits equal, then the lane state of the cache, bit
     for bit. Tick `profile_at` of each (none when None) runs under the
-    profiler: the replay must run exactly the recorded B1 launches.
-    Returns the two profiled ticks' numbers and the graphed stage's
-    launches per replay."""
+    profiler: the replay must run exactly the recorded B1 launches. A
+    profile that reports fewer (the profiler dropped records; every tick
+    runs the same launches) is taken again on the next tick, up to
+    PROFILE_TRIES ticks; one that reports more fails at once. Returns the
+    two profiled ticks' numbers and the graphed stage's launches per
+    replay."""
     import torch
     from repro_torch.serve import ServeEngine
     g = ServeEngine(arch, params, pol, **kw)
@@ -2227,14 +2275,18 @@ def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
     for eng in (g, e):
         for p in prompts:
             eng.submit(p, max_new_tokens=n_new)
-    prof = {}
+    prof, tries = {}, {"graphed": [], "eager": []}
     for t in range(ticks):
         outs = []
         for tag, eng in (("graphed", g), ("eager", e)):
             stage = eng._tick
-            if t == profile_at:
+            if profile_at is not None and tag not in prof and \
+                    profile_at <= t < profile_at + PROFILE_TRIES:
                 def profiled(stage=stage, tag=tag):
-                    out, prof[tag] = _profile_tick(stage)
+                    out, n = _profile_tick(stage)
+                    tries[tag].append(n["b1_gemm_launches"])
+                    if n["b1_gemm_launches"] >= per_call:
+                        prof[tag] = n
                     return out
                 eng._tick = profiled
             outs.append(eng.step())
@@ -2255,8 +2307,12 @@ def _lockstep(kw, arch, params, pol, prompts, n_new, ticks, per_call,
                  f"{n['b1_gemm_launches']} B1 GEMM kernels, recorded "
                  f"{per_call} a tick ({n['kernels']} kernels, "
                  f"{n['pad_records']} of {PROFILE_PAD} padding records)")
+        if len(tries[tag]) > 1:
+            log(f"lockstep {kw}: the {tag} tick profiled {len(tries[tag])} "
+                f"times, B1 GEMM kernels seen {tries[tag]} of {per_call}")
     if profile_at is not None and len(prof) != 2:
-        fail(f"lockstep {kw}: tick {profile_at} was not profiled")
+        fail(f"lockstep {kw}: no profiled tick from {profile_at} ran the "
+             f"recorded {per_call} B1 GEMM kernels: {tries}")
     per_replay = g._tick.per_replay
     del g, e
     gc.collect()
@@ -4341,6 +4397,456 @@ def phase_accuracy(card: str) -> dict:
     return dict(smoke=smoke, full=full, bound=bound)
 
 
+def _dist_setup():
+    """(arch, depth words, data_fn, schedule) of the dist phase: every
+    process draws the same global batch and init."""
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim import make_schedule
+    arch, depth = _at_depth(DIST_ARCH, DIST_LAYERS)
+    data = lambda i: batch_for_arch(arch, DIST_B, DIST_S, step=i,
+                                    kind="markov")
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    return arch, depth, data, sched
+
+
+def _dist_b7_cases(arch) -> list:
+    """B7 at the (1, 512) tiling `core.grad_compress` packs every gradient
+    leaf with (f32 after the cast, m 8), one case per distinct 2-D
+    operand, against its plain version in all five outputs; timed."""
+    import torch
+    from repro_torch.core import bfp
+    from repro_torch.core.grad_compress import COMPRESS_TILE, _flat_tile
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import named_leaves
+    shapes = {}
+    for name, t in named_leaves(init_params(0, arch, device="meta")):
+        lead, R, C, _, _, merged = bfp.b7_layout(tuple(t.shape),
+                                                 _flat_tile(t))
+        if not merged:
+            fail(f"dist: {name}'s (1, 512) tiles are not one B7 operand")
+        rows = R
+        for d in lead:
+            rows *= d
+        shapes.setdefault((rows, C), []).append(name)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows_out = []
+    for (R, C), names in sorted(shapes.items()):
+        x = torch.randn((R, C), generator=gen, device="cuda") * 1e-3
+        kw = dict(mantissa_bits=8, tile_r=1, tile_c=COMPRESS_TILE,
+                  stochastic=False, with_stats=True)
+        run = lambda: bq.bfp_quantize(x, 0, **kw)
+        plain = lambda: bq.bfp_quantize_plain(x, 0, **kw)
+        want_route = bq.bfp_quantize_route(R, C, 1, COMPRESS_TILE, x.dtype,
+                                           8, x.data_ptr() % 16 == 0)
+        bq.reset_counts()
+        got = run()
+        route = [r for r, n in bq.bfp_quantize.launches_by_route.items()
+                 if n]
+        want = plain()
+        ok = len(got) == 5 and all(a.dtype == b.dtype and torch.equal(a, b)
+                                   for a, b in zip(got, want))
+        err = float((got[0].int() - want[0].int()).abs().max())
+        del got, want
+        bound, by = _quant_bound(R, C, 8, 1, COMPRESS_TILE, 256, 512, 4)
+        n = _reps(run)
+        row = dict(kernel="bfp_quantize", case=f"grad_{R}x{C}", R=R, C=C,
+                   leaves=names, dtype="float32", m=8,
+                   tile=[1, COMPRESS_TILE], ok=bool(ok),
+                   route=route[0] if len(route) == 1 else route,
+                   check="EQ (5 outputs)", max_abs_err=err, bound_ms=bound,
+                   bound_by=by, kernel_ms=_time_ms(run, n),
+                   plain_ms=_time_ms(plain, 2), device_ms=_graph_ms(run),
+                   reps=n)
+        rows_out.append(row)
+        log(f"[dist b7] {R}x{C} f32 m=8 tile=1x{COMPRESS_TILE} "
+            f"({', '.join(names)}) route={row['route']} EQ={ok} "
+            f"kernel_ms={row['kernel_ms']:.4f} device_ms="
+            f"{row['device_ms']:.4f} bound_ms={bound:.4f} plain_ms="
+            f"{row['plain_ms']:.2f}")
+        del x
+        if not ok:
+            fail(f"bfp_quantize != plain at the gradient tiling: {row}")
+        if route != [want_route]:
+            fail(f"bfp_quantize launched on {route}, its route table says "
+                 f"{want_route}: {row}")
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def _dist_compress_checks(grads, tp, mean_tp=None) -> dict:
+    """`compressed_psum_tree` of a gradient tree over `tp`'s group: B7's
+    launches and routes (one per leaf), its wire bytes (int8 all-gathers)
+    against an f32 all-reduce's payload, the error of the mean against
+    the plain mean (an f32 all-reduce over `mean_tp`, or the leaf itself
+    on one rank), and residual + decompress(packed) == g exactly (the
+    packing redone after the counts are read)."""
+    import torch
+    from repro_torch.core.grad_compress import (compress,
+                                                compressed_psum_tree,
+                                                decompress)
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.optim.adamw import named_leaves
+    leaves = dict(named_leaves(grads))
+    torch.cuda.synchronize()
+    bq.reset_counts()
+    mark = len(tp.records)
+    t0 = time.perf_counter()
+    red, res = compressed_psum_tree(grads, tp.group, transport=tp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = bq.bfp_quantize.launches
+    routes = dict(bq.bfp_quantize.launches_by_route)
+    plain = bq.bfp_quantize.plain_calls
+    wire = tp.bytes_by_kind(mark)
+    numel = sum(g.numel() for g in leaves.values())
+    red, res = dict(named_leaves(red)), dict(named_leaves(res))
+    rel, exact = 0.0, True
+    for name, g in leaves.items():
+        gf = g.to(torch.float32) + torch.zeros_like(g, dtype=torch.float32)
+        mean = gf.clone() if mean_tp is None else \
+            mean_tp.all_reduce_(gf.clone()) / mean_tp.size
+        rel = max(rel, float((red[name].to(torch.float32) - mean).abs().max()
+                             / mean.abs().max().clamp_min(1e-30)))
+        del mean
+        exact &= bool(torch.equal(res[name] + decompress(compress(gf)), gf))
+        del gf
+    out = dict(b7_launches=launches, b7_routes=routes, b7_plain=plain,
+               leaves=len(leaves), seconds=seconds,
+               wire_int8_bytes=sum(wire.values()), f32_bytes=4 * numel,
+               wire_by_kind=wire, rel_err=rel, feedback_exact=exact)
+    del red, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_nccl(card: str) -> dict:
+    """(b): one process's gradients (gemma2-2b at the phase's depth, the
+    full batch, from the seeded init) through `compressed_psum_tree` on a
+    one-rank NCCL group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.transport import Transport, init_process_group
+    from repro_torch.train import init_train_state, make_step
+    arch, depth, data, sched = _dist_setup()
+    state = init_train_state(0, arch)
+    _, _, grads = make_step(arch, DIST_SPEC, sched).grads(state, data(0))
+    del state
+    torch.cuda.empty_cache()
+    backend = init_process_group(0, 1, _free_port())
+    try:
+        out = _dist_compress_checks(grads, Transport())
+    finally:
+        dist.destroy_process_group()
+    del grads
+    torch.cuda.empty_cache()
+    log(f"[dist one] {DIST_ARCH} {depth}, compressed reduce of one "
+        f"process's gradients on a one-rank {backend} group: B7 "
+        f"{out['b7_launches']} launches {out['b7_routes']} for "
+        f"{out['leaves']} leaves, error against the leaf "
+        f"{out['rel_err']:.4g}, residual identity {out['feedback_exact']}, "
+        f"{out['seconds']:.2f} s | {card}")
+    if backend != "nccl" or out["b7_launches"] != out["leaves"] or \
+            out["b7_plain"] or not out["feedback_exact"] or \
+            out["rel_err"] > DIST_COMPRESS_TOL:
+        fail(f"one-rank {backend} compressed reduce: {out}")
+    return dict(out, backend=backend)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_to_host(state):
+    """A TrainState with its tensors copied to the host."""
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train.zero import _unflatten
+    host = lambda t: _unflatten({n: x.to("cpu", copy=True)
+                                 for n, x in named_leaves(t)})
+    return type(state)(params=host(state.params),
+                       opt=type(state.opt)(step=state.opt.step,
+                                           mu=host(state.opt.mu),
+                                           nu=host(state.opt.nu)),
+                       step=state.step)
+
+
+def _dist_equal(a, b) -> bool:
+    """Two TrainStates equal bit for bit (leaves on one device)."""
+    import torch
+    from repro_torch.optim.adamw import named_leaves
+    pairs = ((a.params, b.params), (a.opt.mu, b.opt.mu), (a.opt.nu, b.opt.nu))
+    return a.step == b.step and a.opt.step == b.opt.step and all(
+        torch.equal(x, dict(named_leaves(tb))[k])
+        for ta, tb in pairs for k, x in named_leaves(ta))
+
+
+def _dist_one_process(arch, data, sched, dp_master: dict) -> dict:
+    """Rank 0, the card to itself: one process takes the ranks' 4 steps
+    on the full batch from the same init; its losses, and its updates
+    against the ranks' (p4 - p0, relative Frobenius per leaf, on the
+    card)."""
+    import torch
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(0, arch)
+    p0 = {n: t.to("cpu", copy=True) for n, t in named_leaves(state.params)}
+    trainer = Trainer(train_step=make_step(arch, DIST_SPEC, sched),
+                      init_state=state, data_fn=data, seed=SR_SEED)
+    lines = []
+    t0 = time.perf_counter()
+    trainer.run(DIST_STEPS, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    upd, dp_master = {}, dict(named_leaves(dp_master))
+    for name, b in named_leaves(trainer.state.params):
+        a = torch.from_numpy(dp_master[name]).cuda()
+        d = torch.linalg.vector_norm((b - p0[name].cuda()).double())
+        upd[name] = float(torch.linalg.vector_norm((a - b).double())
+                          / d.clamp_min(1e-30))
+        del a
+    return dict(losses=[float(ln.split("loss=")[1].split()[0])
+                        for ln in lines], seconds=seconds,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                update_rel=upd)
+
+
+def _dist_resume(mesh, out: str, rank: int) -> dict:
+    """The preempted resume on two ranks at gemma2-2b smoke width: a run
+    checkpointing at step 2 and preempted at 3, the uninterrupted run
+    (step 3 from its state), and a run resumed from the step-2
+    checkpoint that writes the step-4 one; rank 0 then loads that
+    checkpoint in one process. (At full width a checkpoint of gemma2-2b
+    at 4 layers is ~18 GB of f32 master and moments, and one call of the
+    card's tool may write 45 GiB in all, of which the earlier phases'
+    checkpoints take ~37.)"""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    arch = dataclasses.replace(get_arch(DIST_ARCH).smoke(), n_layers=2)
+    data = lambda i: batch_for_arch(arch, DIST_B, 64, step=i, kind="markov")
+    _, _, _, sched = _dist_setup()
+    step = make_step(arch, DIST_SPEC, sched, mesh=mesh)
+    ckpt = os.path.join(out, "ckpt")
+    kw = dict(train_step=step, data_fn=data, ckpt_every=2, seed=SR_SEED)
+    first = Trainer(init_state=init_train_state(0, arch, mesh=mesh),
+                    ckpt_dir=ckpt, **kw)
+    preempted = None
+    try:
+        first.run(DIST_STEPS, fail_at_step=3, log_fn=None)
+    except RuntimeError as e:
+        preempted = str(e)
+    whole = Trainer(init_state=first.state, **kw)
+    whole.run(DIST_STEPS, log_fn=None)
+    resumed = Trainer(init_state=init_train_state(0, arch, mesh=mesh),
+                      ckpt_dir=ckpt, **kw)
+    resumed_from = resumed.start_step
+    resumed.run(DIST_STEPS, log_fn=None)
+    exact = _dist_equal(resumed.state, whole.state)
+    full = step.layout.gather_state(whole.state)
+    loaded = None
+    if rank == 0:
+        state, meta = load_checkpoint(ckpt, init_train_state(0, arch))
+        host = _dist_to_host(state)
+        loaded = meta["step"] == DIST_STEPS and all(
+            torch.equal(t, torch.from_numpy(dict(named_leaves(w))[n]))
+            for tree, w in ((host.params, full.params),
+                            (host.opt.mu, full.opt.mu),
+                            (host.opt.nu, full.opt.nu))
+            for n, t in named_leaves(tree))
+    return dict(arch="gemma2-2b smoke, 2 layers", preempted=preempted,
+                resumed_from=resumed_from, resume_exact=exact,
+                ckpt_loads_in_one_process=loaded)
+
+
+def dist_rank(rank: int, n: int, port: int, out: str) -> int:
+    """`--dist-rank RANK N PORT DIR`: one rank of the dist phase (c) and
+    (d); writes DIR/rank<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.transport import Transport, init_process_group
+    from repro_torch.obs import MemorySink, Recorder
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_process_group(rank, n, port)
+    mesh = make_host_mesh()
+    arch, depth, data, sched = _dist_setup()
+    step = make_step(arch, DIST_SPEC, sched, mesh=mesh)
+    tp = step.layout.transport
+    sink, lines = MemorySink(), []
+    trainer = Trainer(train_step=step, data_fn=data, seed=SR_SEED,
+                      init_state=init_train_state(0, arch, mesh=mesh),
+                      recorder=Recorder([sink]))
+    trainer.run(1, log_every=1, log_fn=lines.append)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hm.reset_counts()                         # counts cover the main path
+    mark, staged0 = len(tp.records), dict(tp.staged)
+    trainer.run(DIST_STEPS, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counts = {k: getattr(hm, k).launches for k in GEMM_KERNELS}
+    routes = {k: dict(getattr(hm, k).launches_by_route)
+              for k in GEMM_KERNELS}
+    plain = sum(getattr(hm, k).plain_calls for k in GEMM_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counted = DIST_STEPS - 1
+    step_bytes = {k: v / counted for k, v in tp.bytes_by_kind(mark).items()}
+    step_coll_s = {k: v / counted
+                   for k, v in tp.seconds_by_kind(mark).items()}
+    staged = {k: (v - staged0.get(k, 0)) / counted
+              for k, v in tp.staged.items()}
+    spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
+             if ev.kind == "span" and ev.data.get("name") == "train/step"]
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines]
+    torch.cuda.reset_peak_memory_stats()
+    _, _, grads = step.grads(trainer.state, data(DIST_STEPS))
+    compress = _dist_compress_checks(grads, Transport(tp.group),
+                                     Transport(tp.group))
+    compress["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del grads
+    t0 = time.perf_counter()
+    master = step.layout.gather(trainer.state.params)
+    gather_s = time.perf_counter() - t0
+    del trainer, step
+    torch.cuda.empty_cache()
+    tp.barrier()
+    one = None
+    if rank == 0:          # the other rank waits with its card memory freed
+        one = _dist_one_process(arch, data, sched, master)
+    del master
+    torch.cuda.empty_cache()
+    tp.barrier()
+    resume = _dist_resume(mesh, out, rank)
+    result = dict(rank=rank, backend=backend, depth=depth,
+                  tokens=DIST_B * DIST_S // n, losses=losses,
+                  step_s=spans[1:], peak_gib=peak, launches=counts,
+                  routes=routes, plain_calls=plain, step_bytes=step_bytes,
+                  step_collective_s=step_coll_s, staged_per_step=staged,
+                  master_gather_s=gather_s, compress=compress, one=one,
+                  resume=resume)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(card: str) -> dict:
+    """ROADMAP A13 on the card (the module docstring's 11e)."""
+    import torch
+    arch, depth, _, _ = _dist_setup()
+    b7 = _dist_b7_cases(arch)
+    nccl = _dist_nccl(card)
+    out = os.path.join(ROOT, "build", "dist_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t0 = time.perf_counter()
+    # two ranks share the card: expandable segments keep each rank's
+    # freed blocks usable by the next run's other sizes
+    env = dict(os.environ,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+         str(DIST_RANKS), str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(DIST_RANKS)]
+    texts = []
+    for p in procs:
+        try:
+            texts.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("dist: a rank did not finish in 600 s")
+    ranks_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"dist: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    T = DIST_B * DIST_S // DIST_RANKS
+    want = {k: v for k, v in _train_launches(arch, T).items()
+            if k in GEMM_KERNELS}
+    for res in ranks:
+        r, c, rs = res["rank"], res["compress"], res["resume"]
+        log(f"[dist rank {r}] {res['backend']}, {depth}, {T} tokens: "
+            f"losses {res['losses']}, step times "
+            f"{[round(t, 3) for t in res['step_s']]} s, peak "
+            f"{res['peak_gib']:.2f} GiB (compressed reduce "
+            f"{c['peak_gib']:.2f}) | {card}")
+        log(f"[dist rank {r}] B1-B3 over 3 steps {res['launches']} "
+            f"(expected {want}), by route {res['routes']}; a step's "
+            f"collectives: bytes {res['step_bytes']}, host seconds "
+            f"{res['step_collective_s']}, staged through host "
+            f"{res['staged_per_step']}; the master gathered to rank 0 in "
+            f"{res['master_gather_s']:.1f} s")
+        log(f"[dist rank {r}] compressed reduce: B7 {c['b7_launches']} "
+            f"launches {c['b7_routes']} for {c['leaves']} leaves, wire "
+            f"{c['wire_int8_bytes'] / 1e9:.3f} GB int8 against "
+            f"{c['f32_bytes'] / 1e9:.3f} GB f32 "
+            f"({c['f32_bytes'] / c['wire_int8_bytes']:.2f}x), error "
+            f"against the plain mean {c['rel_err']:.4g}, residual identity "
+            f"{c['feedback_exact']}, {c['seconds']:.2f} s")
+        log(f"[dist rank {r}] {rs['arch']}: {rs['preempted']}; resumed "
+            f"from step {rs['resumed_from']}, bit-exact "
+            f"{rs['resume_exact']}; checkpoint loads in one process "
+            f"{rs['ckpt_loads_in_one_process']}")
+        if res["backend"] != "gloo":
+            fail(f"dist: two ranks on one card took {res['backend']}")
+        if res["launches"] != want or res["plain_calls"]:
+            fail(f"dist rank {r}: launches {res['launches']} != {want} or "
+                 f"plain calls {res['plain_calls']}")
+        if not _all_on({k: res["routes"][k] for k in ROUTED_KERNELS},
+                       "int8_wgmma") or not _all_on(
+                {"hbfp_wgrad": res["routes"]["hbfp_wgrad"]}, "bf16_wgmma"):
+            fail(f"dist rank {r}: a launch off its training route: "
+                 f"{res['routes']}")
+        if not all(abs(x) < float("inf") for x in res["losses"]) or \
+                res["losses"] != ranks[0]["losses"]:
+            fail(f"dist rank {r}: losses {res['losses']}")
+        if rs["preempted"] != "simulated preemption at step 3" or \
+                rs["resumed_from"] != 2 or not rs["resume_exact"] or \
+                (r == 0 and rs["ckpt_loads_in_one_process"] is not True):
+            fail(f"dist rank {r}: the preempted run did not resume "
+                 f"bit-exactly, or its checkpoint did not load: {rs}")
+        if c["b7_launches"] != c["leaves"] or c["b7_plain"] or \
+                not c["feedback_exact"] or c["rel_err"] > DIST_COMPRESS_TOL:
+            fail(f"dist rank {r}: compressed reduce {c}")
+    one, losses = ranks[0]["one"], ranks[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       one["losses"]))
+    upd = one["update_rel"]
+    worst = max(upd, key=upd.get)
+    log(f"[dist] {DIST_RANKS} ranks against one process on the full batch "
+        f"(peak {one['peak_gib']:.2f} GiB, {DIST_STEPS} steps in "
+        f"{one['seconds']:.1f} s): losses {losses} vs {one['losses']} "
+        f"(worst rel {loss_rel:.3g}, tol {DIST_TOL['loss']}); updates "
+        f"p{DIST_STEPS} - p0 within rel {upd[worst]:.3g} ({worst}; tol "
+        f"{DIST_TOL['updates']}); ranks {ranks_s:.1f} s | {card}")
+    if loss_rel > DIST_TOL["loss"] or upd[worst] > DIST_TOL["updates"]:
+        fail(f"dist: two ranks part from one process: losses {losses} vs "
+             f"{one['losses']}, updates {upd}")
+    return dict(b7_cases=b7, ranks=ranks, ranks_s=ranks_s, nccl=nccl,
+                loss_rel=loss_rel)
+
+
 def _route_sum(rows, kernel: str) -> dict:
     """A kernel's launches by route summed over the recorded steps."""
     return {rt: sum(r["launches"].get(f"{kernel}/{rt}", 0) for r in rows)
@@ -4431,25 +4937,33 @@ def _flash_entry(name, rows, by_path, replaces, source, by_route):
     }
 
 
-def _quant_entry(rows, adapt, train_sr):
+def _quant_entry(rows, adapt, train_sr, dist):
     """B7's JSON entry: times summed over yi-9b's five distinct weight
     shapes at the adaptive path's weight-tap format (m 4, tile 24, with
     stats); max_abs_err over every quantize case; launches by path on the
     adaptive run and the stochastic telemetry step of train-sr. No
     PyTorch call packs BFP, so library_ms is null; a clone() of the same
-    x (one read, one write) is the yardstick."""
+    x (one read, one write) is the yardstick. The dist phase adds its
+    compressed reduces' launches (two ranks and the one-rank NCCL group)
+    and its times at the gradients' (1, 512) tiling ("grad_tiling_*",
+    summed over gemma2-2b's distinct gradient operands at 4 layers)."""
     main = [r for r in rows
             if r["input"] == "randn" and r["case"].endswith("_t24_m4")]
     tel_sr = train_sr["proofs"]["telemetry"]
+    reduces = [r["compress"] for r in dist["ranks"]] + [dist["nccl"]]
     by_path = {"telemetry": adapt["launches_telemetry"],
                "packed_save": adapt["packed"]["launches"],
-               "telemetry_stochastic": tel_sr["b7_launches"]}
+               "telemetry_stochastic": tel_sr["b7_launches"],
+               "dist_compress": sum(c["b7_launches"] for c in reduces[:-1]),
+               "dist_compress_nccl": reduces[-1]["b7_launches"]}
     by_route = {r: adapt["launches"][f"bfp_quantize/{r}"]
                 + adapt["packed"]["launches_by_route"][r]
                 + tel_sr["b7_routes"][r]
+                + sum(c["b7_routes"][r] for c in reduces)
                 for r in adapt["packed"]["launches_by_route"]}
+    grad = dist["b7_cases"]
     cases = {}
-    for r in rows:
+    for r in rows + grad:
         cases.setdefault(r["route"], []).append(r["case"])
     return {
         "name": "bfp_quantize", "route": "cuda",
@@ -4457,7 +4971,7 @@ def _quant_entry(rows, adapt, train_sr):
         "replaces": "src/repro/kernels/bfp_quantize.py:79",
         "held_against": "bfp_quantize_plain",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + grad),
         "ms": sum(r["kernel_ms"] for r in main),
         "plain_ms": sum(r["plain_ms"] for r in main),
         "bound_ms": sum(r["bound_ms"] for r in main),
@@ -4467,6 +4981,10 @@ def _quant_entry(rows, adapt, train_sr):
         "telemetry_split": {k: adapt["telemetry_split"][k] for k in
                             ("telemetry_ms", "plain_ms", "b7_ms",
                              "other_added_ms")},
+        "grad_tiling_ms": sum(r["kernel_ms"] for r in grad),
+        "grad_tiling_device_ms": sum(r["device_ms"] for r in grad),
+        "grad_tiling_bound_ms": sum(r["bound_ms"] for r in grad),
+        "grad_tiling_plain_ms": sum(r["plain_ms"] for r in grad),
     }
 
 
@@ -4479,11 +4997,15 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if sys.argv[1:2] == ["--dist-rank"] and len(sys.argv) == 6:
+        return dist_rank(int(sys.argv[2]), int(sys.argv[3]),
+                         int(sys.argv[4]), sys.argv[5])
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
     phases = {"recurrent": phase_recurrent, "moe": phase_moe,
-              "vlm_audio": phase_vlm_audio, "autotune": phase_autotune}
+              "vlm_audio": phase_vlm_audio, "autotune": phase_autotune,
+              "dist": phase_dist}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -4530,6 +5052,8 @@ def main() -> int:
     log(f"[time] moe done at {time.perf_counter() - t0:.1f} s")
     va = phase_vlm_audio(card)
     log(f"[time] vlm_audio done at {time.perf_counter() - t0:.1f} s")
+    dist = phase_dist(card)
+    log(f"[time] dist done at {time.perf_counter() - t0:.1f} s")
     bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"] + va["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4540,7 +5064,7 @@ def main() -> int:
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve, "recurrent": rec, "moe": moe,
-                   "vlm_audio": va, "autotune": at},
+                   "vlm_audio": va, "autotune": at, "dist": dist},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -4571,7 +5095,9 @@ def main() -> int:
                          "train_xlstm": rec_train["xlstm-350m"]["launches"][k],
                          "train_llama4": moe["train"]["launches"][k],
                          **{p: t["launches"][k] for p, t in va_train.items()},
-                         **{p: t["launches"][k] for p, t in at_train.items()}}
+                         **{p: t["launches"][k] for p, t in at_train.items()},
+                         "dist_gemma2": sum(r["launches"][k]
+                                            for r in dist["ranks"])}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
                   for a, r in (*rec["serve"].items(),
                                *moe["serve"].items(),
@@ -4589,6 +5115,7 @@ def main() -> int:
         + moe["train"]["routes"][k][r]
         + sum(t["routes"][k][r] for t in va_train.values())
         + sum(t["routes"][k][r] for t in at_train.values())
+        + sum(d["routes"][k][r] for d in dist["ranks"])
         + (served if r == "bf16_wgmma" else 0)
         + (at["serve"]["routes"][r] if k == "hbfp_matmul_fwd" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
@@ -4646,7 +5173,8 @@ def main() -> int:
                             ("hbfp_flash_dq", "205"),
                             ("hbfp_flash_dkv", "241"))]
     print(json.dumps({"kernels": [b1, b2, b3, *b456,
-                                  _quant_entry(quant, adapt, train_sr)]}))
+                                  _quant_entry(quant, adapt, train_sr,
+                                               dist)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,9 +1,12 @@
-"""Render the port's run records: numerics-observatory dumps (DESIGN.md
-§9) into per-layer fidelity and decision tables, a serving record into
-its stage and traffic tables, and a JSONL run-log (`obs.JSONLSink`),
-followed live (DESIGN.md §12). A stdlib-only copy of the run-log half of
-`repro.analysis.report`: the same text for the same input.
+"""Render the port's run records: a dry run's results into its memory and
+roofline tables, numerics-observatory dumps (DESIGN.md §9) into
+per-layer fidelity and decision tables, a serving record into its stage
+and traffic tables, and a JSONL run-log (`obs.JSONLSink`), followed live
+(DESIGN.md §12). A stdlib-only copy of `repro.analysis.report`: the same
+text for the same input, but that the memory table asks whether a cell
+fits one H100's 80 GiB and the roofline table names Hopper's remedies.
 
+    python -m repro_torch.analysis.report results/dryrun.json
     python -m repro_torch.analysis.report --numerics results/numerics.json
     python -m repro_torch.analysis.report --serve BENCH_serve.json
     python -m repro_torch.analysis.report --follow results/runlog.jsonl
@@ -14,12 +17,83 @@ followed live (DESIGN.md §12). A stdlib-only copy of the run-log half of
 decisions with their signal, the per-layer table of every numerics
 snapshot, checkpoint, autotune and serving events) and exits at the end
 of the file; `--watch` keeps polling for new lines (Ctrl-C stops).
-
-The dry-run tables (memory and roofline, from `launch/dryrun.py`'s
-records) come with the distribution modules (ROADMAP A13).
 """
 import json
 import sys
+
+HBM_GIB = 80   # one H100's device memory
+
+
+def memory_table(results):
+    lines = ["| arch | shape | mesh | args GiB | temps GiB | total GiB | "
+             f"fits H100 {HBM_GIB}G |", "|---|---|---|---|---|---|---|"]
+    for cell, rec in sorted(results.items()):
+        if rec.get("status") != "ok" or "memory" not in rec:
+            continue
+        m = rec["memory"]
+        args = m["argument_bytes"] / 2**30
+        temp = m["temp_bytes"] / 2**30
+        tot = m["per_device_total_gib"]
+        fits = "yes" if tot <= HBM_GIB else "**no**"
+        lines.append(f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+                     f"{args:.2f} | {temp:.2f} | {tot:.2f} | {fits} |")
+    return "\n".join(lines)
+
+
+def roofline_table(results):
+    lines = ["| arch | shape | mesh | compute s | memory s | collective s |"
+             " bound | model/HLO flops | roofline frac | 1-sentence fix |",
+             "|---|---|---|---|---|---|---|---|---|---|"]
+    fixes = {
+        ("compute", "train"): "more int8 wgmma share / fewer remat GEMMs",
+        ("memory", "train"): "fuse quantize into the GEMM (one kernel); "
+        "microbatch + SP to shrink residuals",
+        ("collective", "train"): "BFP-compress DP grad all-reduce; "
+        "reduce-scatter into ZeRO shards over NVLink",
+        ("memory", "prefill"): "fused HBFP flash attention keeps scores in "
+        "shared memory",
+        ("collective", "prefill"): "shard seq (SP) instead of gathering kv",
+        ("memory", "decode"): "narrow-BFP (int8) weights + cache halve "
+        "reads",
+        ("collective", "decode"): "replicate small weights; all-gather "
+        "cache shards only",
+    }
+    for cell, rec in sorted(results.items()):
+        if rec.get("status") != "ok" or "roofline" not in rec:
+            continue
+        r = rec["roofline"]
+        kind = ("train" if rec["shape"].startswith("train") else
+                "prefill" if rec["shape"].startswith("prefill") else
+                "decode")
+        fix = fixes.get((r["bottleneck"], kind), "-")
+        lines.append(
+            f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+            f"{r['compute_s']:.3g} | {r['memory_s']:.3g} | "
+            f"{r['collective_s']:.3g} | {r['bottleneck']} | "
+            f"{r.get('useful_flops_ratio', 0):.2f} | "
+            f"{r.get('roofline_fraction', 0):.2%} | {fix} |")
+    skipped = [(rec["arch"], rec["shape"]) for rec in results.values()
+               if rec.get("status") == "skipped"]
+    tail = "\nSkipped cells (assignment rule, DESIGN.md §5): " + \
+        ", ".join(f"{a}×{s}" for a, s in sorted(set(skipped)))
+    return "\n".join(lines) + tail
+
+
+def render_dryrun(path):
+    """`path`: a dry run's results, {cell: record}."""
+    with open(path) as f:
+        results = json.load(f)
+    n_ok = sum(1 for r in results.values() if r["status"] == "ok")
+    n_sk = sum(1 for r in results.values() if r["status"] == "skipped")
+    n_er = sum(1 for r in results.values() if r["status"] == "error")
+    print(f"cells: {n_ok} ok / {n_sk} skipped / {n_er} error\n")
+    print("### Memory (per device)\n")
+    print(memory_table(results))
+    print("\n### Roofline\n")
+    print(roofline_table(results))
+    for cell, rec in sorted(results.items()):
+        if rec.get("status") == "error":
+            print(f"\nERROR {cell}: {rec['error']}")
 
 
 def numerics_table(snapshot, widths=None):
@@ -218,10 +292,8 @@ def main():
     if args[:1] == ["--serve"]:
         render_serve(args[1] if len(args) > 1 else "BENCH_serve.json")
         return 0
-    print("usage: python -m repro_torch.analysis.report --follow RUNLOG "
-          "[--watch] | --numerics DUMP | --serve RECORD (the dry-run "
-          "tables come with ROADMAP A13)", file=sys.stderr)
-    return 2
+    render_dryrun(args[0] if args else "results/dryrun.json")
+    return 0
 
 
 if __name__ == "__main__":

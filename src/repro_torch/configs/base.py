@@ -1,7 +1,8 @@
 """Architecture configuration and registry (port of `repro.configs.base`).
 
-The fields and `.smoke()` match the reference exactly, so one config
-describes the same model in both packages. `policy()` is not ported: the
+The fields, `.smoke()`, `n_params()` and `n_active_params()` match the
+reference exactly, so one config describes the same model in both
+packages. `policy()` is not ported: the
 port resolves `precision` strings with its own `repro_torch.precision`.
 Every architecture of the reference is registered.
 """
@@ -79,6 +80,41 @@ class ArchConfig:
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
+
+    def n_params(self) -> int:
+        """Total parameter count (for 6ND roofline math)."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        hd = self.hd
+        attn = D * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.xlstm:
+            per = (D * 2 * D + D * 3 * D + D * 2 * self.n_heads + D * D)
+            per_s = D * 4 * D + self.n_heads * (D // self.n_heads) * \
+                (4 * D // self.n_heads) + D * D
+            n_s = L // self.slstm_every if self.slstm_every else 0
+            core = (L - n_s) * per + n_s * per_s
+        else:
+            if self.n_experts:
+                ffn = self.n_experts * 3 * D * F + D * self.n_experts
+                if self.moe_dense_residual or self.shared_expert:
+                    ffn += 3 * D * F
+            else:
+                ffn = 3 * D * F
+            core = L * (attn + ffn)
+            if self.ssm:
+                di = self.d_inner
+                core += L * (D * (2 * di + 2 * self.ssm_state + self.n_heads)
+                             + di * D)
+        emb = V * D if self.input_kind == "tokens" else 0
+        head = D * V * self.n_codebooks
+        return core + emb + head
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k experts only)."""
+        if not self.n_experts:
+            return self.n_params()
+        D, F, L = self.d_model, self.d_ff, self.n_layers
+        inactive = L * (self.n_experts - self.top_k) * 3 * D * F
+        return self.n_params() - inactive
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

@@ -141,10 +141,13 @@ def init_params(seed: int, arch: ArchConfig, device=None):
     "embed_table" for embeddings input, a [K, D, V] "head_w" with K
     codebooks. The draws
     differ from the reference's jax ones; tests that compare the two
-    packages load the reference's weights with `from_jax_params`."""
+    packages load the reference's weights with `from_jax_params`. On the
+    "meta" device the tree has the shapes and dtypes and no values (what
+    `sharding.partitioning` and the data-parallel layout read)."""
     dev = resolve_device(device)
     dtype = dtype_of(arch.dtype)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(int(seed))
     L, D, V = arch.n_layers, arch.d_model, arch.vocab_size
 
     def normal(shape, scale, dt=dtype):

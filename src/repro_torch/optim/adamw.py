@@ -58,6 +58,23 @@ def _f32(v) -> float:
     return float(torch.as_tensor(v, dtype=torch.float32))
 
 
+def grad_sq_sum(g_leaves: dict, names):
+    """The f32 sum of squares of the named gradient leaves, leaf by leaf
+    and layer slice by layer slice in `names`' order (0 when empty)."""
+    total = 0
+    for n in names:
+        for g in slices(g_leaves[n]):
+            gf = g.to(torch.float32)
+            total = total + torch.sum(gf * gf)
+    return total
+
+
+def clip_scale(total, grad_clip: float) -> torch.Tensor:
+    """The global-norm clip factor of a sum of squares."""
+    gnorm = torch.sqrt(total)
+    return torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+
+
 def adamw_update(grads, state: OptState, params, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, grad_clip: Optional[float] = 1.0,
@@ -75,13 +92,7 @@ def adamw_update(grads, state: OptState, params, *, lr, b1: float = 0.9,
     names = [n for n, _ in named_leaves(params)]
     scale = None
     if grad_clip is not None:
-        total = 0
-        for n in names:
-            for g in slices(g_leaves[n]):
-                gf = g.to(torch.float32)
-                total = total + torch.sum(gf * gf)
-        gnorm = torch.sqrt(total)
-        scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        scale = clip_scale(grad_sq_sum(g_leaves, names), grad_clip)
     s = torch.tensor(float(step), dtype=torch.float32)
     bc1 = _f32(1 - torch.tensor(b1, dtype=torch.float32) ** s)
     bc2 = _f32(1 - torch.tensor(b2, dtype=torch.float32) ** s)

@@ -18,6 +18,15 @@ reference's functional step, the port updates the state's master params
 and moments in place, one layer slice at a time, so the optimizer adds
 only one layer's f32 temporaries to the training state.
 
+Data parallelism (`mesh=`, a DeviceMesh whose "model" axis is 1): ZeRO-1
+as the reference lays it out (`train/zero.py`): each rank holds its shard
+of the master params and moments and takes its slice of the global
+batch; the shards are narrowed and the narrow copy all-gathered, the
+gradients mean-reduced into the shards, clipped by the global norm and
+applied on the shards. The state from `init_train_state(..., mesh=)`
+holds the shards; the Trainer checkpoints it whole. Telemetry, the
+controller and stochastic rounding raise under a mesh (ROADMAP slice 18).
+
 Stochastic rounding: the step is `train_step(state, batch, key)` with an
 int key (`kernels.common.fold_in`; the Trainer folds its seed with the
 step). As the reference, the narrowing draws from
@@ -49,6 +58,7 @@ from repro_torch.obs import NULL_RECORDER
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.precision.policy import (ResolvedPolicy, as_policy,
                                           as_segment)
+from repro_torch.train.zero import SLICE_18, ZeroLayout
 
 
 class TrainState(NamedTuple):
@@ -64,12 +74,15 @@ def _to_f32_tree(tree):
 
 
 def init_train_state(seed: int, arch: ArchConfig, init_params_fn=init_params,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """Seeded params (`init_params_fn(seed, arch, device=...)`) as f32
     master weights, zero moments, step 0, on `device` (the CUDA device by
-    default)."""
+    default). Under a data-parallel `mesh` every rank draws the whole
+    init and keeps its ZeRO-1 shard."""
     dev = resolve_device(device)
-    params = _to_f32_tree(init_params_fn(seed, arch, device=dev))
+    params = init_params_fn(seed, arch, device=dev)
+    params = _to_f32_tree(params) if mesh is None else \
+        ZeroLayout(arch, mesh, dev).shard(params)
     return TrainState(params=params, opt=adamw_init(params), step=0)
 
 
@@ -172,7 +185,7 @@ def _grads(loss, leaves):
 
 def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
-                    taps=None, device=None):
+                    taps=None, device=None, mesh=None):
     """Returns train_step(state, batch, key=None) -> (state, metrics) for
     one static precision segment (None, an HBFPConfig or a
     ResolvedPolicy); a stochastic segment needs an int `key`. With
@@ -184,7 +197,10 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
     B7; the training values are bit-identical to taps=None.
     `train_step.grads(state, batch, key=None)` -> (loss, metrics, grads)
     runs steps 1 and 2 alone and returns the grads in the master's
-    layout."""
+    layout. Under a data-parallel `mesh` (or the `train.zero.ZeroLayout`
+    built over one; `.layout`) the state holds ZeRO-1 shards, the batch
+    is the global one, metrics["loss"] is the global mean and `grads`
+    returns this rank's unreduced grads of its batch slice."""
     dev = resolve_device(device)
     compute_dtype = dtype_of(arch.dtype)
     seg = as_segment(hbfp, backend=arch.kernel_backend)
@@ -214,6 +230,19 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                                        role_widths=seg.role_widths,
                                        backend=backend)
         stochastic = seg.global_cfg.rounding == "stochastic"
+    zero = None
+    if mesh is not None:
+        if taps is not None:
+            raise NotImplementedError(f"telemetry under a mesh: per-rank "
+                                      f"stats would part the ranks; "
+                                      f"{SLICE_18}")
+        if stochastic:
+            raise NotImplementedError(
+                f"stochastic rounding under a mesh: the xorshift stream "
+                f"hashes by element position, and a rank's row 0 is not the "
+                f"global row 0; {SLICE_18}")
+        zero = mesh if isinstance(mesh, ZeroLayout) else \
+            ZeroLayout(arch, mesh, dev)
     exec_seg = ResolvedPolicy(global_cfg=act_cfg,
                               role_widths=seg.role_widths, backend=backend)
     if taps is not None and param_cfg is None:
@@ -256,8 +285,12 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
 
     def grads(state: TrainState, batch, key=None, weight_stats=None):
         nkey, key = step_keys(key)
-        narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
-                              weight_stats, nkey)
+        if zero is None:
+            narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
+                                  weight_stats, nkey)
+        else:
+            narrow = zero.narrow_copy(state.params, param_cfg, compute_dtype)
+            batch = zero.local_batch(batch, grad_accum)
         loss, metrics, gs = loss_and_grads(narrow, batch, key)
         paths = [p for p, _ in _leaves(narrow)]
         del narrow
@@ -273,12 +306,19 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             numerics["acts"] = metrics.pop("act_stats")
         if taps is not None and taps.grads:
             numerics["grads"] = grad_stats(gs, param_cfg)
+        metrics = dict(metrics)
+        clip, apply = grad_clip, apply_update_
+        if zero is not None:
+            gs = zero.reduce_grads(gs)
+            if grad_clip is not None:
+                zero.clip_(gs, grad_clip)
+            clip, apply = None, zero.apply_update
+            metrics["loss"] = zero.mean(metrics["loss"])
         _, opt = adamw_update(
             gs, state.opt, state.params, lr=schedule,
-            weight_decay=weight_decay, grad_clip=grad_clip,
-            apply=lambda n, leaf, i, u: apply_update_(n, leaf, i, u,
-                                                      param_cfg, ukey))
-        metrics = dict(metrics)
+            weight_decay=weight_decay, grad_clip=clip,
+            apply=lambda n, leaf, i, u: apply(n, leaf, i, u, param_cfg,
+                                              ukey))
         metrics["lr"] = schedule(opt.step) if callable(schedule) \
             else torch.tensor(schedule, dtype=torch.float32)
         if numerics:
@@ -286,6 +326,7 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         return TrainState(state.params, opt, state.step + 1), metrics
 
     train_step.grads = grads
+    train_step.layout = zero
     return train_step
 
 
@@ -305,7 +346,7 @@ def _tap_widths(seg: ResolvedPolicy, snapshot: dict) -> dict:
 
 
 def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
-              tap=None, recorder=None, device=None, **kwargs):
+              tap=None, recorder=None, device=None, mesh=None, **kwargs):
     """The train-step entry point (DESIGN.md §11): one precision policy (a
     PrecisionPolicy, a spec string, a PrecisionSchedule, an HBFPConfig or
     None; the legacy kinds pick up `arch.kernel_backend`) drives format,
@@ -330,9 +371,12 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
 
     metrics gain "mantissa_bits" (the segment's global width, 0 for fp32)
     and, with a controller, "n_overrides" and "min_mantissa_bits".
+    `mesh` (a DeviceMesh, "model" 1) makes every variant a data-parallel
+    ZeRO-1 step over one `train.zero.ZeroLayout` (`.layout`; see
+    `make_train_step`); `controller` and `tap` raise under it.
     Attributes: `.policy`, `.variants`, `.controller`, `.buffer`, `.tap`,
-    and `.grads(state, batch, key=None)` (steps 1-2 of the variant at
-    state.step).
+    `.layout` (None without a mesh) and `.grads(state, batch, key=None)`
+    (steps 1-2 of the variant at state.step).
     Extra kwargs go to `make_train_step`."""
     rec = recorder if recorder is not None else NULL_RECORDER
     pol = as_policy(policy, backend=arch.kernel_backend)
@@ -345,7 +389,14 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
         buffer = RingBuffer(tap.history, recorder=rec)
         if rec.enabled and getattr(controller, "recorder", None) is None:
             controller.recorder = rec
-    resolve_device(device)       # raise now when the card is missing
+    dev = resolve_device(device)       # raise now when the card is missing
+    layout = None
+    if mesh is not None:
+        if controller is not None or tap is not None:
+            raise NotImplementedError(
+                f"the controller and telemetry under a mesh: per-rank "
+                f"stats would make the ranks decide differently; {SLICE_18}")
+        layout = ZeroLayout(arch, mesh, dev)
     segments = {i: pol.resolve_segment(i) for i in range(pol.num_segments)}
     variants = {}
 
@@ -362,7 +413,7 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
         if fn is None:
             fn = make_train_step(arch, seg, schedule,
                                  taps=tap if telemetry else None,
-                                 device=device, **kwargs)
+                                 device=device, mesh=layout, **kwargs)
             variants[(seg, telemetry)] = fn
             gcfg = seg.global_cfg
             rec.emit("train/recompile", step=step,
@@ -415,4 +466,5 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
     train_step.buffer = buffer
     train_step.tap = tap
     train_step.grads = grads
+    train_step.layout = layout
     return train_step

@@ -18,6 +18,12 @@
   * adaptive precision: `controller=` (the one passed to `make_step`)
     has its state and decision log stored under "numerics_controller" and
     restored on resume, so the restarted run replays its decisions;
+  * data parallelism: with a `make_step(..., mesh=)` step (its
+    `.layout`), the state holds ZeRO-1 shards; a checkpoint is gathered
+    whole to rank 0's host and written there in the reference's format
+    (so it loads in one process and in `repro.checkpoint`), every rank
+    loads it whole onto its host and keeps its shards, and the ranks meet
+    at a barrier wherever a write may be pending;
   * observability: every step runs in a "train/step" span (synchronized
     with `torch.cuda.synchronize` on log steps, so the span covers the
     device work), log steps emit "train/progress", and checkpoints emit
@@ -34,6 +40,7 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels.common import fold_in
 from repro_torch.obs import NULL_RECORDER
 from repro_torch.train.train_step import TrainState
+from repro_torch.train.zero import host_like
 
 
 def _sync(_obj) -> None:
@@ -50,6 +57,7 @@ class Trainer:
         self.device = resolve_device(device)
         check_on(init_state.params["head_w"], self.device, "init_state")
         self.train_step = train_step
+        self.layout = getattr(train_step, "layout", None)
         self.data_fn = data_fn
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         if self.recorder.enabled and self.recorder.sync_fn is None:
@@ -66,8 +74,12 @@ class Trainer:
         self._pending = None
         self._saved = None
         if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
-            self.state, meta = load_checkpoint(ckpt_dir, init_state,
+            like = init_state if self.layout is None else \
+                host_like(init_state)
+            self.state, meta = load_checkpoint(ckpt_dir, like,
                                                recorder=self.recorder)
+            if self.layout is not None:
+                self.state = self.layout.shard_state(self.state)
             self.start_step = self._saved = int(meta["step"])
             if controller is not None and "numerics_controller" in meta:
                 controller.load_meta(meta["numerics_controller"])
@@ -76,6 +88,8 @@ class Trainer:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self.layout is not None:
+            self.layout.transport.barrier()
 
     def _maybe_ckpt(self, step: int, force: bool = False) -> None:
         if self.ckpt_dir is None or step == self._saved:
@@ -85,13 +99,17 @@ class Trainer:
             extra = None
             if self.controller is not None:
                 extra = {"numerics_controller": self.controller.to_meta()}
-            r = save_checkpoint(self.ckpt_dir, step, self.state,
-                                hbfp=self.hbfp, keep=self.keep,
-                                background=self.background_ckpt,
-                                extra_meta=extra, recorder=self.recorder)
+            state = self.state
+            if self.layout is not None:
+                state = self.layout.gather_state(state)
+            if state is not None:
+                r = save_checkpoint(self.ckpt_dir, step, state,
+                                    hbfp=self.hbfp, keep=self.keep,
+                                    background=self.background_ckpt,
+                                    extra_meta=extra, recorder=self.recorder)
+                if self.background_ckpt:
+                    self._pending = r
             self._saved = step
-            if self.background_ckpt:
-                self._pending = r
 
     def run(self, num_steps: int, *, fail_at_step: Optional[int] = None,
             log_every: int = 10, log_fn=print):

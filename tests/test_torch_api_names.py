@@ -1,8 +1,8 @@
 """Public names: every public top-level name of each reference module
 that has a counterpart in the port exists there, but for the written
 exemptions below, each with its reason; the reference modules with no
-counterpart yet are pinned by name (ROADMAP A13 and `analysis/
-roofline.py`, which their port must take off the list). The reference's
+counterpart yet are pinned by name (the dry run, ROADMAP slice 18, which
+its port must take off the list). The reference's
 names are read from its source (top-level functions, classes and
 assignments, and the re-exports of its `__init__` files); the port's are
 looked up on the imported module. The names added by ROADMAP A15 are
@@ -20,16 +20,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "src", "repro")
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
-# reference modules without a port counterpart yet: the distribution
-# modules (ROADMAP A13) and the dry-run roofline that comes with them
-NOT_PORTED = {"core/grad_compress.py", "launch/dryrun.py", "launch/mesh.py",
-              "sharding/__init__.py", "sharding/partitioning.py",
-              "analysis/roofline.py"}
+# reference modules without a port counterpart yet: the dry run on a
+# fake process group (ROADMAP slice 18)
+NOT_PORTED = {"launch/dryrun.py"}
 
 _PALLAS = "a Pallas kernel entry; the port's kernel is the CUDA wrapper"
 _INIT = ("the port builds parameters from shapes and loads the "
          "reference's weights through numpy (ROADMAP A15, not queued)")
 _LANES = "jax fold_in sampling keys, which torch cannot replay (ROADMAP C5)"
+_XLA = ("reads the TPU's interconnect or XLA's compiled dry-run artifacts; "
+        "the port's dry run (ROADMAP slice 18) decides what it reads")
 # (module, name): why the port has no such name
 EXEMPT = {
     ("kernels/hbfp_matmul.py", "hbfp_matmul_pallas"): _PALLAS,
@@ -56,10 +56,10 @@ EXEMPT = {
     ("serve/__init__.py", "lane_key"): _LANES,
     ("serve/sampling.py", "sample_one"): _LANES,
     ("serve/sampling.py", "lane_key"): _LANES,
-    ("analysis/report.py", "memory_table"): "renders the dry run's records "
-    "(ROADMAP A13)",
-    ("analysis/report.py", "roofline_table"): "renders the dry run's records "
-    "(ROADMAP A13)",
+    ("analysis/roofline.py", "ICI_BW_PER_LINK"): _XLA + " (the H100's "
+    "link is NVLINK_BW_PER_DIR)",
+    ("analysis/roofline.py", "cost_analysis_dict"): _XLA,
+    ("analysis/roofline.py", "collective_bytes_from_text"): _XLA,
 }
 
 

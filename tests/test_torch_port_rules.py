@@ -36,7 +36,11 @@ def test_port_imports_no_jax_and_no_reference():
               "repro_torch.checkpoint.checkpointing",
               "repro_torch.core.schedule_precision", "repro_torch.serve.engine",
               "repro_torch.train.train_step", "repro_torch.train.trainer",
-              "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
+              "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+              "repro_torch.core.grad_compress", "repro_torch.launch.mesh",
+              "repro_torch.launch.transport", "repro_torch.sharding",
+              "repro_torch.sharding.partitioning", "repro_torch.train.zero",
+              "repro_torch.analysis.roofline"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -157,8 +157,7 @@ def test_follow_torn_last_line_and_cli(runlog, tmp_path):
     """A trailing line without its newline (the sink mid-write) is
     flushed at the end of the file alike; `python -m
     repro_torch.analysis.report --follow` prints the rendered log, and
-    with no flag it names the dry-run tables as not yet ported and exits
-    2."""
+    with a results file and no flag it prints the dry run's tables."""
     torn = tmp_path / "torn.jsonl"
     with open(runlog) as f:
         body = f.read()
@@ -172,6 +171,15 @@ def test_follow_torn_last_line_and_cli(runlog, tmp_path):
                         "--follow", runlog], capture_output=True, text=True,
                        env=env, timeout=120)
     assert r.returncode == 0 and "[autotune]" in r.stdout
-    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report"],
-                       capture_output=True, text=True, env=env, timeout=120)
-    assert r.returncode == 2 and "A13" in r.stderr
+    dry = tmp_path / "dryrun.json"
+    dry.write_text(json.dumps({"yi-9b|train_4k|single": {
+        "arch": "yi-9b", "shape": "train_4k", "mesh": "single",
+        "status": "ok", "memory": {"argument_bytes": 2**31,
+                                   "temp_bytes": 2**30,
+                                   "per_device_total_gib": 3.5}}}))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report",
+                        str(dry)], capture_output=True, text=True, env=env,
+                       timeout=120)
+    assert r.returncode == 0 and "fits H100 80G" in r.stdout
+    assert "| yi-9b | train_4k | single | 2.00 | 1.00 | 3.50 | yes |" \
+        in r.stdout

@@ -1,0 +1,208 @@
+"""Rank processes of the distributed CPU tests, on gloo:
+
+    python tests/torch_dist_worker.py compress RANK N PORT DIR
+    python tests/torch_dist_worker.py dp RANK N PORT DIR
+
+`compress` is one rank of `tests/test_torch_grad_compress.py`'s reduce,
+`dp` one rank of `tests/test_torch_dp_train.py`'s ZeRO-1 runs; each
+writes its results under DIR. This module imports torch and the port
+only (no JAX), so a rank starts quickly; the tests import its settings
+and hold the results against the reference and one process.
+"""
+import dataclasses
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.core import grad_compress as tgc
+from repro_torch.core.formats import HBFPConfig
+from repro_torch.configs import get_arch
+from repro_torch.data import batch_for_arch
+from repro_torch.optim import make_schedule
+from repro_torch.optim.adamw import named_leaves
+from repro_torch.precision import as_policy
+from repro_torch.train import Trainer, init_train_state, make_step
+
+# -- the compressed reduce -----------------------------------------------------
+
+SHAPES = {"v": (1000,), "m": (24, 700), "t": (2, 8, 1024)}
+MBITS = 8
+
+
+def compress(rank: int, n: int, out: str) -> None:
+    from repro_torch.launch.transport import Transport
+    inp = dict(np.load(os.path.join(out, f"in{n}.npz")))
+    g = {k: torch.from_numpy(inp["g:" + k][rank]) for k in SHAPES}
+    r = {k: torch.from_numpy(inp["r:" + k][rank]) for k in SHAPES}
+    tp = Transport()
+    red, res = tgc.compressed_psum_tree(g, None, mantissa_bits=MBITS,
+                                        residual=r, transport=tp)
+    np.savez(os.path.join(out, f"port{n}_{rank}.npz"),
+             **{"o:" + k: red[k].numpy() for k in SHAPES},
+             **{"res:" + k: res[k].numpy() for k in SHAPES},
+             kinds=np.array([x[0] for x in tp.records]),
+             bytes=np.array([x[1] for x in tp.records]))
+
+
+# -- ZeRO-1 training -----------------------------------------------------------
+
+B, S, STEPS = 4, 32, 3
+TILE = 64
+
+
+def arch(dtype="float32"):
+    return dataclasses.replace(get_arch("gemma2-2b").smoke(), dtype=dtype)
+
+
+def cfg():
+    return HBFPConfig(8, 16, tile=TILE)
+
+
+def policy():
+    return as_policy(cfg(), backend="pallas")
+
+
+def sched():
+    return make_schedule("constant", base_lr=1e-3, warmup_steps=0,
+                         total_steps=10)
+
+
+def batch(i):
+    return batch_for_arch(arch(), B, S, step=i, device="cpu", kind="markov")
+
+
+def accum_batch(i):
+    parts = [batch(2 * i + a) for a in range(2)]
+    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+
+def np_tree(tree):
+    return {n: t.detach().numpy().copy() for n, t in named_leaves(tree)}
+
+
+def _exactness(layout, a):
+    """(narrow copy equal, wide rounding equal) against one process."""
+    from repro_torch.core.opt_shell import apply_update_
+    from repro_torch.optim.adamw import slices
+    from repro_torch.train.train_step import _narrow_copy
+    c = cfg()
+    shards = init_train_state(0, a, device="cpu", mesh=layout.mesh)
+    full = init_train_state(0, a, device="cpu")
+    got = layout.narrow_copy(shards.params, c, torch.float32)
+    want = _narrow_copy(full.params, c, torch.float32)
+    flat = lambda t: {**{f"layers/{i}/{k}": v for i, lp in
+                         enumerate(t["layers"]) for k, v in lp.items()},
+                      **{k: v for k, v in t.items() if k != "layers"}}
+    narrow_equal = all(torch.equal(x, flat(want)[k])
+                       for k, x in flat(got).items())
+    rng = np.random.default_rng(5)
+    sp, fp = dict(named_leaves(shards.params)), dict(named_leaves(
+        full.params))
+    for name, p in fp.items():
+        u = torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)
+                             * 1e-3)
+        many = p.ndim >= 3
+        for i, us in enumerate(slices(u)):
+            apply_update_(name, p, i if many else None, us, c)
+        for i, us in enumerate(slices(layout.part(name, u))):
+            layout.apply_update(name, sp[name], i if many else None, us, c)
+    update_equal = all(torch.equal(sp[n], layout.part(n, fp[n]))
+                       for n in fp)
+    return narrow_equal, update_equal
+
+
+def _run(step, state, steps, data):
+    losses = []
+    for i in range(steps):
+        state, m = step(state, data(i))
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _gathered(layout, state, losses=None):
+    g = layout.gather_state(state)
+    if g is None:
+        return None
+    flat = lambda t: dict(named_leaves(t))
+    return dict(params=flat(g.params), mu=flat(g.opt.mu), nu=flat(g.opt.nu),
+                losses=losses)
+
+
+def _states_equal(a, b) -> bool:
+    pairs = [(a.params, b.params), (a.opt.mu, b.opt.mu),
+             (a.opt.nu, b.opt.nu)]
+    return a.step == b.step and a.opt.step == b.opt.step and all(
+        torch.equal(x, dict(named_leaves(tb))[k])
+        for ta, tb in pairs for k, x in named_leaves(ta))
+
+
+def dp(rank: int, n: int, out: str) -> None:
+    """3 steps (f32) and the exactness checks on every world size; on 2
+    ranks also grad_accum, the bf16 run and the preempted resume: steps
+    0-2 checkpointing at 2 and preempted at 3, step 3 from that state (the
+    uninterrupted run), and a run resumed from the step-2 checkpoint."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    a = arch()
+    res = {}
+    step = make_step(a, policy(), sched(), device="cpu", mesh=mesh)
+    layout = step.layout
+    res["whole"] = {k: layout.whole_tiles(k, cfg())
+                    for k, v in layout.shapes.items() if len(v) >= 2}
+    state = init_train_state(0, a, device="cpu", mesh=mesh)
+    res["init_shards"] = np_tree(state.params)
+    res["narrow_equal"], res["update_equal"] = _exactness(layout, a)
+    mark = len(layout.transport.records)
+    state, res["losses"] = _run(step, state, 1, batch)
+    res["step_bytes"] = layout.transport.bytes_by_kind(mark)
+    res["staged"] = dict(layout.transport.staged)
+    state, more = _run(step, state, STEPS - 1, lambda i: batch(i + 1))
+    res["losses"] += more
+    res["steps"] = _gathered(layout, state, res["losses"])
+    if n == 2:
+        astep = make_step(a, policy(), sched(), device="cpu", mesh=mesh,
+                          grad_accum=2)
+        st, losses = _run(astep, init_train_state(0, a, device="cpu",
+                                                  mesh=mesh), 1, accum_batch)
+        res["accum"] = _gathered(astep.layout, st, losses)
+        b = arch("bfloat16")
+        bstep = make_step(b, policy(), sched(), device="cpu", mesh=mesh)
+        st, losses = _run(bstep, init_train_state(0, b, device="cpu",
+                                                  mesh=mesh), STEPS, batch)
+        res["bf16"] = _gathered(bstep.layout, st, losses)
+        ckpt = os.path.join(out, "ckpt")
+        kw = dict(train_step=step, data_fn=batch, ckpt_every=2,
+                  device="cpu")
+        first = Trainer(init_state=init_train_state(0, a, device="cpu",
+                                                    mesh=mesh),
+                        ckpt_dir=ckpt, **kw)
+        try:
+            first.run(4, fail_at_step=3, log_fn=None)
+        except RuntimeError as e:
+            res["preempted"] = str(e)
+        whole = Trainer(init_state=first.state, **kw)
+        whole.run(4, log_fn=None)
+        resumed = Trainer(init_state=init_train_state(0, a, device="cpu",
+                                                      mesh=mesh),
+                          ckpt_dir=ckpt, **kw)
+        res["resumed_from"] = resumed.start_step
+        resumed.run(4, log_fn=None)
+        res["resume_exact"] = _states_equal(resumed.state, whole.state)
+        res["final"] = _gathered(layout, whole.state)
+    with open(os.path.join(out, f"rank{n}_{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+if __name__ == "__main__":
+    import torch.distributed as dist
+    from repro_torch.launch.transport import init_process_group
+    scenario, rank, n, port, out = (sys.argv[1], int(sys.argv[2]),
+                                    int(sys.argv[3]), int(sys.argv[4]),
+                                    sys.argv[5])
+    torch.set_num_threads(1)
+    init_process_group(rank, n, port, device="cpu")
+    {"compress": compress, "dp": dp}[scenario](rank, n, out)
+    dist.destroy_process_group()
