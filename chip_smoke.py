@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase vlm_audio # device, build, vlm_audio only
     python3 chip_smoke.py --phase autotune  # device, build, autotune only
     python3 chip_smoke.py --phase dist      # device, build, dist only
+    python3 chip_smoke.py --phase tp        # device, build, tp only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -242,6 +243,36 @@ Phases (any failure exits non-zero before the result line):
                 in one process (a full-width one is ~18 GB, and one call
                 of the card's tool may write 45 GiB, ~37 of them the
                 earlier phases' checkpoints);
+ 11f. tp      — ROADMAP A13's second half, tensor, sequence and expert
+                parallelism on {data 1, model 2}: two ranks of the one
+                card (gloo; processes of this script, `--tp-rank`) under
+                `make_step(..., mesh=make_host_mesh(model=2),
+                seq_parallel=)` and the Trainer, "8; backend=pallas",
+                seeded weights, a warm-up step and 3 counted: (a)
+                gemma2-2b at full width, 4 of 26 layers, 2 x 2048
+                tokens, sequence parallelism off and on; (b) yi-9b at
+                full width, 2 of 48 layers, 1 x 4096 tokens (B4-B6 on 16
+                query and 2 kv heads a rank, a 32,000-column head a
+                rank); (c) llama4-scout's .smoke() under expert
+                parallelism (one full-width layer needs ~72 GiB in one
+                process, more than two ranks can share on one card):
+                exact B1-B3 launches a rank on their training routes,
+                step times, peaks, bytes and host seconds a step by
+                collective kind on each axis, the staged count, the
+                ranks' losses and replicated leaves bit-identical; each
+                rank first takes the configuration in one process on the
+                full batch (both at once), keeps its model part of the
+                master on the host and holds the mesh run to it: losses
+                and updates within the dist phase's bf16 tolerance; (d) B1-B3 with the row-amax input at
+                gemma2-2b's row-parallel shapes a rank (ffn_wo K 4,608,
+                attn_wo K 1,024, M 4,096) and at the head's dgrad
+                (128,000 columns a rank), at the default tiles (each
+                group's own amax: nothing changes) and at one group a
+                row on the global amax of a two-rank split, bit for bit
+                against their plain versions (B3's dw within its bound),
+                timed, and B1/B2 on all three routes (128-tiles, a group
+                amax above the groups' own) and B3 on both of its (one
+                group a row);
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -520,6 +551,18 @@ DIST_STEPS = 4                      # a warm-up step, then 3 counted
 # weight-gradient half to bf16 before the reduce adds the halves)
 DIST_TOL = dict(loss=2e-3, updates=0.25)
 DIST_COMPRESS_TOL = 0.02            # the reference test's bound
+
+
+# tp (ROADMAP A13, second half): two ranks of one card on {data 1, model 2}
+TP_RANKS = 2
+TP_TRAIN = (("gemma2-2b", 4, 2, 2048, (False, True)),   # arch, layers, B, S,
+            ("yi-9b", 2, 1, 4096, (False,)))           # sequence parallel
+TP_EP = "llama4-scout-17b-a16e"     # its .smoke() under expert parallelism
+TP_EP_B, TP_EP_S = 2, 64
+# B1-B3 with the row-amax input at gemma2-2b's row-parallel shapes a rank
+# (M, K, N): ffn_wo and attn_wo's row-parallel input, the head's dgrad g
+TP_AMAX_SHAPES = {"ffn_wo": (4096, 4608, 2304), "attn_wo": (4096, 1024, 2304)}
+TP_HEAD_DGRAD = (4096, 2304, 128000)          # M, K, N (N the rank's vocab)
 
 
 def log(*a):
@@ -4847,6 +4890,448 @@ def phase_dist(card: str) -> dict:
                 loss_rel=loss_rel)
 
 
+def _tp_amax_cases(card: str) -> list:
+    """(d): B1, B2 and B3 with the row-amax input at gemma2-2b's
+    row-parallel shapes a rank (ffn_wo, attn_wo) and at the head's dgrad
+    (128,000 columns a rank), on the training routes, against their plain
+    versions: at the default tiles with each group's own amax ([M, K/128];
+    it must change nothing), and with one exponent group a row (bk the
+    rank's K, as the sim path groups) on the global row amax of a
+    two-rank split. B1, B2 and B3's operands bit-equal; B3's dw within its
+    bound."""
+    import torch
+    from repro_torch.kernels import hbfp_matmul as hm
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+
+    def check(name, op, got, want, ok_fn=None):
+        same = torch.equal(got, want) if ok_fn is None else ok_fn(got, want)
+        rows.append(dict(name=name, op=op, ok=bool(same),
+                         max_abs_err=float((got - want).abs().max())))
+        if not same:
+            fail(f"tp amax {name} {op}: kernel != plain version")
+
+    cases = [(n, M, K, N, "row") for n, (M, K, N) in TP_AMAX_SHAPES.items()]
+    cases.append(("head_dgrad", *TP_HEAD_DGRAD, "col"))
+    for name, M, K, N, kind in cases:
+        x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(K, N, device="cuda", generator=gen)
+             * K ** -0.5).to(torch.bfloat16)
+        g = (torch.randn(M, N, device="cuda", generator=gen)
+             * 1e-3).to(torch.bfloat16)
+        other = torch.randn(M, 1, device="cuda", generator=gen).abs() * 4
+        for tiling in ("default", "row"):
+            if kind == "row":
+                bk = 128 if tiling == "default" else K
+                own = x.float().abs().reshape(M, K // bk, bk).amax(-1)
+                glob = torch.maximum(own, other) if tiling == "row" else own
+                kw = dict(bk=bk, bn=128)
+                hm.reset_counts()
+                y = hm.hbfp_matmul_fwd(x, w, x_amax=glob.contiguous(), **kw)
+                ms = _time_ms(lambda: hm.hbfp_matmul_fwd(
+                    x, w, x_amax=glob.contiguous(), **kw), 5)
+                route = dict(hm.hbfp_matmul_fwd.launches_by_route)
+                want = hm.hbfp_matmul_plain(x, w, x_amax=glob, **kw)
+                check(f"{name}/{tiling}", "B1", y, want)
+                if tiling == "default":
+                    check(f"{name}/{tiling}", "B1 own amax", y,
+                          hm.hbfp_matmul_fwd(x, w, **kw))
+                dw, xh, gh = hm.hbfp_wgrad(x, g, bm=128, bk=bk, bn=128,
+                                           operands=True,
+                                           x_amax=glob.contiguous())
+                dwp, xhp, ghp = hm.hbfp_wgrad_plain(
+                    x, g, bm=128, bk=bk, bn=128, operands=True, x_amax=glob)
+                check(f"{name}/{tiling}", "B3 x̂", xh, xhp)
+                check(f"{name}/{tiling}", "B3 dw", dw, dwp,
+                      lambda a, b: _wgrad_ok(a, b, xhp, ghp, M)[0])
+                log(f"[tp amax] {name} ({M}x{K}x{N}) {tiling} tiles: B1 "
+                    f"{ms:.3f} ms on {route}, bit-equal; B3 x̂ bit-equal, dw "
+                    f"within its bound | {card}")
+                rows[-1]["ms_b1"] = ms
+            else:
+                bn = 128 if tiling == "default" else N
+                own = g.float().abs().reshape(M, N // bn, bn).amax(-1)
+                glob = torch.maximum(own, other * 1e-3) \
+                    if tiling == "row" else own
+                kw = dict(bk=128, bn=bn)
+                hm.reset_counts()
+                dx = hm.hbfp_dgrad(g, w, g_amax=glob.contiguous(), **kw)
+                ms = _time_ms(lambda: hm.hbfp_dgrad(
+                    g, w, g_amax=glob.contiguous(), **kw), 3)
+                route = dict(hm.hbfp_dgrad.launches_by_route)
+                check(f"{name}/{tiling}", "B2", dx,
+                      hm.hbfp_dgrad_plain(g, w, g_amax=glob, **kw))
+                if tiling == "default":
+                    check(f"{name}/{tiling}", "B2 own amax", dx,
+                          hm.hbfp_dgrad(g, w, **kw))
+                log(f"[tp amax] {name} ({M}x{K}x{N}) {tiling} tiles: B2 "
+                    f"{ms:.3f} ms on {route}, bit-equal | {card}")
+                rows[-1]["ms_b2"] = ms
+            del glob, own
+        del x, w, g
+        torch.cuda.empty_cache()
+    rows += _tp_amax_routes(card, gen)
+    return rows
+
+
+def _tp_amax_routes(card: str, gen) -> list:
+    """B1 and B2 on each of their three routes (int8 wgmma; bf16 wgmma
+    on narrowed bf16 weights taken as stored, as served; the CUDA cores
+    at m 12) at 128-tiles with a per-group amax above the groups' own,
+    and B3 on both of its (bf16 wgmma; the CUDA cores at m 12) with one
+    group a row, against their plain versions: B1/B2 bit-equal, B3's
+    operands bit-equal and dw within its bound; each launch's route
+    checked."""
+    import torch
+    from repro_torch.core import bfp
+    from repro_torch.core.formats import HBFPConfig
+    from repro_torch.kernels import hbfp_matmul as hm
+    M, K, N = 256, 512, 384
+    x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(M, N, device="cuda", generator=gen).to(torch.bfloat16)
+    w = bfp.quantize_weight((torch.randn(K, N, device="cuda", generator=gen)
+                             * K ** -0.5), HBFPConfig(8, 16, tile=128)
+                            ).to(torch.bfloat16)
+    up = 1.0 + torch.rand(M, 1, device="cuda", generator=gen) * 3
+    group = lambda a: (a.float().abs().reshape(M, -1, 128).amax(-1)
+                       * up).contiguous()
+    ax, ag = group(x), group(g)
+    rows = []
+    for route, m, qw in (("int8_wgmma", 8, True), ("bf16_wgmma", 8, False),
+                         ("cuda_core", 12, True)):
+        kw = dict(mantissa_bits=m, quantize_w=qw, bk=128, bn=128)
+        hm.reset_counts()
+        y = hm.hbfp_matmul_fwd(x, w, x_amax=ax, **kw)
+        dkw = kw
+        dx = hm.hbfp_dgrad(g, w, g_amax=ag, **dkw)
+        got = (dict(hm.hbfp_matmul_fwd.launches_by_route),
+               dict(hm.hbfp_dgrad.launches_by_route))
+        ok = torch.equal(y, hm.hbfp_matmul_plain(x, w, x_amax=ax, **kw)) \
+            and torch.equal(dx, hm.hbfp_dgrad_plain(g, w, g_amax=ag, **dkw))
+        on = got[0][route] == 1 and got[1][route] == 1
+        rows.append(dict(name=f"routes/{route}", op="B1 B2", ok=ok and on))
+        log(f"[tp amax] B1/B2 on {route} (m {m}) with a row amax: "
+            f"bit-equal {ok}, routes {got} | {card}")
+        if not (ok and on):
+            fail(f"tp amax: B1/B2 on {route}: bit-equal {ok}, routes {got}")
+    ax, ag = ax.amax(-1).contiguous(), ag.amax(-1).contiguous()
+    for route, m in (("bf16_wgmma", 8), ("cuda_core", 12)):
+        kw = dict(mantissa_bits=m, bm=128, bk=K, bn=N, operands=True)
+        hm.reset_counts()
+        dw, xh, gh = hm.hbfp_wgrad(x, g, x_amax=ax, g_amax=ag, **kw)
+        got = dict(hm.hbfp_wgrad.launches_by_route)
+        dwp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, x_amax=ax, g_amax=ag, **kw)
+        ok = torch.equal(xh, xhp) and torch.equal(gh, ghp) and \
+            _wgrad_ok(dw, dwp, xhp, ghp, M)[0]
+        on = got[route] == 1
+        rows.append(dict(name=f"routes/{route}", op="B3", ok=ok and on))
+        log(f"[tp amax] B3 on {route} (m {m}) with a row amax: operands "
+            f"bit-equal and dw within bound {ok}, routes {got} | {card}")
+        if not (ok and on):
+            fail(f"tp amax: B3 on {route}: {ok}, routes {got}")
+    return rows
+
+
+def _tp_setup(name: str, layers: int, B: int, S: int):
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim import make_schedule
+    arch, depth = _at_depth(name, layers)
+    data = lambda i: batch_for_arch(arch, B, S, step=i, kind="markov")
+    sched = make_schedule("constant", base_lr=1e-4, warmup_steps=0,
+                          total_steps=100)
+    return arch, depth, data, sched
+
+
+def _tp_ep_setup():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for_arch
+    from repro_torch.optim import make_schedule
+    arch = dataclasses.replace(get_arch(TP_EP).smoke(), dtype="float32")
+    data = lambda i: batch_for_arch(arch, TP_EP_B, TP_EP_S, step=i,
+                                    kind="markov")
+    return arch, data, make_schedule("constant", base_lr=1e-3,
+                                     warmup_steps=0, total_steps=10)
+
+
+def _tp_one_process(arch, data, sched, lay, spec=DIST_SPEC,
+                    steps=DIST_STEPS) -> dict:
+    """One process on the full batch from the same init, run by every
+    rank at once (the card holds both): its losses, and this rank's model
+    part of its init and final master on the host (`lay`, the mesh
+    run's layout, says which part)."""
+    import torch
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(0, arch)
+    part = lambda tree: {n: lay.part(n, t).to("cpu", copy=True)
+                         for n, t in named_leaves(tree)}
+    p0 = part(state.params)
+    trainer = Trainer(train_step=make_step(arch, spec, sched),
+                      init_state=state, data_fn=data, seed=SR_SEED)
+    lines = []
+    trainer.run(steps, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    out = dict(losses=[float(ln.split("loss=")[1].split()[0])
+                       for ln in lines],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               p0=p0, pend=part(trainer.state.params))
+    del trainer, state
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_update_rel(lay, params, one) -> dict:
+    """The mesh run's updates against one process's, p_end - p0, relative
+    Frobenius per leaf: each rank's sums of squares over its model part
+    (a replicated leaf on rank 0 only), summed over the model ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import named_leaves
+    names, sums = [], []
+    for n, a in named_leaves(params):
+        mine = lay.tp_dims[n] is not None or lay.rank_m == 0
+        b = one["pend"][n].to(a.device)
+        d = (a - b).double().square().sum() if mine else a.new_zeros(
+            (), dtype=torch.float64)
+        u = (b - one["p0"][n].to(a.device)).double().square().sum() \
+            if mine else d.new_zeros(())
+        names.append(n)
+        sums.append(torch.stack([d, u]).cpu())
+    tot = torch.stack(sums)
+    dist.all_reduce(tot, group=lay.model.group)
+    return {n: float(tot[i, 0].sqrt() / tot[i, 1].sqrt().clamp_min(1e-30))
+            for i, n in enumerate(names)}
+
+
+def _tp_mesh_run(mesh, arch, data, sched, sp: bool, one: dict,
+                 spec=DIST_SPEC, steps=DIST_STEPS) -> dict:
+    """A warm-up step and the counted ones on the mesh through the
+    Trainer, held to the one-process run `one` (`_tp_one_process`)."""
+    import hashlib
+    import torch
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.obs import MemorySink, Recorder
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    t0 = time.perf_counter()
+    step = make_step(arch, spec, sched, mesh=mesh, seq_parallel=sp)
+    lay = step.layout
+    sink, lines = MemorySink(), []
+    trainer = Trainer(train_step=step, data_fn=data, seed=SR_SEED,
+                      init_state=init_train_state(0, arch, mesh=lay),
+                      recorder=Recorder([sink]))
+    t_init = time.perf_counter() - t0
+    trainer.run(1, log_every=1, log_fn=lines.append)         # warm-up
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0 - t_init
+    torch.cuda.reset_peak_memory_stats()
+    hm.reset_counts()                         # counts cover the main path
+    axes = {"data": lay.transport, "model": lay.model}
+    marks = {k: (len(t.records), dict(t.staged)) for k, t in axes.items()}
+    trainer.run(steps, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counted = steps - 1
+    per_step = lambda d: {k: v / counted for k, v in d.items()}
+    coll = {k: dict(bytes=per_step(t.bytes_by_kind(marks[k][0])),
+                    seconds=per_step(t.seconds_by_kind(marks[k][0])),
+                    staged=per_step({s: v - marks[k][1].get(s, 0)
+                                     for s, v in t.staged.items()}))
+            for k, t in axes.items()}
+    spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
+             if ev.kind == "span" and ev.data.get("name") == "train/step"]
+    rep = hashlib.sha1()
+    params = dict(named_leaves(trainer.state.params))
+    for n in sorted(params):
+        if lay.tp_dims[n] is None:
+            rep.update(params[n].detach().cpu().numpy().tobytes())
+    t1 = time.perf_counter()
+    upd = _tp_update_rel(lay, trainer.state.params, one)
+    res = dict(sp=sp, losses=[float(ln.split("loss=")[1].split()[0])
+                              for ln in lines],
+               step_s=spans[1:], peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               launches={k: getattr(hm, k).launches for k in GEMM_KERNELS},
+               routes={k: dict(getattr(hm, k).launches_by_route)
+                       for k in GEMM_KERNELS},
+               plain_calls=sum(getattr(hm, k).plain_calls
+                               for k in GEMM_KERNELS),
+               collectives=coll, replicas_sha1=rep.hexdigest(),
+               replicated=sorted(lay.replicated), update_rel=upd,
+               seconds=dict(init=t_init, warm_up=t_warm,
+                            compare=time.perf_counter() - t1,
+                            total=time.perf_counter() - t0))
+    del trainer, step, lay, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank(rank: int, n: int, port: int, out: str) -> int:
+    """`--tp-rank RANK N PORT DIR`: one rank of the tp phase (a)-(c) on a
+    {data 1, model N} mesh of one card; writes DIR/tp<RANK>.json. Both
+    ranks first take each configuration in one process at once, keeping
+    their model part of its master on the host, then train it on the
+    mesh."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.transport import init_process_group
+    from repro_torch.train import make_step
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_process_group(rank, n, port)
+    mesh = make_host_mesh(model=n)
+    result = dict(rank=rank, backend=backend, runs={})
+    cases = [(name, *_tp_setup(name, layers, B, S), B * S, sps)
+             for name, layers, B, S, sps in TP_TRAIN]
+    ep_arch, ep_data, ep_sched = _tp_ep_setup()
+    cases.append((TP_EP, ep_arch, "smoke", ep_data, ep_sched,
+                  TP_EP_B * TP_EP_S, (False,)))
+    for name, arch, depth, data, sched, tokens, sps in cases:
+        lay = make_step(arch, DIST_SPEC, sched, mesh=mesh).layout
+        one = _tp_one_process(arch, data, sched, lay)
+        del lay
+        dist.barrier()
+        runs = [_tp_mesh_run(mesh, arch, data, sched, sp, one)
+                for sp in sps]
+        result["runs"][name] = dict(
+            depth=depth, tokens=tokens, mesh=runs,
+            one={k: v for k, v in one.items() if k not in ("p0", "pend")})
+        del one
+    dist.barrier()
+    with open(os.path.join(out, f"tp{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp(card: str) -> dict:
+    """ROADMAP A13's second half on the card (the module docstring's
+    11f)."""
+    import torch
+    t0 = time.perf_counter()
+    amax = _tp_amax_cases(card)
+    amax_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "tp_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    env = dict(os.environ,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(TP_RANKS), str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(TP_RANKS)]
+    texts = []
+    for p in procs:
+        try:
+            texts.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("tp: a rank did not finish in 600 s")
+    ranks_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"tp: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out, f"tp{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    checks = {}
+    for name, run0 in ranks[0]["runs"].items():
+        if name == TP_EP:
+            arch = _tp_ep_setup()[0]
+        else:
+            spec = next(t for t in TP_TRAIN if t[0] == name)
+            arch = _tp_setup(*spec[:4])[0]
+        T = run0["tokens"]
+        want = {k: v for k, v in _train_launches(arch, T).items()
+                if k in GEMM_KERNELS}
+        one = run0["one"]
+        for i, m0 in enumerate(run0["mesh"]):
+            tag = f"{name} sp={m0['sp']}"
+            for rank in ranks:
+                res = rank["runs"][name]["mesh"][i]
+                c = res["collectives"]
+                log(f"[tp rank {rank['rank']}] {tag}, {run0['depth']}, {T} "
+                    f"tokens: losses {res['losses']}, step times "
+                    f"{[round(t, 3) for t in res['step_s']]} s, peak "
+                    f"{res['peak_gib']:.2f} GiB; host seconds "
+                    f"{ {k: round(v, 1) for k, v in res['seconds'].items()} }"
+                    f" | {card}")
+                log(f"[tp rank {rank['rank']}] {tag}: B1-B3 over 3 steps "
+                    f"{res['launches']} (expected {want}), by route "
+                    f"{res['routes']}; a step's collectives: model "
+                    f"{c['model']}, data {c['data']}")
+                if rank["backend"] != "gloo":
+                    fail(f"tp: two ranks on one card took {rank['backend']}")
+                if name != TP_EP and (res["launches"] != want
+                                      or res["plain_calls"]):
+                    fail(f"tp {tag}: launches {res['launches']} != {want} "
+                         f"or plain calls {res['plain_calls']}")
+                if name != TP_EP and (
+                        not _all_on({k: res["routes"][k]
+                                     for k in ROUTED_KERNELS}, "int8_wgmma")
+                        or not _all_on({"hbfp_wgrad":
+                                        res["routes"]["hbfp_wgrad"]},
+                                       "bf16_wgmma")):
+                    fail(f"tp {tag}: a launch off its training route: "
+                         f"{res['routes']}")
+                if res["losses"] != m0["losses"] or \
+                        res["replicas_sha1"] != m0["replicas_sha1"]:
+                    fail(f"tp {tag}: the ranks part: losses {res['losses']} "
+                         f"vs {m0['losses']}, replicas {res['replicas_sha1']}"
+                         f" vs {m0['replicas_sha1']}")
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(m0["losses"], one["losses"]))
+            upd = m0["update_rel"]
+            worst = max(upd, key=upd.get)
+            log(f"[tp] {tag} on {TP_RANKS} ranks against one process "
+                f"(peak {one['peak_gib']:.2f} GiB, taken by each rank at "
+                f"once in {one['seconds']:.1f} s): losses {m0['losses']} vs "
+                f"{one['losses']} (worst rel {loss_rel:.3g}, tol "
+                f"{DIST_TOL['loss']}); updates within rel {upd[worst]:.3g} "
+                f"({worst}; tol {DIST_TOL['updates']}); replicated "
+                f"{m0['replicated']}; replicas bit-identical | {card}")
+            if loss_rel > DIST_TOL["loss"] or upd[worst] > \
+                    DIST_TOL["updates"]:
+                fail(f"tp {tag}: the ranks part from one process: losses "
+                     f"{m0['losses']} vs {one['losses']}, worst update "
+                     f"{worst} {upd[worst]}")
+            checks[tag] = dict(loss_rel=loss_rel, update_rel=upd[worst],
+                               worst=worst)
+    log(f"[tp] the B1-B3 row-amax cases {amax_s:.1f} s, the ranks "
+        f"{ranks_s:.1f} s | {card}")
+    return dict(amax_cases=amax, amax_s=amax_s, ranks=ranks,
+                ranks_s=ranks_s, checks=checks)
+
+
+def _tp_runs(tp: dict) -> list:
+    """Every rank's mesh run of the tp phase."""
+    return [m for rank in tp["ranks"] for run in rank["runs"].values()
+            for m in run["mesh"]]
+
+
+def _tp_paths(tp: dict, kernel: str) -> dict:
+    """A B1-B3 kernel's launches on the tp phase's paths, both ranks."""
+    out = {}
+    for rank in tp["ranks"]:
+        for name, run in rank["runs"].items():
+            for m in run["mesh"]:
+                key = f"tp_{name.split('-')[0]}" + ("_sp" if m["sp"] else "")
+                out[key] = out.get(key, 0) + m["launches"][kernel]
+    return out
+
+
 def _route_sum(rows, kernel: str) -> dict:
     """A kernel's launches by route summed over the recorded steps."""
     return {rt: sum(r["launches"].get(f"{kernel}/{rt}", 0) for r in rows)
@@ -5000,12 +5485,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--dist-rank"] and len(sys.argv) == 6:
         return dist_rank(int(sys.argv[2]), int(sys.argv[3]),
                          int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 6:
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]),
+                       int(sys.argv[4]), sys.argv[5])
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
     phases = {"recurrent": phase_recurrent, "moe": phase_moe,
               "vlm_audio": phase_vlm_audio, "autotune": phase_autotune,
-              "dist": phase_dist}
+              "dist": phase_dist, "tp": phase_tp}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -5054,6 +5542,8 @@ def main() -> int:
     log(f"[time] vlm_audio done at {time.perf_counter() - t0:.1f} s")
     dist = phase_dist(card)
     log(f"[time] dist done at {time.perf_counter() - t0:.1f} s")
+    tp = phase_tp(card)
+    log(f"[time] tp done at {time.perf_counter() - t0:.1f} s")
     bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"] + va["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5064,7 +5554,8 @@ def main() -> int:
                    "train_full_yi": train_yi, "train_sr": train_sr,
                    "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve, "recurrent": rec, "moe": moe,
-                   "vlm_audio": va, "autotune": at, "dist": dist},
+                   "vlm_audio": va, "autotune": at, "dist": dist,
+                   "tp": tp},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -5097,7 +5588,8 @@ def main() -> int:
                          **{p: t["launches"][k] for p, t in va_train.items()},
                          **{p: t["launches"][k] for p, t in at_train.items()},
                          "dist_gemma2": sum(r["launches"][k]
-                                            for r in dist["ranks"])}
+                                            for r in dist["ranks"]),
+                         **_tp_paths(tp, k)}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
                   for a, r in (*rec["serve"].items(),
                                *moe["serve"].items(),
@@ -5116,6 +5608,7 @@ def main() -> int:
         + sum(t["routes"][k][r] for t in va_train.values())
         + sum(t["routes"][k][r] for t in at_train.values())
         + sum(d["routes"][k][r] for d in dist["ranks"])
+        + sum(m["routes"][k][r] for m in _tp_runs(tp))
         + (served if r == "bf16_wgmma" else 0)
         + (at["serve"]["routes"][r] if k == "hbfp_matmul_fwd" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}

@@ -133,14 +133,24 @@ def _round(v: torch.Tensor, rounding: str, key: Optional[int],
 def quantize(x: torch.Tensor, mantissa_bits: int,
              tile_shape: Sequence[Optional[int]],
              rounding: str = "nearest",
-             key: Optional[int] = None) -> torch.Tensor:
+             key: Optional[int] = None,
+             amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """FP→BFP→FP simulation: the dequantized tensor, in x's dtype.
-    Stochastic rounding needs an int `key`."""
+    Stochastic rounding needs an int `key`. `amax` ([..., 1], f32), for
+    row tiles (1, ..., 1, None) only, is each row's group amax taken
+    instead of the row's own (the global row max of a row whose features
+    are split over tensor-parallel ranks)."""
     if mantissa_bits >= 24:
         return x
     dt = x.dtype
     xf = x.to(torch.float32)
-    delta = tile_scales(xf, mantissa_bits, tile_shape)
+    if amax is None:
+        delta = tile_scales(xf, mantissa_bits, tile_shape)
+    elif tuple(tile_shape) != (1,) * (x.ndim - 1) + (None,):
+        raise ValueError(f"a given amax needs row tiles, got "
+                         f"{tuple(tile_shape)}")
+    else:
+        delta = pow2(_max_exponent(amax) - mantissa_bits + 2)
     lim = float(2 ** (mantissa_bits - 1) - 1)
     padded = _tile_view(tuple(x.shape), tile_shape)[0]
     q = _round(xf / delta, rounding, key, padded).clamp(-lim, lim)
@@ -161,10 +171,11 @@ def weight_tile_shape(rank: int, tile: Optional[int]
     return (1,) * (rank - 2) + (tile, tile)
 
 
-def quantize_act(x, cfg, key=None):
-    """Quantize an activation/gradient tensor per the paper's policy."""
+def quantize_act(x, cfg, key=None, amax=None):
+    """Quantize an activation/gradient tensor per the paper's policy
+    (`amax`: the rows' group amax, see `quantize`)."""
     return quantize(x, cfg.mantissa_bits, act_tile_shape(x.ndim, cfg.act_block),
-                    cfg.rounding, key)
+                    cfg.rounding, key, amax)
 
 
 def quantize_weight(x, cfg, key=None, wide: bool = False):

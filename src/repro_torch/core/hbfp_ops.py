@@ -13,6 +13,14 @@ operands; per-role widths (`dgrad_cfg`/`wgrad_cfg`) re-quantize each
 backward GEMM's operands at its own width. Attention's QKᵀ and PV run
 here on every backend.
 
+Tensor parallelism (`tp`, a `sharding.tensor_parallel.TPCall`): a
+row-parallel call ("row", x holding a part of each row) quantizes x on
+the global row amax where its exponent group spans the ranks and returns
+the f32 partial product, which the caller sums over the ranks; a
+column-parallel call ("col", the output columns a part) quantizes g on
+the global row amax likewise and, given `reduce_dx`, sums the f32 input
+gradient over the ranks before its one cast.
+
 Stochastic rounding takes the call's int key and, as the reference,
 folds the operand into it (0 for x, 1 for w, 2 for g); a backward GEMM
 at a diverged role width or block folds a (role, width, block) salt
@@ -28,6 +36,8 @@ import torch.nn.functional as F
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
 from repro_torch.kernels.common import fold_in, role_stream_salt
+from repro_torch.sharding.tensor_parallel import (local_row_amax,
+                                                  row_amax_needed)
 
 
 def _fold(key: Optional[int], i: int) -> Optional[int]:
@@ -49,12 +59,18 @@ def _role_key(key: Optional[int], i: int, role: str, role_cfg: HBFPConfig,
     return fold_in(k, salt) if salt else k
 
 
-def _q_act(x, cfg: HBFPConfig, key, contract_axis: int):
+def _q_act(x, cfg: HBFPConfig, key, contract_axis: int, tp=None):
     """Per-row exponents along the contraction axis (optionally blocked by
-    cfg.act_block)."""
+    cfg.act_block); on the global row amax, reduced over `tp` (a TPCall
+    whose ranks each hold a part of every row: the last axis), where the
+    parts cut an exponent group."""
     tile = [1] * x.ndim
     tile[contract_axis] = cfg.act_block
-    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key)
+    amax = None
+    if tp is not None and row_amax_needed(cfg.act_block, x.shape[-1],
+                                          x.shape[-1] * tp.size):
+        amax = tp.reduce_max(local_row_amax(x))
+    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key, amax)
 
 
 def _q_w(w, cfg: HBFPConfig, key):
@@ -84,57 +100,77 @@ def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 class _HBFPMatmulFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key):
-        xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1)
+    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key, tp):
+        row = tp if tp is not None and tp.kind == "row" else None
+        xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1, tp=row)
         wq = _q_b(w, cfg, _fold(key, 1), w_kind)
-        y = torch.matmul(xq, wq)
+        if row is not None:
+            # the partial product in f32, summed over the ranks outside
+            y = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
+        else:
+            y = torch.matmul(xq, wq)
         uniform = dgrad_cfg is None and wgrad_cfg is None
         # uniform widths: the backward reuses the forward's quantized
         # operands; per-role widths keep the raw ones
         ctx.save_for_backward(*((xq, wq) if uniform else (x, w)))
         ctx.cfgs = (cfg, dgrad_cfg, wgrad_cfg, w_kind, key)
+        ctx.tp = tp
         return y
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         cfg, dgrad_cfg, wgrad_cfg, w_kind, key = ctx.cfgs
+        tp = ctx.tp
+        col = tp if tp is not None and tp.kind == "col" else None
+        row = tp if tp is not None and tp.kind == "row" else None
+        if row is not None:
+            # the gradient of the cast of the summed f32 partials: exact
+            # in x's dtype, as one process receives it
+            g = g.to(a.dtype)
         if dgrad_cfg is None and wgrad_cfg is None:
             xq, wq = a, b
             gq_d = gq_w = _q_act(g, cfg, _fold(key, 2),
-                                 contract_axis=g.ndim - 1)
+                                 contract_axis=g.ndim - 1, tp=col)
         else:
             dcfg = dgrad_cfg if dgrad_cfg is not None else cfg
             wcfg = wgrad_cfg if wgrad_cfg is not None else cfg
             wq = _q_b(b, dcfg, _role_key(key, 1, "dgrad", dcfg, cfg), w_kind)
             gq_d = _q_act(g, dcfg, _role_key(key, 2, "dgrad", dcfg, cfg),
-                          contract_axis=g.ndim - 1)
+                          contract_axis=g.ndim - 1, tp=col)
             xq = _q_act(a, wcfg, _role_key(key, 0, "wgrad", wcfg, cfg),
-                        contract_axis=a.ndim - 1)
+                        contract_axis=a.ndim - 1, tp=row)
             gq_w = _q_act(g, wcfg, _role_key(key, 2, "wgrad", wcfg, cfg),
-                          contract_axis=g.ndim - 1)
-        dx = _sum_to(torch.matmul(gq_d, wq.transpose(-1, -2)), xq)
+                          contract_axis=g.ndim - 1, tp=col)
+        if tp is not None and tp.reduce_dx is not None:
+            # the f32 partial input gradient, summed, cast once
+            dx = tp.reduce_dx(torch.matmul(
+                gq_d.to(torch.float32), wq.to(torch.float32).T))
+        else:
+            dx = _sum_to(torch.matmul(gq_d, wq.transpose(-1, -2)), xq)
         if wq.ndim == 2:
             dw = torch.matmul(xq.reshape(-1, xq.shape[-1]).T,
                               gq_w.reshape(-1, gq_w.shape[-1]))
         else:
             dw = _sum_to(torch.matmul(xq.transpose(-1, -2), gq_w), wq)
         return (dx.to(xq.dtype), dw.to(wq.dtype), None, None, None, None,
-                None)
+                None, None)
 
 
 def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
                 cfg: Optional[HBFPConfig], key: Optional[int] = None,
                 w_kind: str = "weight", *, dgrad_cfg=None,
-                wgrad_cfg=None) -> torch.Tensor:
+                wgrad_cfg=None, tp=None) -> torch.Tensor:
     """y = Q(x) @ Q(w) with BFP backward passes. x: [..., M, K]; w: [K, N]
     or [..., K, N] with batch dims broadcasting against x. cfg None is a
     plain matmul. Stochastic rounding needs an int `key`. w_kind "act"
     gives the right operand per-vector exponents along the contraction.
     dgrad_cfg/wgrad_cfg (None or equal to cfg: the uniform path) quantize
-    the backward GEMMs at their own widths."""
+    the backward GEMMs at their own widths. `tp` (a TPCall, 2-D w only)
+    runs it as one rank's part of a tensor-parallel product (module
+    doc)."""
     if cfg is None:
-        return torch.matmul(x, w)
+        return _fp_matmul(x, w, tp)
     if w.ndim != 2 and w.ndim != x.ndim:
         raise ValueError(f"rank mismatch: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if cfg.rounding == "stochastic" and key is None:
@@ -143,7 +179,39 @@ def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
         dgrad_cfg = None
     if wgrad_cfg == cfg:
         wgrad_cfg = None
-    return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key)
+    return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key,
+                               tp)
+
+
+class _FPMatmulFn(torch.autograd.Function):
+    """A plain tensor-parallel product (fp32 policies): the row-parallel
+    partial in f32; a column one's input gradient summed in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, tp):
+        ctx.save_for_backward(x, w)
+        ctx.tp = tp
+        if tp.kind == "row":
+            return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        tp = ctx.tp
+        g = g.to(x.dtype)
+        if tp.reduce_dx is not None:
+            dx = tp.reduce_dx(torch.matmul(g.to(torch.float32),
+                                           w.to(torch.float32).T))
+        else:
+            dx = torch.matmul(g, w.T)
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                          g.reshape(-1, g.shape[-1]))
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def _fp_matmul(x, w, tp):
+    return torch.matmul(x, w) if tp is None else _FPMatmulFn.apply(x, w, tp)
 
 
 def hbfp_linear(x, w, b, cfg: Optional[HBFPConfig],

@@ -95,14 +95,19 @@ __device__ __forceinline__ void store_q(__nv_bfloat16* q, size_t i, float v) {
 // amax, exponent, mantissas. q gets integral mantissas (f32, or int8/bf16
 // for QT of the tensor-core routes), or mantissa * delta when dequant is
 // set; s[row, group] gets delta. `stream` is the operand's offset in the
-// stochastic stream (kStreamX, kStreamG).
+// stochastic stream (kStreamX, kStreamG). A non-null amax_in [M, C/gx]
+// (one value per row when the row is one group) is taken as each group's
+// amax instead of the group's own: the global row max of a row whose
+// columns are split over tensor-parallel ranks, so that every rank's part
+// takes the one-process exponent.
 template <typename XT, typename QT = float>
 __global__ void quantize_rows_kernel(const XT* __restrict__ x,
                                      QT* __restrict__ q,
                                      float* __restrict__ s, int M, int C,
                                      int gx, int mbits, int stochastic,
                                      uint32_t seed, uint32_t stream,
-                                     int dequant) {
+                                     int dequant,
+                                     const float* __restrict__ amax_in) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int ngroups = C / gx;
@@ -112,9 +117,14 @@ __global__ void quantize_rows_kernel(const XT* __restrict__ x,
   const size_t base = static_cast<size_t>(row) * C +
                       static_cast<size_t>(g) * gx;
   float amax = 0.0f;
-  for (int c = lane; c < gx; c += 32) amax = fmaxf(amax, fabsf(to_f(x[base + c])));
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (amax_in != nullptr) {
+    amax = amax_in[static_cast<size_t>(row) * ngroups + g];
+  } else {
+    for (int c = lane; c < gx; c += 32)
+      amax = fmaxf(amax, fabsf(to_f(x[base + c])));
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
   const float delta = pow2i(max_exponent(amax) - mbits + 2);
   const float lim = static_cast<float>((1 << (mbits - 1)) - 1);
   for (int c = lane; c < gx; c += 32) {
@@ -178,12 +188,13 @@ __global__ void quantize_w_kernel(const WT* __restrict__ w,
 template <typename XT, typename QT = float>
 void launch_quantize_rows(const void* x, QT* q, float* s, int M, int C,
                           int gx, int mbits, int stochastic, uint32_t seed,
-                          uint32_t stream, int dequant, cudaStream_t st) {
+                          uint32_t stream, int dequant, cudaStream_t st,
+                          const float* amax_in = nullptr) {
   const long long warps = static_cast<long long>(M) * (C / gx);
   const int blocks = static_cast<int>((warps * 32 + kThreads - 1) / kThreads);
   quantize_rows_kernel<XT, QT><<<blocks, kThreads, 0, st>>>(
       static_cast<const XT*>(x), q, s, M, C, gx, mbits, stochastic, seed,
-      stream, dequant);
+      stream, dequant, amax_in);
 }
 
 template <typename WT, typename QT = float, bool TRANS = false>

@@ -181,13 +181,15 @@ wgrad_gemm_kernel(const float* __restrict__ xq, const float* __restrict__ gq,
 // take part [N/bn, M, K] f32 when the N-blocks are split. (bk, bn) are
 // the reference's clipped, block-aligned tiles; K and N must be multiples
 // of them. A scratch set that does not match the route is refused.
+// g_amax: null, or [M, N/gg] f32 group amaxes taken instead of g's own.
 // Returns a cudaError_t code.
 extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
                           int w_bf16, float* dx, float* gq, float* sg,
                           float* wq, float* sw, void* gq8, void* wq8,
                           float* part, int M, int K, int N, int bk, int bn,
                           int mbits, int stochastic, int quantize_w,
-                          int block, int seed, void* stream_ptr) {
+                          int block, int seed, const float* g_amax,
+                          void* stream_ptr) {
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
       N % bn || mbits < 2 || mbits > 12 || block < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -213,10 +215,12 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
                                           stochastic, useed, kStreamG,
-                                          dequant, stream);
+                                          dequant, stream,
+          g_amax);
     else
       launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
-                                  useed, kStreamG, dequant, stream);
+                                  useed, kStreamG, dequant, stream,
+          g_amax);
     if (quantize_w) {
       if (w_bf16)
         launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
@@ -237,10 +241,12 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
                                           stochastic, useed, kStreamG, 0,
-                                          stream);
+                                          stream,
+          g_amax);
     else
       launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
-                                  useed, kStreamG, 0, stream);
+                                  useed, kStreamG, 0, stream,
+          g_amax);
     int8_t* qw = static_cast<int8_t*>(wq8);
     if (w_bf16)
       launch_quantize_w<__nv_bfloat16, int8_t>(w, qw, sw, K, N, bk, bn,
@@ -254,10 +260,12 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
                                           stochastic, useed, kStreamG, 0,
-                                          stream);
+                                          stream,
+          g_amax);
     else
       launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
-                                  useed, kStreamG, 0, stream);
+                                  useed, kStreamG, 0, stream,
+          g_amax);
   }
   const cudaError_t e = sm90::tc_gemm<true>(
       route, false, gq8, sg, i8 ? wq8 : w, sw, dx, part, M, N, K, bn, bk,
@@ -272,14 +280,16 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
 // bf16_wgmma: xh [M,K] bf16, gh [M,N] bf16, and part [M/bm, K, N] f32
 // when the M-blocks are split (K <= 64). Both: sx [M, K/gx] f32,
 // sg [M, N/gg] f32. K and N must be multiples of (bk, bn), M of bm. A
-// scratch set that does not match the route is refused. Returns a
-// cudaError_t code.
+// scratch set that does not match the route is refused. x_amax, g_amax:
+// null, or the operand's [M, K/gx] / [M, N/gg] f32 group amaxes taken
+// instead of its own. Returns a cudaError_t code.
 extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
                           int g_bf16, float* dw, float* xq, float* sx,
                           float* gq, float* sg, void* xh, void* gh,
                           float* part, int M, int K, int N, int bm, int bk,
                           int bn, int mbits, int stochastic, int block,
-                          int seed, void* stream_ptr) {
+                          int seed, const float* x_amax,
+                          const float* g_amax, void* stream_ptr) {
   if (M <= 0 || K <= 0 || N <= 0 || bm <= 0 || bk <= 0 || bn <= 0 ||
       M % bm || K % bk || N % bn || mbits < 2 || mbits > 12 || block < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -297,17 +307,21 @@ extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, xb, sx, M, K, gx, mbits,
                                           stochastic, useed, kStreamX, 1,
-                                          stream);
+                                          stream,
+          x_amax);
     else
       launch_quantize_rows<float>(x, xb, sx, M, K, gx, mbits, stochastic,
-                                  useed, kStreamX, 1, stream);
+                                  useed, kStreamX, 1, stream,
+          x_amax);
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, gb, sg, M, N, gg, mbits,
                                           stochastic, useed, kStreamG, 1,
-                                          stream);
+                                          stream,
+          g_amax);
     else
       launch_quantize_rows<float>(g, gb, sg, M, N, gg, mbits, stochastic,
-                                  useed, kStreamG, 1, stream);
+                                  useed, kStreamG, 1, stream,
+          g_amax);
     const cudaError_t e = tc_wgrad(xh, gh, dw, part, M, K, N, bm,
                                          stream);
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
@@ -318,17 +332,21 @@ extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
   if (x_bf16)
     launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
                                         stochastic, useed, kStreamX, 1,
-                                        stream);
+                                        stream,
+          x_amax);
   else
     launch_quantize_rows<float>(x, xq, sx, M, K, gx, mbits, stochastic,
-                                useed, kStreamX, 1, stream);
+                                useed, kStreamX, 1, stream,
+          x_amax);
   if (g_bf16)
     launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
                                         stochastic, useed, kStreamG, 1,
-                                        stream);
+                                        stream,
+          g_amax);
   else
     launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
-                                useed, kStreamG, 1, stream);
+                                useed, kStreamG, 1, stream,
+          g_amax);
   dim3 grid((N + kTN - 1) / kTN, (K + kTN - 1) / kTN);
   wgrad_gemm_kernel<<<grid, kThreads, 0, stream>>>(xq, gq, dw, M, K, N);
   return static_cast<int>(cudaGetLastError());

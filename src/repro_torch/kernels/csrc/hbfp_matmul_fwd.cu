@@ -73,7 +73,9 @@ using namespace hbfp;
 // bf16_wgmma: xq8 [M,K] bf16, sx. Both tensor-core routes at M <= 64 take
 // part [K/bk, M, N] f32 when the K-blocks are split. (bk, bn) are the
 // reference's clipped, block-aligned tiles; M, K, N must be multiples of
-// them. A scratch set that does not match the route is refused. Returns a
+// them. A scratch set that does not match the route is refused. x_amax:
+// null, or [M, K/gx] f32 group amaxes that the row pass takes instead of
+// x's own (the global row max of a tensor-parallel shard). Returns a
 // cudaError_t code.
 extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
                                int w_bf16, float* y, float* xq, float* sx,
@@ -81,6 +83,7 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
                                float* part, int M, int K, int N, int bk,
                                int bn, int mbits, int stochastic,
                                int quantize_w, int block, int seed,
+                               const float* x_amax,
                                void* stream_ptr) {
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
       N % bn || mbits < 2 || mbits > 12 || block < 0)
@@ -106,10 +109,12 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
                                           stochastic, useed, kStreamX,
-                                          dequant, stream);
+                                          dequant, stream,
+          x_amax);
     else
       launch_quantize_rows<float>(x, xq, sx, M, K, gx, mbits, stochastic,
-                                  useed, kStreamX, dequant, stream);
+                                  useed, kStreamX, dequant, stream,
+          x_amax);
     if (quantize_w) {
       if (w_bf16)
         launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
@@ -130,10 +135,12 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, q, sx, M, K, bk, mbits,
                                           stochastic, useed, kStreamX, 0,
-                                          stream);
+                                          stream,
+          x_amax);
     else
       launch_quantize_rows<float>(x, q, sx, M, K, bk, mbits, stochastic,
-                                  useed, kStreamX, 0, stream);
+                                  useed, kStreamX, 0, stream,
+          x_amax);
     int8_t* qw = static_cast<int8_t*>(wq8);
     if (w_bf16)
       launch_quantize_w<__nv_bfloat16, int8_t, true>(
@@ -146,10 +153,12 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, q, sx, M, K, bk, mbits,
                                           stochastic, useed, kStreamX, 0,
-                                          stream);
+                                          stream,
+          x_amax);
     else
       launch_quantize_rows<float>(x, q, sx, M, K, bk, mbits, stochastic,
-                                  useed, kStreamX, 0, stream);
+                                  useed, kStreamX, 0, stream,
+          x_amax);
   }
   const cudaError_t e = sm90::tc_gemm<false>(
       route, !i8, xq8, sx, i8 ? wq8 : w, sw, y, part, M, K, N, bk, bn,

@@ -30,6 +30,16 @@ included, since the dequantized operands are exact in bf16 whatever
 their exponent groups) and "cuda_core" (m 9-12, other tiles);
 `wgrad_scratch` gives their scratch.
 
+Row amax (tensor parallelism): B1 takes `x_amax`, B2 `g_amax`, B3 both,
+each None or the activation operand's f32 group amaxes, [M] when a row
+is one exponent group, else [M, C/group] in the order of the row pass's
+scales. The row pass of every route (`quantize_rows_kernel` in
+`csrc/hbfp_common.cuh`, the pre-pass of the tensor-core routes too)
+quantizes on the given amax instead of its own: a rank that holds part
+of each row quantizes it on the global row max, all-reduced (MAX) over
+the model group, and gets the one-process mantissas and exponents. An
+amax equal to the group's own max gives the same bits as None.
+
 Counters: each wrapper's `.launches` counts kernel launches,
 `.launches_by_route` the same launches by route, and
 `.plain_calls` counts CPU calls of its plain version (`reset_counts()`
@@ -65,9 +75,9 @@ SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
            "bfp_quantize": os.path.join(_CSRC, "bfp_quantize.cu")}
 _ENTRIES = {
     "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipip" + "p" * 7 + "i" * 10
-                        + "p"},
-    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 10 + "p",
-                        "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 10 + "p"},
+                        + "pp"},
+    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 10 + "pp",
+                        "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 10 + "ppp"},
     "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "p" * 6 + "i" * 8
                         + "fp",
                         "hbfp_flash_dq": "ppppppip" + "p" * 9 + "i" * 8
@@ -263,6 +273,12 @@ def wgrad_scratch(route: str, M: int, K: int, N: int, *, bm: int, bk: int,
     return out
 
 
+def _row_group(block: int, cblk: int) -> int:
+    """Columns of one exponent group of an activation row in a launch
+    whose contraction block (or output block, for B3's g) is `cblk`."""
+    return block if block and block < cblk else cblk
+
+
 def _seed_int(seed) -> int:
     if seed is None:
         return 0
@@ -307,6 +323,20 @@ def _launchable(t: torch.Tensor, mantissa_bits: int, what: str) -> None:
                          f"{mantissa_bits}")
 
 
+def _amax_arg(amax: Optional[torch.Tensor], M: int, C: int, group: int,
+              dev: torch.device, what: str):
+    """The pointer of a row-amax operand (None: the kernel's own amax):
+    f32, contiguous, on the operands' device, M·(C/group) values."""
+    if amax is None:
+        return None
+    if amax.dtype != torch.float32 or not amax.is_contiguous() \
+            or amax.device != dev or amax.numel() != M * (C // group):
+        raise ValueError(f"{what}: the row amax must be a contiguous f32 "
+                         f"tensor of {M} x {C // group} values on {dev}, got "
+                         f"{amax.dtype} {tuple(amax.shape)} on {amax.device}")
+    return amax.data_ptr()
+
+
 def _launch(lib_name: str, entry: str, dev: torch.device, *args) -> None:
     fn = getattr(load(lib_name), entry)
     with torch.cuda.device(dev):
@@ -327,8 +357,9 @@ def _is_bf16(t: torch.Tensor) -> int:
 def _gemm_launch(op: str, lib_entry: str, a: torch.Tensor, w: torch.Tensor,
                  out: torch.Tensor, seed, M: int, K: int, N: int, *,
                  mantissa_bits: int, stochastic: bool, quantize_w: bool,
-                 block: int, bk: int, bn: int) -> str:
-    """Allocate the route's scratch and launch B1 or B2; returns the
+                 block: int, bk: int, bn: int, amax=None) -> str:
+    """Allocate the route's scratch and launch B1 or B2 (`amax` the row
+    amax pointer of its activation operand, or None); returns the
     route."""
     route = gemm_route(op, mantissa_bits=mantissa_bits,
                        quantize_w=quantize_w, block=block, bk=bk, bn=bn, N=N,
@@ -343,7 +374,7 @@ def _gemm_launch(op: str, lib_entry: str, a: torch.Tensor, w: torch.Tensor,
             w.data_ptr(), _is_bf16(w), out.data_ptr(),
             *(_ptr(t) for t in scratch.values()), M, K, N, bk, bn,
             mantissa_bits, int(stochastic), int(quantize_w), int(block),
-            _seed_int(seed))
+            _seed_int(seed), amax)
     return route
 
 
@@ -351,10 +382,12 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
                     mantissa_bits: int = 8, stochastic: bool = False,
                     quantize_w: bool = True, block: int = 0,
                     bm: int = 128, bk: int = 128,
-                    bn: int = 128) -> torch.Tensor:
+                    bn: int = 128, x_amax: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """B1, fused quantize + matmul. x: [M,K] f32/bf16, w: [K,N] f32/bf16,
     both contiguous on one device and divisible by the clipped tiles (the
-    caller pads, `kernels/linear.py`). Returns y [M,N] f32."""
+    caller pads, `kernels/linear.py`); `x_amax` x's row amax (module
+    doc). Returns y [M,N] f32."""
     _check(x, w, "hbfp_matmul_fwd")
     if x.shape[1] != w.shape[0]:
         raise ValueError(f"bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
@@ -365,12 +398,15 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
               quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
     if x.device.type == "cpu":
         hbfp_matmul_fwd.plain_calls += 1
-        return hbfp_matmul_plain(x, w, seed, **kw)
+        return hbfp_matmul_plain(x, w, seed, x_amax=x_amax, **kw)
     _launchable(x, mantissa_bits, "hbfp_matmul_fwd")
+    amax = _amax_arg(x_amax, M, K, _row_group(block, bk), x.device,
+                     "hbfp_matmul_fwd")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     route = _gemm_launch("fwd", "hbfp_matmul_fwd", x, w, y, seed, M, K, N,
                          mantissa_bits=mantissa_bits, stochastic=stochastic,
-                         quantize_w=quantize_w, block=block, bk=bk, bn=bn)
+                         quantize_w=quantize_w, block=block, bk=bk, bn=bn,
+                         amax=amax)
     hbfp_matmul_fwd.launches += 1
     hbfp_matmul_fwd.launches_by_route[route] += 1
     return y
@@ -379,10 +415,12 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
 def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
                mantissa_bits: int = 8, stochastic: bool = False,
                quantize_w: bool = True, block: int = 0,
-               bm: int = 128, bk: int = 128, bn: int = 128) -> torch.Tensor:
+               bm: int = 128, bk: int = 128, bn: int = 128,
+               g_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B2, dx[M,K] = Q(g)[M,N] · Q(w)[K,N]ᵀ. g: [M,N] f32/bf16, w: [K,N]
     f32/bf16 as stored, contiguous, divisible by the clipped tiles (bm over
-    M, bk over K, bn over the contracted N). Returns dx [M,K] f32."""
+    M, bk over K, bn over the contracted N); `g_amax` g's row amax.
+    Returns dx [M,K] f32."""
     _check(g, w, "hbfp_dgrad")
     if g.shape[1] != w.shape[1]:
         raise ValueError(f"dgrad: bad shapes {tuple(g.shape)}, "
@@ -394,12 +432,15 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
               quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
     if g.device.type == "cpu":
         hbfp_dgrad.plain_calls += 1
-        return hbfp_dgrad_plain(g, w, seed, **kw)
+        return hbfp_dgrad_plain(g, w, seed, g_amax=g_amax, **kw)
     _launchable(g, mantissa_bits, "hbfp_dgrad")
+    amax = _amax_arg(g_amax, M, N, _row_group(block, bn), g.device,
+                     "hbfp_dgrad")
     dx = torch.empty((M, K), dtype=torch.float32, device=g.device)
     route = _gemm_launch("dgrad", "hbfp_dgrad", g, w, dx, seed, M, K, N,
                          mantissa_bits=mantissa_bits, stochastic=stochastic,
-                         quantize_w=quantize_w, block=block, bk=bk, bn=bn)
+                         quantize_w=quantize_w, block=block, bk=bk, bn=bn,
+                         amax=amax)
     hbfp_dgrad.launches += 1
     hbfp_dgrad.launches_by_route[route] += 1
     return dx
@@ -408,12 +449,14 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
 def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
                mantissa_bits: int = 8, stochastic: bool = False,
                block: int = 0, bm: int = 128, bk: int = 128,
-               bn: int = 128, operands: bool = False):
+               bn: int = 128, operands: bool = False,
+               x_amax: Optional[torch.Tensor] = None,
+               g_amax: Optional[torch.Tensor] = None):
     """B3, dw[K,N] = (Q(x)·δx)[M,K]ᵀ · (Q(g)·δg)[M,N]. x: [M,K], g: [M,N],
     f32/bf16, contiguous, divisible by the clipped tiles (bm over the
-    contracted M, bk over K, bn over N). Returns dw [K,N] f32, or
-    (dw, x̂, ĝ) with the dequantized operands (f32) when `operands` is
-    set."""
+    contracted M, bk over K, bn over N); `x_amax`, `g_amax` the operands'
+    row amaxes. Returns dw [K,N] f32, or (dw, x̂, ĝ) with the dequantized
+    operands (f32) when `operands` is set."""
     _check(x, g, "hbfp_wgrad")
     if x.shape[0] != g.shape[0]:
         raise ValueError(f"wgrad: bad shapes {tuple(x.shape)}, "
@@ -425,8 +468,13 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
               block=block, bm=bm, bk=bk, bn=bn, operands=operands)
     if x.device.type == "cpu":
         hbfp_wgrad.plain_calls += 1
-        return hbfp_wgrad_plain(x, g, seed, **kw)
+        return hbfp_wgrad_plain(x, g, seed, x_amax=x_amax, g_amax=g_amax,
+                                **kw)
     _launchable(x, mantissa_bits, "hbfp_wgrad")
+    amaxes = (_amax_arg(x_amax, M, K, _row_group(block, bk), x.device,
+                        "hbfp_wgrad"),
+              _amax_arg(g_amax, M, N, _row_group(block, bn), x.device,
+                        "hbfp_wgrad"))
     route = wgrad_route(mantissa_bits=mantissa_bits, M=M, K=K, N=N, bm=bm)
     scratch = {k: None if v is None else
                torch.empty(v[0], dtype=v[1], device=x.device)
@@ -437,7 +485,7 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
             x.data_ptr(), _is_bf16(x), g.data_ptr(), _is_bf16(g),
             dw.data_ptr(), *(_ptr(t) for t in scratch.values()), M, K, N,
             bm, bk, bn, mantissa_bits, int(stochastic), int(block),
-            _seed_int(seed))
+            _seed_int(seed), *amaxes)
     hbfp_wgrad.launches += 1
     hbfp_wgrad.launches_by_route[route] += 1
     if not operands:

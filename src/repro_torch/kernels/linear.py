@@ -13,6 +13,14 @@ kernels, under a `torch.autograd.Function` (the reference's custom VJP):
 Each GEMM quantizes its operands at its own tiling; x and g draw from the
 same stochastic stream in every GEMM they appear in, so matching tilings
 re-quantize to identical values.
+
+Tensor parallelism (`tp`, a `sharding.tensor_parallel.TPCall`): the
+call site's tiles are resolved at the product's global shape, so each
+rank's part keeps the one-process exponent groups. A row-parallel call
+quantizes x (B1, B3) on the global row amax where a K-block spans the
+ranks (the whole row is one K-block) and returns B1's f32 partial sums;
+a column-parallel call does the same for g (B2, B3) and sums B2's f32
+input gradient over the ranks (`reduce_dx`) before its one cast.
 """
 from __future__ import annotations
 
@@ -21,10 +29,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hbfp_ops import _fp_matmul
 from repro_torch.kernels import autotune
 from repro_torch.kernels.common import role_stream_salt
 from repro_torch.kernels.hbfp_matmul import (hbfp_dgrad, hbfp_matmul_fwd,
                                              hbfp_wgrad)
+from repro_torch.sharding.tensor_parallel import (local_row_amax,
+                                                  row_amax_needed)
 
 
 class KernelSpec(NamedTuple):
@@ -52,16 +63,53 @@ def _tiles(spec_tiles, M: int, K: int, N: int, block: int):
                                 block)
 
 
+def _pad_rows(a: Optional[torch.Tensor], mr: int):
+    """A row amax [M, 1] as the [Mp] operand of rows padded to mr (zero
+    rows quantize to zero on any amax)."""
+    if a is None:
+        return None
+    a = a.reshape(-1)
+    pr = (-a.shape[0]) % mr
+    return (F.pad(a, (0, pr)) if pr else a).contiguous()
+
+
 def _fwd_impl(spec: KernelSpec, x2: torch.Tensor, w: torch.Tensor,
-              seed) -> torch.Tensor:
+              seed, x_amax=None, out_f32: bool = False) -> torch.Tensor:
     M, K = x2.shape
     N = w.shape[1]
     bm, bk, bn = _tiles(spec.fwd, M, K, N, spec.block)
     y = hbfp_matmul_fwd(
         _pad2(x2, bm, bk).contiguous(), _pad2(w, bk, bn).contiguous(), seed,
         mantissa_bits=spec.mantissa_bits, stochastic=spec.stochastic,
-        quantize_w=spec.quantize_w, block=spec.block, bm=bm, bk=bk, bn=bn)
-    return y[:M, :N].to(x2.dtype)
+        quantize_w=spec.quantize_w, block=spec.block, bm=bm, bk=bk, bn=bn,
+        x_amax=_pad_rows(x_amax, bm))
+    y = y[:M, :N]
+    return y if out_f32 else y.to(x2.dtype)
+
+
+class _TPNeeds(NamedTuple):
+    """A tensor-parallel call and which of its quantize passes take the
+    global row amax (x in B1 and B3, g in B2 and B3)."""
+    call: object
+    x_fwd: bool
+    x_wgrad: bool
+    g_dgrad: bool
+    g_wgrad: bool
+
+
+def _tp_needs(tp, spec: KernelSpec, K: int, N: int) -> _TPNeeds:
+    """Where the shard of a `tp.kind` product at the global (K, N) tiles
+    cuts an activation exponent group (`row_amax_needed` raises on a cut
+    group that is not the whole row)."""
+    def need(tiles, axis):
+        cblk = tiles[axis]
+        group = spec.block if spec.block and spec.block < cblk else cblk
+        full = K if axis == 1 else N
+        return row_amax_needed(group, full // tp.size, full)
+
+    row, col = tp.kind == "row", tp.kind == "col"
+    return _TPNeeds(tp, row and need(spec.fwd, 1), row and need(spec.wgrad, 1),
+                    col and need(spec.dgrad, 2), col and need(spec.wgrad, 2))
 
 
 def _role_seed(seed: int, role: str, m_bits: int, base_bits: int,
@@ -78,12 +126,17 @@ class _MatmulFn(torch.autograd.Function):
     operands, as the reference's `_vjp_bwd`."""
 
     @staticmethod
-    def forward(ctx, x2, w, spec: KernelSpec, seed: int):
-        y = _fwd_impl(spec, x2, w, seed)
+    def forward(ctx, x2, w, spec: KernelSpec, seed: int, tp=None):
+        amax = None
+        if tp is not None and (tp.x_fwd or tp.x_wgrad):
+            amax = tp.call.reduce_max(local_row_amax(x2))
+        y = _fwd_impl(spec, x2, w, seed, amax if tp and tp.x_fwd else None,
+                      out_f32=tp is not None and tp.call.kind == "row")
         # saved after the launch: a recomputing checkpoint that stops at
         # its last saved tensor still runs the kernel
         ctx.save_for_backward(x2, w)
-        ctx.spec, ctx.seed = spec, seed
+        ctx.spec, ctx.seed, ctx.tp = spec, seed, tp
+        ctx.x_amax = amax if tp is not None and tp.x_wgrad else None
         return y
 
     @staticmethod
@@ -95,6 +148,10 @@ class _MatmulFn(torch.autograd.Function):
         m_d = spec.m_dgrad or spec.mantissa_bits
         m_w = spec.m_wgrad or spec.mantissa_bits
         g = g.to(torch.float32)
+        tp = ctx.tp
+        g_amax = None
+        if tp is not None and (tp.g_dgrad or tp.g_wgrad):
+            g_amax = tp.call.reduce_max(local_row_amax(g))
         dx = dw = None
         if ctx.needs_input_grad[0]:
             bm, bk, bn = _tiles(spec.dgrad, M, K, N, spec.block)
@@ -104,7 +161,11 @@ class _MatmulFn(torch.autograd.Function):
                            spec.block, spec.block),
                 mantissa_bits=m_d, stochastic=spec.stochastic,
                 quantize_w=spec.quantize_w, block=spec.block, bm=bm, bk=bk,
-                bn=bn)[:M, :K].to(x2.dtype)
+                bn=bn, g_amax=_pad_rows(g_amax if tp and tp.g_dgrad
+                                        else None, bm))[:M, :K]
+            if tp is not None and tp.call.reduce_dx is not None:
+                dx = tp.call.reduce_dx(dx)
+            dx = dx.to(x2.dtype)
         if ctx.needs_input_grad[1]:
             bm, bk, bn = _tiles(spec.wgrad, M, K, N, spec.block)
             dw = hbfp_wgrad(
@@ -112,8 +173,11 @@ class _MatmulFn(torch.autograd.Function):
                 _role_seed(seed, "wgrad", m_w, spec.mantissa_bits,
                            spec.block, spec.block),
                 mantissa_bits=m_w, stochastic=spec.stochastic,
-                block=spec.block, bm=bm, bk=bk, bn=bn)[:K, :N].to(w.dtype)
-        return dx, dw, None, None
+                block=spec.block, bm=bm, bk=bk, bn=bn,
+                x_amax=_pad_rows(ctx.x_amax, bm),
+                g_amax=_pad_rows(g_amax if tp and tp.g_wgrad else None, bm)
+            )[:K, :N].to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def resolve_spec(cfg, M: int, K: int, N: int, dtype: str = "float32",
@@ -141,13 +205,16 @@ def resolve_spec(cfg, M: int, K: int, N: int, dtype: str = "float32",
 
 def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
                        seed: Optional[int] = None, *,
-                       dgrad_cfg=None, wgrad_cfg=None) -> torch.Tensor:
+                       dgrad_cfg=None, wgrad_cfg=None,
+                       tp=None) -> torch.Tensor:
     """BFP matmul y = Q(x)·Q(w) with kernel backward passes. x: [..., K];
     w: [K, N]. cfg None or >= 24 mantissa bits is a plain matmul, as in
     the reference. Stochastic rounding needs an int `seed`.
-    `dgrad_cfg`/`wgrad_cfg` run the backward GEMMs at their own widths."""
+    `dgrad_cfg`/`wgrad_cfg` run the backward GEMMs at their own widths;
+    `tp` (a TPCall) runs one rank's part of a tensor-parallel product
+    (module doc)."""
     if cfg is None or cfg.mantissa_bits >= 24:
-        return torch.matmul(x, w)
+        return _fp_matmul(x, w, tp)
     if w.ndim != 2:
         raise ValueError(f"kernel path needs 2-D w, got {tuple(w.shape)}")
     K = x.shape[-1]
@@ -158,8 +225,11 @@ def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
             raise ValueError("stochastic rounding requires a seed")
     else:
         seed = 0
-    spec = resolve_spec(cfg, x2.shape[0], K, N,
+    Kg = K * tp.size if tp is not None and tp.kind == "row" else K
+    Ng = N * tp.size if tp is not None and tp.kind == "col" else N
+    spec = resolve_spec(cfg, x2.shape[0], Kg, Ng,
                         dtype=autotune.dtype_name(x.dtype),
                         dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg)
-    y = _MatmulFn.apply(x2, w, spec, int(seed))
+    needs = None if tp is None else _tp_needs(tp, spec, Kg, Ng)
+    y = _MatmulFn.apply(x2, w, spec, int(seed), needs)
     return y.reshape(*x.shape[:-1], N)

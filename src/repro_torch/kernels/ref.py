@@ -52,17 +52,28 @@ def _index(r0: int, nr: int, c0: int, nc: int, C: int, stream: int,
     return _wrap_i32(r[:, None] * C + c[None, :] + stream)
 
 
+def _given_amax(amax: torch.Tensor, R: int, c0: int, width: int,
+                block: int) -> torch.Tensor:
+    """The slab [c0, c0 + width)'s part of a given row amax ([R] or
+    [R, C/group], one value per row group), broadcast to its columns."""
+    gx = block if block and block < width else width
+    a = amax.to(torch.float32).reshape(R, -1)[:, c0 // gx:(c0 + width) // gx]
+    return a if gx == width else a.repeat_interleave(gx, dim=1)
+
+
 def _quantize_rows(a: torch.Tensor, c0: int, width: int, C: int,
                    mantissa_bits: int, block: int, stochastic: bool,
-                   seed: int, stream: int):
+                   seed: int, stream: int, amax=None):
     """Columns [c0, c0 + width) of the f32 [R, C] operand `a`, quantized
     per (row, block group): (q, delta) on the operand's stochastic
-    stream."""
+    stream, each group on its own amax or, given `amax`, on that one."""
     s = a[:, c0:c0 + width]
     idx = _index(0, a.shape[0], c0, width, C, stream, a.device) \
         if stochastic else None
-    return quantize_block(s, mantissa_bits, row_group_amax(s, block),
-                          stochastic=stochastic, seed=seed, idx=idx)
+    g = row_group_amax(s, block) if amax is None else \
+        _given_amax(amax, a.shape[0], c0, width, block)
+    return quantize_block(s, mantissa_bits, g, stochastic=stochastic,
+                          seed=seed, idx=idx)
 
 
 def _quantize_w(ws: torch.Tensor, r0: int, c0: int, N: int, rb: int,
@@ -133,13 +144,14 @@ def bfp_quantize_ref(x, seed=0, *, mantissa_bits=8, tile_r=128, tile_c=128,
 
 def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
                     quantize_w=True, block=0, bm=128, bk=128, bn=128,
-                    out_dtype=torch.float32):
+                    out_dtype=torch.float32, x_amax=None):
     """y = Σ_k Q_row(x)·Q_tile(w)·δx·δw with per-(row, K-block) activation
     exponents and per-(bk, bn) weight-tile exponents, f32 accumulation in
     ascending K-block order. quantize_w=False contracts the given
     (pre-narrowed) w in f32; block>0 refines x to per-(row, block) and w to
     (block, block) groups and dequantizes before an f32 dot (DESIGN.md
-    §13). Shapes must be divisible by the clipped tiles."""
+    §13). `x_amax` ([M] or [M, K/group]) replaces x's group amaxes.
+    Shapes must be divisible by the clipped tiles."""
     M, K = x.shape
     K2, N = w.shape
     if K != K2:
@@ -157,7 +169,7 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
     rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
     for k0 in range(0, K, bk_):
         qx, dx = _quantize_rows(xf, k0, bk_, K, mantissa_bits, block,
-                                stochastic, seed_v, STREAM_X)
+                                stochastic, seed_v, STREAM_X, x_amax)
         ws = wf[k0:k0 + bk_]                                   # [bk, N]
         if not quantize_w:
             if x_sub:
@@ -177,12 +189,13 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
 
 def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
                    quantize_w=True, block=0, bm=128, bk=128, bn=128,
-                   out_dtype=torch.float32):
+                   out_dtype=torch.float32, g_amax=None):
     """dx[M,K] = Q(g)·Q(w)ᵀ: gradient rows quantized per (row, N-block)
     on STREAM_G, weight tiles per (bk, bn) block of w on STREAM_W (the
     forward's element index), f32 accumulation over N-blocks in ascending
     order. quantize_w=False contracts the given (pre-narrowed) w; block>0
-    refines the exponent groups like hbfp_matmul_ref."""
+    refines the exponent groups like hbfp_matmul_ref; `g_amax` replaces
+    g's group amaxes."""
     M, N = g.shape
     K, N2 = w.shape
     if N != N2:
@@ -200,7 +213,7 @@ def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
     rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
     for n0 in range(0, N, bn_):
         qg, dg = _quantize_rows(gf, n0, bn_, N, mantissa_bits, block,
-                                stochastic, seed_v, STREAM_G)
+                                stochastic, seed_v, STREAM_G, g_amax)
         ws = wf[:, n0:n0 + bn_]                                 # [K, bn]
         if not quantize_w:
             if g_sub:
@@ -220,12 +233,13 @@ def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
 
 def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
                    block=0, bm=128, bk=128, bn=128, out_dtype=torch.float32,
-                   operands=False):
+                   operands=False, x_amax=None, g_amax=None):
     """dw[K,N] = (Q(x)·δx)ᵀ·(Q(g)·δg): x rows per (row, K-block) on the
     forward's STREAM_X, g rows per (row, N-block) on STREAM_G, dequantized
     f32 products accumulated over M-blocks in ascending order, as the
     reference does. `operands` also returns the dequantized x̂ [M,K] and
-    ĝ [M,N] (what the kernel's scratch holds)."""
+    ĝ [M,N] (what the kernel's scratch holds); `x_amax`, `g_amax` replace
+    the operands' group amaxes."""
     M, K = x.shape
     M2, N = g.shape
     if M != M2:
@@ -236,16 +250,16 @@ def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
                          f"({bm_},{bk_},{bn_})")
     seed_v = _seed_value(seed)
 
-    def dequant(a, C, width, stream):
+    def dequant(a, C, width, stream, amax):
         out = torch.empty_like(a)
         for c0 in range(0, C, width):
             q, d = _quantize_rows(a, c0, width, C, mantissa_bits, block,
-                                  stochastic, seed_v, stream)
+                                  stochastic, seed_v, stream, amax)
             out[:, c0:c0 + width] = q * d
         return out
 
-    xh = dequant(x.to(torch.float32), K, bk_, STREAM_X)
-    gh = dequant(g.to(torch.float32), N, bn_, STREAM_G)
+    xh = dequant(x.to(torch.float32), K, bk_, STREAM_X, x_amax)
+    gh = dequant(g.to(torch.float32), N, bn_, STREAM_G, g_amax)
     acc = torch.zeros((K, N), dtype=torch.float32, device=x.device)
     for m0 in range(0, M, bm_):
         acc = acc + xh[m0:m0 + bm_].T @ gh[m0:m0 + bm_]

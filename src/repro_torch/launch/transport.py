@@ -7,6 +7,14 @@ gloo where ranks share a card (NCCL refuses two ranks on one device) or
 run on the CPU. The choice is made from the counts, never by catching a
 failure.
 
+The training step holds one transport per mesh axis: "data" (the ZeRO-1
+reduces and gathers) and "model" (tensor and sequence parallelism,
+`sharding/tensor_parallel.py`: the row-parallel sums, the column
+products' input-gradient sums and the row-amax MAX reduces as
+"all_reduce" / "all_reduce_max", the vocab-parallel CE's scalars, the
+gathers as "all_gather", the sequence's reduce-scatters as
+"reduce_scatter").
+
 `Transport(group)` issues every collective of the data-parallel step,
 the checkpoint gathers and the compressed reduce, and records each one
 it issues (kind, payload bytes, group size, host seconds until it
@@ -95,11 +103,14 @@ class Transport:
             out[kind] = out.get(kind, 0.0) + sec
         return out
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the group, in place."""
+    def all_reduce_(self, t: torch.Tensor,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Sum `t` over the group (or its max, op MAX), in place."""
         t0 = time.perf_counter()
-        dist.all_reduce(t, group=self.group)
-        self._record("all_reduce", t, t0)
+        dist.all_reduce(t, op=op, group=self.group)
+        kind = "all_reduce_max" if op == dist.ReduceOp.MAX else \
+            "all_reduce_min" if op == dist.ReduceOp.MIN else "all_reduce"
+        self._record(kind, t, t0)
         return t
 
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
@@ -134,11 +145,17 @@ class Transport:
         """The ranks' equal shards concatenated along `dim`."""
         return torch.cat(self.all_gather(shard), dim=dim)
 
-    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       kind: str = "all_reduce") -> torch.Tensor:
         """This rank's chunk (of `size` equal chunks along `dim`) of the
-        sum of `t` over the group (`t` is summed in place)."""
+        sum of `t` over the group (`t` is summed in place), recorded as
+        `kind` (the data axis's gradient reduce as the all-reduce it is,
+        the sequence's as "reduce_scatter")."""
         n = t.shape[dim] // self.size
-        full = self.all_reduce_(t.contiguous())
+        t0 = time.perf_counter()
+        full = t.contiguous()
+        dist.all_reduce(full, group=self.group)
+        self._record(kind, full, t0)
         return full.narrow(dim, self.rank * n, n).clone()
 
     def barrier(self) -> None:

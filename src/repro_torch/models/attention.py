@@ -248,11 +248,17 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
     are appended to their ring slots first and the block attends over the
     cache. flash_ok: the arch's pattern is full-causal without softcap
     and the positions are standard, so the reference would take its flash
-    kernel here."""
+    kernel here. Under tensor parallelism with the attention projections
+    sharded (`ctx.tp`, `tp_dim` -1 on wq) the rank works on its H/m query
+    and Hkv/m kv heads, each query head's kv head on the same rank, and
+    wo is row-parallel."""
     B, S, D = x.shape
-    q = ctx_matmul(x, p["attn_wq"], ctx, "wq")
-    k = ctx_matmul(x, p["attn_wk"], ctx, "wk")
-    v = ctx_matmul(x, p["attn_wv"], ctx, "wv")
+    if ctx.tp is not None and getattr(p["attn_wq"], "tp_dim", None) == -1:
+        n_heads //= ctx.tp.size
+        n_kv_heads //= ctx.tp.size
+    q = ctx_matmul(x, p["attn_wq"], ctx, "wq", out="shard")
+    k = ctx_matmul(x, p["attn_wk"], ctx, "wk", out="shard")
+    v = ctx_matmul(x, p["attn_wv"], ctx, "wv", out="shard")
     q = q.reshape(B, S, n_heads, head_dim).transpose(1, 2)
     k = k.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)
     v = v.reshape(B, S, n_kv_heads, head_dim).transpose(1, 2)

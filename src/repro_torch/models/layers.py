@@ -76,14 +76,20 @@ _UNSET = object()
 _ATTN_ROLE = {"qk": "attn_qk", "pv": "attn_pv"}
 
 
-def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight"):
+def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
+               out: str = "gather", tp_dim=_UNSET):
     """Route one model dot product through the Ctx's resolved policy, with
     the reference's dispatch: attention roles take their role width on the
     sim path; backend "pallas" sends 2-D weight-kind products to the
     kernels (`kernels/linear.py`: forward, dgrad and wgrad); everything
     else is the sim path (`core/hbfp_ops.py`). dgrad/wgrad role widths
     reach the backward of both. The site's stochastic key is a host int:
-    the kernels take its seed with no device round trip."""
+    the kernels take its seed with no device round trip.
+
+    Under tensor parallelism (`ctx.tp`) a 2-D weight sharded over "model"
+    (its `tp_dim` attribute, or `tp_dim` given for a slice of a sharded
+    leaf) runs as its rank's part (`TPGroup.matmul`): a column-parallel
+    output stays sharded with out="shard", else it is gathered."""
     cfg = ctx.cfg if cfg is _UNSET else cfg
     key = ctx.key_for(site)
     role = _ATTN_ROLE.get(site)
@@ -100,28 +106,40 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight"):
         wgrad_cfg = wg.apply(cfg) if wg is not None else None
         dgrad_cfg = None if dgrad_cfg is cfg else dgrad_cfg
         wgrad_cfg = None if wgrad_cfg is cfg else wgrad_cfg
-    if (ctx.backend == "pallas" and cfg is not None and w.ndim == 2
-            and w_kind == "weight"):
-        from repro_torch.kernels.linear import hbfp_matmul_kernel
-        seed = None if key is None else seed_from_key(key)
-        return hbfp_matmul_kernel(x, w, cfg, seed, dgrad_cfg=dgrad_cfg,
-                                  wgrad_cfg=wgrad_cfg)
-    return hbfp_matmul(x, w, cfg, key, w_kind=w_kind, dgrad_cfg=dgrad_cfg,
-                       wgrad_cfg=wgrad_cfg)
+    kernel = (ctx.backend == "pallas" and cfg is not None and w.ndim == 2
+              and w_kind == "weight")
+
+    def run(x, w, tp=None):
+        if kernel:
+            from repro_torch.kernels.linear import hbfp_matmul_kernel
+            seed = None if key is None else seed_from_key(key)
+            return hbfp_matmul_kernel(x, w, cfg, seed, dgrad_cfg=dgrad_cfg,
+                                      wgrad_cfg=wgrad_cfg, tp=tp)
+        return hbfp_matmul(x, w, cfg, key, w_kind=w_kind,
+                           dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg, tp=tp)
+
+    d = None
+    if ctx.tp is not None and w.ndim == 2 and w_kind == "weight":
+        d = getattr(w, "tp_dim", None) if tp_dim is _UNSET else tp_dim
+    if d is None:
+        return run(x, w)
+    return ctx.tp.matmul(x, w, d, run, out=out)
 
 
 def swiglu_ffn(x, p, ctx):
-    """SwiGLU: (silu(x@wg) * (x@wi)) @ wo — three HBFP matmuls."""
-    g = ctx_matmul(x, p["ffn_wg"], ctx, "ffn_g")
-    u = ctx_matmul(x, p["ffn_wi"], ctx, "ffn_i")
+    """SwiGLU: (silu(x@wg) * (x@wi)) @ wo — three HBFP matmuls (under
+    tensor parallelism the gate and up products stay sharded on d_ff:
+    the gating is elementwise)."""
+    g = ctx_matmul(x, p["ffn_wg"], ctx, "ffn_g", out="shard")
+    u = ctx_matmul(x, p["ffn_wi"], ctx, "ffn_i", out="shard")
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return ctx_matmul(h, p["ffn_wo"], ctx, "ffn_o")
 
 
 def gelu_ffn(x, p, ctx):
     """GeGLU variant (tanh-approximated gelu gating)."""
-    g = ctx_matmul(x, p["ffn_wg"], ctx, "ffn_g")
-    u = ctx_matmul(x, p["ffn_wi"], ctx, "ffn_i")
+    g = ctx_matmul(x, p["ffn_wg"], ctx, "ffn_g", out="shard")
+    u = ctx_matmul(x, p["ffn_wi"], ctx, "ffn_i", out="shard")
     h = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype) * u
     return ctx_matmul(h, p["ffn_wo"], ctx, "ffn_o")
 
@@ -140,14 +158,21 @@ class Ctx:
                step with the same key, draws the same noise;
     act_tap  — `loss_fn` measures the residual stream at the stack's entry
                and exit (numerics observatory, DESIGN.md §9; measurement
-               only, the values are untouched).
+               only, the values are untouched);
+    tp       — None, or this rank's model group
+               (`sharding.tensor_parallel.TPGroup`: its transport, size,
+               rank and the sequence-parallel flag), the port's
+               counterpart of the reference's `act_constraint` and
+               `shard_fn` slots: products on sharded weights run as this
+               rank's part (`ctx_matmul`).
     """
 
     __slots__ = ("policy", "cfg", "key", "backend", "roles", "device",
-                 "act_tap")
+                 "act_tap", "tp")
 
     def __init__(self, cfg=None, key: Optional[int] = None, backend=None,
-                 policy=None, device=None, act_tap: bool = False):
+                 policy=None, device=None, act_tap: bool = False,
+                 tp=None):
         if policy is None:
             policy = as_segment(cfg, backend=backend or "sim")
         self.policy = policy
@@ -157,6 +182,7 @@ class Ctx:
         self.key = key
         self.device = device
         self.act_tap = act_tap
+        self.tp = tp
 
     def key_for(self, site: str) -> Optional[int]:
         """The stochastic-rounding key of `site` (None unless the format
@@ -171,4 +197,4 @@ class Ctx:
         """The context of layer i: the key folded with i."""
         return Ctx(key=None if self.key is None else fold_in(self.key, i),
                    backend=self.backend, policy=self.policy,
-                   device=self.device, act_tap=self.act_tap)
+                   device=self.device, act_tap=self.act_tap, tp=self.tp)

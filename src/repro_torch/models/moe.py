@@ -125,7 +125,16 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
     Tokens are routed within groups of ~group_tokens (GShard): the dispatch
     tensor is [G, T, E, Cap] with Cap ∝ T/E. The dispatch and combine
     einsums are exact (one nonzero term per output of the dispatch, at
-    most top_k of the combine)."""
+    most top_k of the combine).
+
+    Expert parallelism (`ctx.tp` with the experts sharded on E, `tp_dim`
+    -3): the router, dispatch and combine run on every rank; each rank
+    slices its experts' rows of the dispatched tokens and of the combine
+    tensor, runs its experts and takes its experts' part of the combine
+    in f32, which the ranks add (at most top_k nonzero terms an output,
+    the sum one process's f32 accumulation gives) before one cast. Under
+    sequence parallelism x is the gathered sequence, and each part of the
+    output comes back on the local tokens."""
     B, S, D = x.shape
     T_all = B * S
     G = n_groups_for(T_all, n_groups, group_tokens)
@@ -137,21 +146,36 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
     dispatch, combine = make_dispatch(gates, idx, n_experts, capacity,
                                       x.dtype)
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg)     # [E,G,Cap,D]
-    expert_in = expert_in.reshape(n_experts, G * capacity, D)
+    tp = ctx.tp
+    ep = tp is not None and getattr(p["moe_wg"], "tp_dim", None) == -3
+    E = n_experts
+    if ep:
+        E = n_experts // tp.size
+        expert_in = tp.split(expert_in, 0)
+        combine = tp.split(combine, 2)
+    expert_in = expert_in.reshape(E, G * capacity, D)
 
     # per-expert SwiGLU in HBFP: [E, G·Cap, D] @ [E, D, F] (the sim path)
     g = ctx_matmul(expert_in, p["moe_wg"], ctx, "moe_g")
     u = ctx_matmul(expert_in, p["moe_wi"], ctx, "moe_i")
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     eo = ctx_matmul(h, p["moe_wo"], ctx, "moe_o")
-    eo = eo.reshape(n_experts, G, capacity, D)
+    eo = eo.reshape(E, G, capacity, D)
 
-    out = torch.einsum("gtec,egcd->gtd", combine, eo).reshape(B, S, D)
-
+    if ep:
+        part = torch.einsum("gtec,egcd->gtd", combine.to(torch.float32),
+                            eo.to(torch.float32)).reshape(B, S, D)
+        out = (tp.reduce_scatter(part, 1) if tp.sp
+               else tp.reduce(part)).to(x.dtype)
+    else:
+        out = torch.einsum("gtec,egcd->gtd", combine, eo).reshape(B, S, D)
+    local = (lambda t: t) if tp is None else \
+        (lambda t: tp.seq_out(t, S // tp.size if tp.sp else S))
+    out = local(out)
     if shared_expert:
         shared = {k_.replace("shared_", "ffn_"): v for k_, v in p.items()
                   if k_.startswith("shared_")}
-        out = out + swiglu_ffn(x, shared, ctx)
+        out = out + local(swiglu_ffn(x, shared, ctx))
     if dense_residual:
-        out = out + swiglu_ffn(x, p, ctx)
+        out = out + local(swiglu_ffn(x, p, ctx))
     return out, aux

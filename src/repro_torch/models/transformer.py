@@ -219,9 +219,16 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
     branch in parallel with attention when arch.ssm; the MoE FFN when
     arch.n_experts). Returns (x, new_cache, aux): the cache's "kv", and
     "ssm" for hymba; aux the MoE load-balance loss, None without
-    experts."""
-    h = rms_norm(x, lp["ln1_norm_scale"], arch.norm_eps,
-                 arch.zero_centered_norm)
+    experts. Under sequence parallelism (`ctx.tp.sp`) x holds the local
+    tokens: the norms run on them, each mixer on the gathered sequence
+    (`seq_in`), its output back on the local tokens (`seq_out`)."""
+    tp = ctx.tp
+    s_local = x.shape[1]
+    seq_in = (lambda t: t) if tp is None else tp.seq_in
+    seq_out = (lambda t: t) if tp is None else \
+        (lambda t: tp.seq_out(t, s_local))
+    h = seq_in(rms_norm(x, lp["ln1_norm_scale"], arch.norm_eps,
+                        arch.zero_centered_norm))
     a, new_kv = attention_layer(
         h, lp, ctx, n_heads=arch.n_heads, n_kv_heads=arch.n_kv_heads,
         head_dim=arch.hd, positions=positions, rope_theta=arch.rope_theta,
@@ -233,12 +240,14 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         # positions (std_pos)
         flash_ok=(arch.attn_pattern == "global"
                   and arch.attn_softcap is None and std_pos))
+    a = seq_out(a)
     new_cache = {"kv": new_kv} if (want_cache or cache is not None) else None
     if arch.ssm:
         s, new_ssm = ssm_mod.ssm_branch(
             h, lp, ctx, n_heads=arch.n_heads, d_state=arch.ssm_state,
             chunk=arch.ssm_chunk,
             state=None if cache is None else cache["ssm"])
+        s = seq_out(s)
         # hymba: the mean of the per-branch normalized outputs
         a = 0.5 * (rms_norm(a, lp["attn_branch_norm_scale"], arch.norm_eps)
                    + rms_norm(s, lp["ssm_branch_norm_scale"], arch.norm_eps))
@@ -248,8 +257,8 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         a = rms_norm(a, lp["post1_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
     x = _residual(x, a, arch)
-    h = rms_norm(x, lp["ln2_norm_scale"], arch.norm_eps,
-                 arch.zero_centered_norm)
+    h = seq_in(rms_norm(x, lp["ln2_norm_scale"], arch.norm_eps,
+                        arch.zero_centered_norm))
     aux = None
     if arch.n_experts:
         f, aux = moe_mod.moe_ffn(
@@ -261,6 +270,7 @@ def _attn_ffn_block(x, lp, ctx, arch: ArchConfig, positions, window,
         f = gelu_ffn(h, lp, ctx)
     else:
         f = swiglu_ffn(h, lp, ctx)
+    f = seq_out(f)
     if arch.post_norms:
         f = rms_norm(f, lp["post2_norm_scale"], arch.norm_eps,
                      arch.zero_centered_norm)
@@ -278,15 +288,21 @@ def _xlstm_block(x, lp, ctx, arch: ArchConfig, is_slstm: bool, cache,
     """xLSTM layer: the active branch only (the reference evaluates both
     and selects one with `jnp.where`: the same output). The inactive
     branch's state passes through unchanged, zeros when there was none.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache). Under sequence parallelism the block runs on
+    the gathered sequence and keeps its local tokens."""
     own, other = ("slstm", "mlstm") if is_slstm else ("mlstm", "slstm")
     st = None if cache is None else cache[own]
+    tp, s_local = ctx.tp, x.shape[1]
+    if tp is not None:
+        x = tp.seq_in(x)
     if is_slstm:
         y, new = xlstm_mod.slstm_block(x, lp, ctx, n_heads=arch.n_heads,
                                        state=st)
     else:
         y, new = xlstm_mod.mlstm_block(x, lp, ctx, n_heads=arch.n_heads,
                                        chunk=arch.ssm_chunk, state=st)
+    if tp is not None:
+        y = tp.seq_out(y, s_local)
     if not (want_cache or cache is not None):
         return y, None
     if cache is not None:
@@ -320,22 +336,46 @@ def _residual(x, branch, arch: ArchConfig):
     return x + branch.new_full((), arch.residual_scale) * branch
 
 
-def _embed_in(params, batch, arch: ArchConfig, device):
+def _lookup(table, tok, tp):
+    """The embedding rows of `tok`; from a vocab-sharded table (`tp_dim`
+    -2) each rank looks up the rows it holds, zeros elsewhere, and the
+    ranks add them (one nonzero term an element: exact). Under sequence
+    parallelism the result holds the local tokens: the sum
+    reduce-scattered, or a replicated table's rows sliced (its gradient
+    whole on every rank)."""
+    if tp is None:
+        return table[tok]
+    if getattr(table, "tp_dim", None) == -2:
+        v = table.shape[0]
+        local = tok - tp.rank * v
+        have = (local >= 0) & (local < v)
+        x = table[local.clamp(0, v - 1)] * have[..., None].to(table.dtype)
+        return tp.reduce_scatter(x, 1) if tp.sp else tp.reduce(x)
+    x = table[tok]
+    return tp.split(x, 1) if tp.sp else x
+
+
+def _embed_in(params, batch, arch: ArchConfig, device, tp=None):
     """(x [B,S,D], positions): the stub frontend's embeddings cast to the
     arch dtype, or the token embeddings (codebook tokens [B,S,K] summed
     over K), times emb_scale. Absent positions are the arange, broadcast
     to [3,B,S] under M-RoPE. No host sync: a graphed decode tick runs
-    this."""
+    this. Under tensor parallelism (`tp`, a TPGroup) the lookup is
+    vocab-parallel (`_lookup`); under sequence parallelism x holds the
+    local tokens [B, S/m, D] and the positions stay whole."""
     if arch.input_kind == "embeddings":
         x = torch.as_tensor(batch["embeds"], device=device).to(
             dtype_of(arch.dtype))
+        B, S = x.shape[:2]
+        if tp is not None and tp.sp:
+            x = tp.split(x, 1)
     else:
         tok = torch.as_tensor(batch["tokens"], device=device).long()
-        x = params["embed_table"][tok]
+        B, S = tok.shape[:2]
+        x = _lookup(params["embed_table"], tok, tp)
         if arch.n_codebooks > 1 and tok.ndim == 3:
             x = x.sum(dim=2)
     x = x * arch.emb_scale
-    B, S = x.shape[:2]
     if "positions" in batch:
         positions = torch.as_tensor(batch["positions"], device=device)
     else:
@@ -450,14 +490,18 @@ def _head_logits(params, x, arch: ArchConfig, ctx):
     """LM head on [..., D] hidden states -> f32 logits [..., V], or
     [..., K, V] with K codebooks: one [D,V] product a head, at sites
     "head0".."head{K-1}" (which fold the reference's key: its first four
-    bytes, "head", the same for every head)."""
+    bytes, "head", the same for every head). A vocab-sharded head (under
+    tensor parallelism) gives this rank's columns of the logits."""
     hcfg = ctx.cfg if (ctx.cfg and ctx.cfg.quantize_lm_head) else None
+    head = params["head_w"]
     if arch.n_codebooks > 1:
+        d = getattr(head, "tp_dim", None)
         logits = torch.stack(
-            [ctx_matmul(x, params["head_w"][k], ctx, f"head{k}", cfg=hcfg)
+            [ctx_matmul(x, head[k], ctx, f"head{k}", cfg=hcfg, out="shard",
+                        tp_dim=d)
              for k in range(arch.n_codebooks)], dim=-2)
     else:
-        logits = ctx_matmul(x, params["head_w"], ctx, "head", cfg=hcfg)
+        logits = ctx_matmul(x, head, ctx, "head", cfg=hcfg, out="shard")
     logits = logits / arch.logit_divisor
     return softcap(logits.to(torch.float32), arch.final_softcap)
 
@@ -478,18 +522,32 @@ def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
     """Logits [B,S,V] ([B,S,K,V] with K codebooks) over the batch of
     tokens or embeds, and the aux loss (the MoE layers' load-balance
     losses summed; zero without experts). Runs on `device`, else
-    ctx.device, else the CUDA device."""
+    ctx.device, else the CUDA device. Under tensor parallelism the logits
+    are gathered whole."""
     dev = _entry_device(params, ctx, device)
-    x, positions = _embed_in(params, batch, arch, dev)
+    tp = ctx.tp
+    x, positions = _embed_in(params, batch, arch, dev, tp)
     x, _, aux = _run_stack(params, x, positions, arch, ctx,
                            std_pos=_std_positions(batch))
-    return _logits(params, x, arch, ctx), aux
+    x = rms_norm(x, params["final_norm_scale"], arch.norm_eps,
+                 arch.zero_centered_norm)
+    if tp is None:
+        return _head_logits(params, x, arch, ctx), aux
+    if tp.sp:
+        x = tp.gather(x, 1)
+    logits = _head_logits(params, x, arch, ctx)
+    sharded = getattr(params["head_w"], "tp_dim", None) == -1
+    return (tp.gather(logits, -1) if sharded else logits), aux
 
 
 def _ce(params, xc, lc, arch: ArchConfig, ctx):
     """Summed next-token CE of one token chunk: head, softcap, logsumexp.
-    lc: [t], or [t, K] with K codebooks."""
+    lc: [t], or [t, K] with K codebooks. A vocab-sharded head takes the
+    vocab-parallel CE (`TPGroup.vocab_ce`)."""
     logits = _head_logits(params, xc, arch, ctx)        # [t, (K,) V] f32
+    if ctx.tp is not None and getattr(params["head_w"], "tp_dim",
+                                      None) == -1:
+        return ctx.tp.vocab_ce(logits, lc).sum()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lc[..., None]).squeeze(-1)
     return (lse - ll).sum()
@@ -507,14 +565,22 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     `ctx.act_tap` the metrics gain
     "act_stats", the `TensorStats` of quantizing the residual stream at
     the stack's entry ("embed_out") and exit ("final_hidden") at the
-    activation format, each one B7 launch."""
+    activation format, each one B7 launch (a callable `ctx.act_tap`
+    reduces each tap's raw sums over the ranks first). Under tensor
+    parallelism (`ctx.tp`) the embedding and the head are vocab-parallel;
+    under sequence parallelism the final norm runs on the local tokens,
+    which are gathered for the head."""
     dev = _entry_device(params, ctx, device)
-    x, positions = _embed_in(params, batch, arch, dev)
+    tp = ctx.tp
+    x, positions = _embed_in(params, batch, arch, dev, tp)
     act_stats = None
     if ctx.act_tap and ctx.cfg is not None:
+        reduce = ctx.act_tap if callable(ctx.act_tap) else None
+
         def tap(t):
             return tensor_stats(t.detach(), ctx.cfg.mantissa_bits,
-                                act_tile_shape(t.ndim, ctx.cfg.act_block))
+                                act_tile_shape(t.ndim, ctx.cfg.act_block),
+                                reduce=reduce)
 
         act_stats = {"embed_out": tap(x)}
     x, _, aux = _run_stack(params, x, positions, arch, ctx,
@@ -523,6 +589,8 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
         act_stats["final_hidden"] = tap(x)
     x = rms_norm(x, params["final_norm_scale"], arch.norm_eps,
                  arch.zero_centered_norm)
+    if tp is not None and tp.sp:
+        x = tp.gather(x, 1)
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     B, S, D = x.shape
     T = B * S

@@ -107,10 +107,15 @@ def weight_stats(params, cfg) -> Dict[str, TensorStats]:
             for name, leaf, c in _walk_hbfp_weights(params, cfg)}
 
 
-def grad_stats(grads, cfg) -> Dict[str, TensorStats]:
+def grad_stats(grads, cfg, tap=None) -> Dict[str, TensorStats]:
     """Fidelity of quantizing each weight gradient at its parameter's
     resolved *wgrad* width (nearest rounding; measurement only — the
-    optimizer sees the unmodified gradients)."""
+    optimizer sees the unmodified gradients). `tap(name, leaf, c)`, when
+    given, measures a leaf instead (a mesh's layout: the stats of the
+    whole gradient from this rank's part)."""
+    if tap is not None:
+        return {name: tap(name, leaf, c) for name, leaf, c in
+                _walk_hbfp_weights(grads, cfg, role="wgrad")}
     return {name: tensor_stats(leaf, c.mantissa_bits,
                                bfp.weight_tile_shape(leaf.ndim, c.tile))
             for name, leaf, c in _walk_hbfp_weights(grads, cfg,

@@ -125,6 +125,34 @@ class StatsAccumulator:
                 qs.append(qd.to(x.dtype))
         return bfp.b7_gather(qs, tuple(x.shape)) if want_q else None
 
+    def reduce_(self, transport) -> None:
+        """Combine this accumulator with the other ranks' of `transport`
+        (each holding a distinct part of the tensor), in place: counts,
+        histogram, sums, elements and tiles summed, the exponent range's
+        min and max. The integer counts stay exact (int64)."""
+        if self.emin is None:       # a rank with no part: neutral values
+            self.emin = torch.full((), 1 << 30, dtype=torch.int32,
+                                   device=self.sig.device)
+            self.emax = torch.full((), -(1 << 30), dtype=torch.int32,
+                                   device=self.sig.device)
+        ints = torch.cat([self.counts, self.hist, torch.tensor(
+            [self.n, self.tiles], dtype=torch.int64,
+            device=self.counts.device)])
+        transport.all_reduce_(ints)
+        sums = torch.stack([self.sig, self.err])
+        transport.all_reduce_(sums)
+        lo = self.emin.reshape(1).to(torch.int64)
+        hi = (-self.emax).reshape(1).to(torch.int64)
+        rng = torch.cat([lo, hi])
+        from torch.distributed import ReduceOp
+        transport.all_reduce_(rng, op=ReduceOp.MIN)
+        nc, nh = self.counts.numel(), self.hist.numel()
+        self.counts = ints[:nc]
+        self.hist = ints[nc:nc + nh]
+        self.n, self.tiles = (int(v) for v in ints[nc + nh:].tolist())
+        self.sig, self.err = sums[0], sums[1]
+        self.emin, self.emax = rng[0], -rng[1]
+
     def finish(self) -> TensorStats:
         clip, sat, ftz, nonzero = self.counts.to(torch.float64)
         sqnr = torch.where(
@@ -161,13 +189,18 @@ def quantize_with_stats(x: torch.Tensor, mantissa_bits: int,
 
 
 def tensor_stats(x: torch.Tensor, mantissa_bits: int,
-                 tile_shape: Sequence[Optional[int]]) -> TensorStats:
+                 tile_shape: Sequence[Optional[int]],
+                 reduce=None) -> TensorStats:
     """`quantize_with_stats(...)[1]` without building the dequantized
-    tensor (the gradient and activation taps)."""
+    tensor (the gradient and activation taps); `reduce(acc)` sums the raw
+    accumulator over the ranks that hold other parts of the tensor
+    before it is finished."""
     if mantissa_bits >= 24:
         return identity_stats(x.numel(), x.device)
     acc = StatsAccumulator(x.device)
     acc.add(x, mantissa_bits, tile_shape, want_q=False)
+    if reduce is not None:
+        reduce(acc)
     return acc.finish()
 
 

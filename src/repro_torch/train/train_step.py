@@ -18,14 +18,22 @@ reference's functional step, the port updates the state's master params
 and moments in place, one layer slice at a time, so the optimizer adds
 only one layer's f32 temporaries to the training state.
 
-Data parallelism (`mesh=`, a DeviceMesh whose "model" axis is 1): ZeRO-1
-as the reference lays it out (`train/zero.py`): each rank holds its shard
-of the master params and moments and takes its slice of the global
-batch; the shards are narrowed and the narrow copy all-gathered, the
-gradients mean-reduced into the shards, clipped by the global norm and
-applied on the shards. The state from `init_train_state(..., mesh=)`
-holds the shards; the Trainer checkpoints it whole. Telemetry, the
-controller and stochastic rounding raise under a mesh (ROADMAP slice 18).
+Data, tensor, sequence and expert parallelism (`mesh=`, a ("data",
+"model") DeviceMesh; `seq_parallel=`): ZeRO-1 over "data" as the
+reference lays it out and the tile-aligned tensor-parallel layout over
+"model" (`train/zero.py`, `sharding/tensor_parallel.py`): each rank holds
+its shard of its model part of the master params and moments and takes
+its data slice of the global batch; the shards are narrowed and the
+narrow copy all-gathered over "data", the model runs on each rank's part
+(`Ctx.tp`), the gradients are mean-reduced into the shards, clipped by
+the global norm and applied on the shards. The state from
+`init_train_state(..., mesh=)` holds the shards; the Trainer checkpoints
+it whole. Telemetry reduces its raw sums over the ranks that hold other
+parts of a tensor (the weight tap on the shards' narrowing, the grad tap
+on the reduced gradients, the act taps over the data ranks' and, under
+sequence parallelism, the model ranks' tokens), and every rank feeds the
+controller rank 0's snapshot. Stochastic rounding and the "pod" axis
+raise under a mesh (ROADMAP slice 19).
 
 Stochastic rounding: the step is `train_step(state, batch, key)` with an
 int key (`kernels.common.fold_in`; the Trainer folds its seed with the
@@ -37,16 +45,19 @@ first run drew.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import math
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import bfp
 from repro_torch.core.opt_shell import (_weight_cfg, apply_update_,
                                         param_key, quantize_leaf)
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.kernels import autotune
 from repro_torch.kernels.common import fold_in
 from repro_torch.models.layers import Ctx
 from repro_torch.models.transformer import init_params, loss_fn
@@ -58,7 +69,7 @@ from repro_torch.obs import NULL_RECORDER
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.precision.policy import (ResolvedPolicy, as_policy,
                                           as_segment)
-from repro_torch.train.zero import SLICE_18, ZeroLayout
+from repro_torch.train.zero import SLICE_19, ZeroLayout
 
 
 class TrainState(NamedTuple):
@@ -73,16 +84,41 @@ def _to_f32_tree(tree):
     return tree.to(torch.float32)
 
 
+def layout_tile(policy) -> Optional[int]:
+    """The weight-tile edge a mesh layout keeps whole for a precision
+    policy (anything `as_policy` takes, or a resolved segment): the
+    narrowing tile, the activation block, and on the kernel path the
+    kernels' default tile (their exponent groups); 1 for fp32 (nothing
+    quantized); None when a tile spans its whole dim."""
+    seg = policy if isinstance(policy, ResolvedPolicy) else \
+        as_policy(policy).resolve_segment(0)
+    cfg = seg.global_cfg
+    if cfg is None:
+        return 1
+    if cfg.tile is None:
+        return None
+    t = math.lcm(cfg.tile, cfg.act_block or 1)
+    if seg.backend == "pallas":
+        t = math.lcm(t, autotune.DEFAULT_TILES[1])
+    return t
+
+
 def init_train_state(seed: int, arch: ArchConfig, init_params_fn=init_params,
                      device=None, mesh=None) -> TrainState:
     """Seeded params (`init_params_fn(seed, arch, device=...)`) as f32
     master weights, zero moments, step 0, on `device` (the CUDA device by
-    default). Under a data-parallel `mesh` every rank draws the whole
-    init and keeps its ZeRO-1 shard."""
+    default). Under a `mesh` every rank draws the whole init and keeps
+    its shard: pass the step's `.layout` (a `train.zero.ZeroLayout`,
+    laid out for its policy's tiles); a bare DeviceMesh is laid out for
+    128-tiles."""
     dev = resolve_device(device)
     params = init_params_fn(seed, arch, device=dev)
-    params = _to_f32_tree(params) if mesh is None else \
-        ZeroLayout(arch, mesh, dev).shard(params)
+    if mesh is None:
+        params = _to_f32_tree(params)
+    else:
+        layout = mesh if isinstance(mesh, ZeroLayout) else \
+            ZeroLayout(arch, mesh, dev)
+        params = layout.shard(params)
     return TrainState(params=params, opt=adamw_init(params), step=0)
 
 
@@ -185,7 +221,8 @@ def _grads(loss, leaves):
 
 def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
-                    taps=None, device=None, mesh=None):
+                    taps=None, device=None, mesh=None,
+                    seq_parallel: bool = False):
     """Returns train_step(state, batch, key=None) -> (state, metrics) for
     one static precision segment (None, an HBFPConfig or a
     ResolvedPolicy); a stochastic segment needs an int `key`. With
@@ -197,10 +234,12 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
     B7; the training values are bit-identical to taps=None.
     `train_step.grads(state, batch, key=None)` -> (loss, metrics, grads)
     runs steps 1 and 2 alone and returns the grads in the master's
-    layout. Under a data-parallel `mesh` (or the `train.zero.ZeroLayout`
-    built over one; `.layout`) the state holds ZeRO-1 shards, the batch
-    is the global one, metrics["loss"] is the global mean and `grads`
-    returns this rank's unreduced grads of its batch slice."""
+    layout. Under a `mesh` (or the `train.zero.ZeroLayout` built over
+    one; `.layout`) the state holds each rank's shards, the batch is the
+    global one, metrics["loss"] is the global mean and `grads` returns
+    this rank's unreduced grads of its batch slice and model part;
+    `seq_parallel` shards the residual stream over the sequence on
+    "model" (the counterpart of the reference's `act_constraint`)."""
     dev = resolve_device(device)
     compute_dtype = dtype_of(arch.dtype)
     seg = as_segment(hbfp, backend=arch.kernel_backend)
@@ -232,17 +271,14 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         stochastic = seg.global_cfg.rounding == "stochastic"
     zero = None
     if mesh is not None:
-        if taps is not None:
-            raise NotImplementedError(f"telemetry under a mesh: per-rank "
-                                      f"stats would part the ranks; "
-                                      f"{SLICE_18}")
         if stochastic:
             raise NotImplementedError(
                 f"stochastic rounding under a mesh: the xorshift stream "
                 f"hashes by element position, and a rank's row 0 is not the "
-                f"global row 0; {SLICE_18}")
+                f"global row 0; {SLICE_19}")
         zero = mesh if isinstance(mesh, ZeroLayout) else \
-            ZeroLayout(arch, mesh, dev)
+            ZeroLayout(arch, mesh, dev, tile=layout_tile(seg),
+                       seq_parallel=seq_parallel)
     exec_seg = ResolvedPolicy(global_cfg=act_cfg,
                               role_widths=seg.role_widths, backend=backend)
     if taps is not None and param_cfg is None:
@@ -260,8 +296,12 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
                              "train_step(state, batch, key)")
         return fold_in(key, 0x5EED), key
 
+    act_reduce = act_tap and zero is not None and (zero.n > 1 or zero.sp)
+
     def loss_and_grads(narrow, batch, key):
-        ctx = Ctx(policy=exec_seg, key=key, device=dev, act_tap=act_tap)
+        ctx = Ctx(policy=exec_seg, key=key, device=dev,
+                  act_tap=zero.act_reduce if act_reduce else act_tap,
+                  tp=None if zero is None else zero.tp)
         leaves = [t for _, t in _leaves(narrow)]
         if grad_accum == 1:
             loss, metrics = loss_fn(narrow, batch, arch, ctx, device=dev)
@@ -289,7 +329,8 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
             narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
                                   weight_stats, nkey)
         else:
-            narrow = zero.narrow_copy(state.params, param_cfg, compute_dtype)
+            narrow = zero.narrow_copy(state.params, param_cfg, compute_dtype,
+                                      weight_stats)
             batch = zero.local_batch(batch, grad_accum)
         loss, metrics, gs = loss_and_grads(narrow, batch, key)
         paths = [p for p, _ in _leaves(narrow)]
@@ -304,12 +345,14 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         ukey = step_keys(key)[1]
         if "act_stats" in metrics:
             numerics["acts"] = metrics.pop("act_stats")
+        if zero is not None:
+            gs = zero.reduce_grads(gs)
         if taps is not None and taps.grads:
-            numerics["grads"] = grad_stats(gs, param_cfg)
+            numerics["grads"] = grad_stats(
+                gs, param_cfg, tap=None if zero is None else zero.grad_tap)
         metrics = dict(metrics)
         clip, apply = grad_clip, apply_update_
         if zero is not None:
-            gs = zero.reduce_grads(gs)
             if grad_clip is not None:
                 zero.clip_(gs, grad_clip)
             clip, apply = None, zero.apply_update
@@ -346,7 +389,8 @@ def _tap_widths(seg: ResolvedPolicy, snapshot: dict) -> dict:
 
 
 def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
-              tap=None, recorder=None, device=None, mesh=None, **kwargs):
+              tap=None, recorder=None, device=None, mesh=None,
+              seq_parallel: bool = False, **kwargs):
     """The train-step entry point (DESIGN.md §11): one precision policy (a
     PrecisionPolicy, a spec string, a PrecisionSchedule, an HBFPConfig or
     None; the legacy kinds pick up `arch.kernel_backend`) drives format,
@@ -371,9 +415,12 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
 
     metrics gain "mantissa_bits" (the segment's global width, 0 for fp32)
     and, with a controller, "n_overrides" and "min_mantissa_bits".
-    `mesh` (a DeviceMesh, "model" 1) makes every variant a data-parallel
-    ZeRO-1 step over one `train.zero.ZeroLayout` (`.layout`; see
-    `make_train_step`); `controller` and `tap` raise under it.
+    `mesh` (a ("data", "model") DeviceMesh) makes every variant a
+    data- and tensor-parallel step over one `train.zero.ZeroLayout`
+    (`.layout`, laid out for the policy's first segment; see
+    `make_train_step`), `seq_parallel` shards the residual stream over the
+    sequence; under a mesh every rank observes rank 0's telemetry
+    snapshot, so the ranks take the same controller decisions.
     Attributes: `.policy`, `.variants`, `.controller`, `.buffer`, `.tap`,
     `.layout` (None without a mesh) and `.grads(state, batch, key=None)`
     (steps 1-2 of the variant at state.step).
@@ -392,11 +439,8 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
     dev = resolve_device(device)       # raise now when the card is missing
     layout = None
     if mesh is not None:
-        if controller is not None or tap is not None:
-            raise NotImplementedError(
-                f"the controller and telemetry under a mesh: per-rank "
-                f"stats would make the ranks decide differently; {SLICE_18}")
-        layout = ZeroLayout(arch, mesh, dev)
+        layout = ZeroLayout(arch, mesh, dev, tile=layout_tile(pol),
+                            seq_parallel=seq_parallel)
     segments = {i: pol.resolve_segment(i) for i in range(pol.num_segments)}
     variants = {}
 
@@ -435,6 +479,12 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
                         else metrics.get("numerics"))
             if numerics is not None:
                 snapshot = stats_to_host(numerics)
+                if layout is not None and dist.get_world_size() > 1:
+                    # the stats are reduced alike on every rank; rank 0's
+                    # copy makes the decisions equal by construction
+                    box = [snapshot]
+                    dist.broadcast_object_list(box, src=0)
+                    snapshot = box[0]
                 snapshot["widths"] = _tap_widths(seg, snapshot)
                 if controller is not None:
                     buffer.append(step, snapshot)

@@ -18,8 +18,9 @@
   * adaptive precision: `controller=` (the one passed to `make_step`)
     has its state and decision log stored under "numerics_controller" and
     restored on resume, so the restarted run replays its decisions;
-  * data parallelism: with a `make_step(..., mesh=)` step (its
-    `.layout`), the state holds ZeRO-1 shards; a checkpoint is gathered
+  * data and tensor parallelism: with a `make_step(..., mesh=)` step
+    (its `.layout`), the state holds ZeRO-1 shards of each rank's model
+    part; a checkpoint is gathered
     whole to rank 0's host and written there in the reference's format
     (so it loads in one process and in `repro.checkpoint`), every rank
     loads it whole onto its host and keeps its shards, and the ranks meet
@@ -89,7 +90,7 @@ class Trainer:
             self._pending.join()
             self._pending = None
         if self.layout is not None:
-            self.layout.transport.barrier()
+            self.layout.barrier()
 
     def _maybe_ckpt(self, step: int, force: bool = False) -> None:
         if self.ckpt_dir is None or step == self._saved:

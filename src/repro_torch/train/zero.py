@@ -1,54 +1,73 @@
-"""Data-parallel training with ZeRO-1 (the counterpart of the reference's
-jitted step under `master_param_specs`, `opt_state_specs`, `batch_specs`
-and its `fwd_constraint` / `grad_constraint` hooks,
+"""Data-parallel training with ZeRO-1 and tensor parallelism (the
+counterpart of the reference's jitted step under `fwd_param_specs`,
+`master_param_specs`, `opt_state_specs`, `batch_specs` and its
+`fwd_constraint` / `grad_constraint` / `act_constraint` hooks,
 `repro/launch/dryrun.py:138-189`).
 
-`ZeroLayout(arch, mesh, device)` is where each leaf lives on a
-("data", "model") mesh whose "model" axis is 1:
+`ZeroLayout(arch, mesh, device, tile=, seq_parallel=)` is where each leaf
+lives on a ("data", "model") mesh:
 
-  * master params and Adam moments: each rank holds the even shard of
-    the dim `master_param_specs` picks (the largest dim the DP size
-    divides; a leaf with none stays replicated);
-  * batch: each rank takes its slice of the global batch along the dim
-    `batch_specs` names;
-  * the narrow compute copy: each rank narrows its shard and the ranks
-    all-gather the narrow (bf16) copy, which equals the one-process
-    narrowing bit for bit wherever the shard boundary leaves the
-    exponent groups (square weight tiles on the trailing dims) whole;
-  * gradients: mean-reduced into the ZeRO layout (a reduce-scatter in
-    the gradients' dtype, the mean in f32);
-  * clipping: by the global norm, one all-reduce of the shards' sums of
-    squares (a replicated leaf counted once);
+  * the "model" axis: the tile-aligned layout of
+    `sharding.tensor_parallel.tp_layout` (the reference's
+    `fwd_param_specs`, with a leaf whose shard would cut a `tile`-edge
+    weight tile, or whose group cannot shard whole, kept replicated);
+    each model rank holds its part of the narrow compute copy, and the
+    model runs on it through `Ctx.tp` (`self.tp`, a `TPGroup`);
+  * master params and Adam moments: the model part, then each data rank
+    the even shard of the dim `master_param_specs` picks over "data"
+    (the largest dim the DP size divides; a leaf with none stays
+    replicated over "data");
+  * batch: each data rank takes its slice of the global batch along the
+    dim `batch_specs` names; the model ranks take the same slice;
+  * the narrow compute copy: each rank narrows its shard and the data
+    ranks all-gather the narrow (bf16) copy, which equals the one-process
+    narrowing's model part bit for bit wherever the shard boundaries
+    leave the exponent groups (square weight tiles on the trailing dims)
+    whole;
+  * gradients: mean-reduced over "data" into the ZeRO layout (a
+    reduce-scatter in the gradients' dtype, the mean in f32); under
+    sequence parallelism the norm scales of the sequence-sharded
+    residual stream (`tensor_parallel.SP_PARTIAL`) hold partial sums over
+    the local tokens and are first summed over "model" in f32;
+  * clipping: by the global norm, one all-reduce over each axis of the
+    shards' sums of squares (a part replicated over an axis counted
+    once);
   * the update: AdamW and the wide rounding on the shard.
 
 Where a shard boundary cuts a weight tile (gemma2's D = 2304 over four
-ranks is 576, 4.5 tiles of 128), rounding on the shard would put another
-exponent on each part of the tile. The reference's GSPMD rounds on the
-global tiles, and so does the port: such a leaf is all-gathered in f32,
-rounded whole, and each rank keeps its part (the narrowing, and the wide
-rounding after the update). No other leaf pays that gather.
+data ranks is 576, 4.5 tiles of 128), rounding on the shard would put
+another exponent on each part of the tile. The reference's GSPMD rounds
+on the global tiles, and so does the port: such a leaf is all-gathered
+over the cutting axis in f32, rounded whole, and each rank keeps its part
+(the narrowing, and the wide rounding after the update). No other leaf
+pays that gather.
 
-Every collective goes through one `launch.transport.Transport` over the
-data-parallel group, which records them.
+Every collective goes through the `launch.transport.Transport` of its
+axis (`transport` over "data", `model` over "model"), which records
+them. The "pod" axis raises (ROADMAP slice 19).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import bfp
 from repro_torch.core.opt_shell import (_weight_cfg, apply_update_,
                                         param_key, quantize_leaf)
 from repro_torch.launch.transport import Transport
 from repro_torch.models.transformer import init_params
+from repro_torch.numerics.stats import StatsAccumulator
 from repro_torch.optim.adamw import clip_scale, grad_sq_sum, named_leaves
 from repro_torch.sharding.partitioning import (batch_specs,
                                                master_param_specs, mesh_axes)
+from repro_torch.sharding.tensor_parallel import (SP_PARTIAL, TPGroup,
+                                                  tp_layout)
 
-SLICE_18 = ("ROADMAP slice 18 (tensor, expert and sequence parallelism "
-            "with tile-aligned shards; telemetry and stochastic keys under "
-            "DP)")
+SLICE_19 = ("ROADMAP slice 19 (stochastic rounding under a mesh: each "
+            "rank's index base in the xorshift stream; the pod axis)")
 
 
 def _unflatten(flat: dict):
@@ -64,43 +83,73 @@ def _unflatten(flat: dict):
 
 
 def _dim_of(spec, axis):
-    """The dim a spec shards over the data-parallel `axis`, or None (the
-    "model" entries of a model-1 mesh shard nothing)."""
+    """The dim a spec shards over `axis`, or None."""
     return next((d for d, s in enumerate(spec) if s == axis), None)
 
 
-class ZeroLayout:
-    """ZeRO-1 placement of an arch's training state on a data-parallel
-    mesh (a DeviceMesh with "model" of size 1), and the collectives that
-    move between the layouts."""
+def sp_partial(name: str) -> bool:
+    """Whether a leaf takes partial gradients under sequence parallelism:
+    a norm scale of the sequence-sharded residual stream."""
+    return name.rsplit("/", 1)[-1] in SP_PARTIAL
 
-    def __init__(self, arch: ArchConfig, mesh, device):
+
+class ZeroLayout:
+    """ZeRO-1 placement of an arch's training state on a ("data",
+    "model") mesh (a DeviceMesh), the model axis on the tile-aligned
+    tensor-parallel layout for weight tiles of edge `tile`, and the
+    collectives that move between the layouts."""
+
+    def __init__(self, arch: ArchConfig, mesh, device, tile: Optional[int]
+                 = 128, seq_parallel: bool = False):
         axes = mesh_axes(mesh)
-        if axes.get("model", 1) > 1 or "pod" in axes:
-            raise NotImplementedError(
-                f"a mesh {axes}: tensor parallelism and the pod axis are "
-                f"{SLICE_18}")
+        if "pod" in axes:
+            raise NotImplementedError(f"a mesh {axes}: {SLICE_19}")
         self.mesh = mesh
         self.device = device
         self.axis = "data"
         self.transport = Transport(mesh.get_group("data"))
         self.n = self.transport.size
         self.rank = self.transport.rank
+        m = axes.get("model", 1)
+        self.model = Transport(mesh.get_group("model")) if m > 1 else None
+        self.m = m
+        self.rank_m = 0 if self.model is None else self.model.rank
+        self.sp = bool(seq_parallel) and m > 1
+        self.tp = None if m == 1 else TPGroup(self.model, self.sp)
         full = init_params(0, arch, device="meta")
         specs = dict(named_leaves(master_param_specs(full, mesh)))
         self.shapes = {n: tuple(t.shape) for n, t in named_leaves(full)}
-        self.dims = {n: _dim_of(sp, self.axis) for n, sp in specs.items()}
+        # a data axis of one rank shards nothing and moves nothing
+        self.dims = {n: None if self.n == 1 else _dim_of(sp, self.axis)
+                     for n, sp in specs.items()}
+        lay = tp_layout(full, mesh, tile, arch.n_heads, arch.n_kv_heads)
+        self.replicated = lay.replicated
+        # the model dim of each leaf, counted from its front (None: whole)
+        self.tp_dims = {n: None if d is None else len(self.shapes[n]) + d
+                        for n, d in lay.dims.items()}
 
     # -- placement ---------------------------------------------------------
 
-    def part(self, name: str, t: torch.Tensor, dim: Optional[int] = None):
-        """This rank's even part of the full leaf `t` along its shard dim
-        (`dim`, default the leaf's own; a replicated leaf whole)."""
-        d = self.dims[name] if dim is None else dim
-        if d is None:
-            return t
-        n = t.shape[d] // self.n
-        return t.narrow(d, self.rank * n, n)
+    def _axes(self, name: str, shift: int = 0):
+        """(dim, transport, group size, rank) of each axis that shards leaf
+        `name` ("model" first), dims shifted by `shift` (-1: a layer slice
+        of a stacked leaf)."""
+        out = []
+        d = self.tp_dims[name]
+        if d is not None:
+            out.append((d + shift, self.model, self.m, self.rank_m))
+        d = self.dims[name]
+        if d is not None:
+            out.append((d + shift, self.transport, self.n, self.rank))
+        return out
+
+    def part(self, name: str, t: torch.Tensor, shift: int = 0):
+        """This rank's part of the full leaf `t` (or of a layer slice,
+        `shift` -1): its model part, then its data shard."""
+        for d, _, n, r in self._axes(name, shift):
+            k = t.shape[d] // n
+            t = t.narrow(d, r * k, k)
+        return t
 
     def shard(self, tree):
         """A full tree (master-param or moment layout) as this rank's f32
@@ -109,17 +158,29 @@ class ZeroLayout:
                                                  copy=True)
                            for n, t in named_leaves(tree)})
 
+    @property
+    def is_root(self) -> bool:
+        """Global rank 0: the rank that writes checkpoints."""
+        return self.rank == 0 and self.rank_m == 0
+
     def gather(self, tree):
         """The full tree of a shard tree as host numpy arrays (f32) on
-        rank 0, gathered leaf by leaf; None on the other ranks."""
+        rank 0, gathered leaf by leaf over "data" and then, among the
+        data-rank-0 ranks, over "model"; None on the other ranks."""
         out = {}
         for n, t in named_leaves(tree):
             d = self.dims[n]
             full = t.detach().to("cpu", copy=True) if d is None else \
                 self.transport.gather_to_host(t, d)
-            if self.rank == 0:
+            if self.rank != 0:
+                continue
+            if self.tp_dims[n] is not None:
+                if self.model.backend == "nccl":
+                    full = full.to(self.device)
+                full = self.model.gather_to_host(full, self.tp_dims[n])
+            if self.is_root:
                 out[n] = full.to(torch.float32).numpy()
-        return _unflatten(out) if self.rank == 0 else None
+        return _unflatten(out) if self.is_root else None
 
     def shard_state(self, state):
         """A whole TrainState (a loaded checkpoint, on any device) as this
@@ -135,21 +196,31 @@ class ZeroLayout:
         the other ranks."""
         opt = state.opt
         parts = [self.gather(t) for t in (state.params, opt.mu, opt.nu)]
-        if self.rank:
+        if not self.is_root:
             return None
         return type(state)(params=parts[0],
                            opt=type(opt)(step=opt.step, mu=parts[1],
                                          nu=parts[2]),
                            step=state.step)
 
-    def whole_tiles(self, name: str, c) -> bool:
-        """True when the shard boundary of leaf `name` cuts none of the
+    def _cut(self, name: str, c, shift: int = 0):
+        """The axes (as `_axes` gives them) whose shard boundary cuts the
         square weight tiles of config `c` (they lie on the two trailing
         dims; a tile of None spans its whole dim)."""
-        d, shape = self.dims[name], self.shapes[name]
-        if d is None or d < len(shape) - 2:
-            return True
-        return c.tile is not None and (shape[d] // self.n) % c.tile == 0
+        shape = self.shapes[name]
+        nd = len(shape)
+        cut = []
+        for d, tr, n, r in self._axes(name):
+            if d < nd - 2:
+                continue
+            if c.tile is None or (shape[d] // n) % c.tile:
+                cut.append((d + shift, tr, n, r))
+        return cut
+
+    def whole_tiles(self, name: str, c) -> bool:
+        """True when no shard boundary of leaf `name` cuts a square weight
+        tile of config `c`."""
+        return not self._cut(name, c)
 
     def local_batch(self, batch, grad_accum: int = 1):
         """This rank's slice of the global batch (leaves [A, ...] with
@@ -170,82 +241,159 @@ class ZeroLayout:
 
     # -- the step ------------------------------------------------------------
 
-    def narrow_copy(self, master, cfg, dtype: torch.dtype):
+    def _reduce_stats(self, acc: StatsAccumulator, axes) -> None:
+        for _, tr, n, _ in axes:
+            if n > 1:
+                acc.reduce_(tr)
+
+    def narrow_copy(self, master, cfg, dtype: torch.dtype, stats=None):
         """The compute copy of the master shards (`_narrow_copy`'s layout:
-        "layers" a list of per-layer dicts of fresh autograd leaves),
-        narrowed on the shards and all-gathered, or gathered first where
-        the shard boundary cuts a tile."""
+        "layers" a list of per-layer dicts of fresh autograd leaves; each
+        model-sharded tensor carries its `tp_dim`, counted from the end):
+        narrowed on the shards and all-gathered over "data", or gathered
+        over a cutting axis first. With a `stats` dict every BFP weight is
+        narrowed through B7 and the `TensorStats` of the whole leaf (its
+        parts' raw sums reduced over the ranks) lands in stats[name]."""
         full = {}
         for n, t in named_leaves(master):
             c = _weight_cfg(cfg, n, t)
             d = self.dims[n]
             cast = dtype if t.ndim >= 2 else t.dtype
-            if c is not None and not self.whole_tiles(n, c):
-                w = self.transport.all_gather_dim(t, d)
-                w = quantize_leaf(w, c, False).to(cast)
-            else:
-                w = t if c is None else quantize_leaf(t, c, False)
-                w = w.to(cast, copy=w is t)
-                if d is not None:
-                    w = self.transport.all_gather_dim(w, d)
+            acc = None if stats is None or c is None else \
+                StatsAccumulator(t.device)
+            cut = [] if c is None else self._cut(n, c)
+            w = t
+            for a, tr, _, _ in cut:
+                w = tr.all_gather_dim(w, a)
+            if c is not None:
+                w = quantize_leaf(w, c, False) if acc is None else acc.add(
+                    w, c.mantissa_bits, bfp.weight_tile_shape(w.ndim,
+                                                              c.tile))
+            w = w.to(cast, copy=w is t)
+            if acc is not None:
+                self._reduce_stats(acc, [x for x in self._axes(n)
+                                         if x[0] not in [y[0] for y in cut]])
+                stats[n] = acc.finish()
+            for a, tr, k, r in cut:
+                if tr is self.model:
+                    w = w.narrow(a, r * (w.shape[a] // k), w.shape[a] // k)
+            if d is not None and not any(tr is self.transport
+                                         for _, tr, _, _ in cut):
+                w = self.transport.all_gather_dim(w, d)
             full[n] = w
         out = {}
         for k, v in _unflatten(full).items():
             if k == "layers":
                 L = next(iter(v.values())).shape[0]
-                out[k] = [{n: t[i].detach().requires_grad_()
+                out[k] = [{n: self._leaf(f"layers/{n}", t[i])
                            for n, t in v.items()} for i in range(L)]
             else:
-                out[k] = v.requires_grad_()
+                out[k] = self._leaf(k, v)
         return out
 
+    def _leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A fresh autograd leaf of the compute copy, tagged with its
+        model dim counted from the end (`ctx_matmul` reads it)."""
+        t = t.detach().requires_grad_()
+        d = self.tp_dims[name]
+        if d is not None:
+            t.tp_dim = d - len(self.shapes[name])
+        return t
+
     def reduce_grads(self, grads):
-        """The mean over ranks of each full local gradient as this rank's
-        ZeRO shard (a replicated leaf whole), in f32. The sum runs in the
-        gradient's dtype (bf16 for a bf16 model), as the reference's
-        all-reduce of its bf16 gradients; the division in f32."""
+        """The mean over the data ranks of each local gradient as this
+        rank's ZeRO shard (a leaf replicated over "data" whole), in f32.
+        The sum runs in the gradient's dtype (bf16 for a bf16 model), as
+        the reference's all-reduce of its bf16 gradients; the division in
+        f32. Under sequence parallelism a partial leaf is first summed over
+        "model" in f32."""
         out = {}
         for n, g in named_leaves(grads):
+            if self.sp and self.tp_dims[n] is None and sp_partial(n):
+                g = self.model.all_reduce_(g.to(torch.float32, copy=True))
             d = self.dims[n]
-            s = self.transport.all_reduce_(g.clone()) if d is None \
-                else self.transport.reduce_scatter(g.clone(), d)
-            out[n] = s.to(torch.float32).div_(self.n)
+            if self.n == 1:
+                s = g
+            elif d is None:
+                s = self.transport.all_reduce_(g.clone())
+            else:
+                s = self.transport.reduce_scatter(g.clone(), d)
+            out[n] = s.to(torch.float32, copy=True).div_(self.n)
         return _unflatten(out)
 
     def clip_(self, grads, grad_clip: float) -> None:
         """Scale the gradient shards in place by the global-norm clip
-        factor (`optim.adamw.clip_scale`): this rank's sum of squares,
-        replicated leaves on rank 0 only, completed by one all-reduce."""
+        factor (`optim.adamw.clip_scale`): this rank's sum of squares, a
+        part replicated over an axis counted on that axis's rank 0 only,
+        completed by one all-reduce over each axis."""
         names = [n for n, _ in named_leaves(grads)
-                 if self.rank == 0 or self.dims[n] is not None]
+                 if (self.rank == 0 or self.dims[n] is not None)
+                 and (self.rank_m == 0 or self.tp_dims[n] is not None)]
         g_leaves = dict(named_leaves(grads))
         total = grad_sq_sum(g_leaves, names) + torch.zeros(
             (1,), dtype=torch.float32, device=self.device)
-        scale = clip_scale(self.transport.all_reduce_(total).reshape(()),
-                           grad_clip)
+        if self.n > 1:
+            total = self.transport.all_reduce_(total)
+        if self.model is not None:
+            total = self.model.all_reduce_(total)
+        scale = clip_scale(total.reshape(()), grad_clip)
         for g in g_leaves.values():
             g.mul_(scale)
 
     def apply_update(self, name, leaf, index, update, cfg, key=None):
         """`opt_shell.apply_update_` on a shard; where the shard cuts a
-        tile, p + u is gathered, rounded whole and this rank keeps its
-        part."""
+        tile, p + u is gathered over the cutting axes, rounded whole and
+        this rank keeps its part."""
         c = _weight_cfg(cfg, name, leaf)
         if c is None or self.whole_tiles(name, c):
             apply_update_(name, leaf, index, update, cfg, key)
             return
         p = leaf if index is None else leaf[index]
-        d = self.dims[name] - (0 if index is None else 1)
-        new = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
-        w = self.transport.all_gather_dim(new, d)
+        shift = 0 if index is None else -1
+        cut = self._cut(name, c, shift)
+        w = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
+        for a, tr, _, _ in cut:
+            w = tr.all_gather_dim(w, a)
         w = quantize_leaf(w, c, True, param_key(key, name, c, index))
-        p.copy_(self.part(name, w, d))
+        for a, _, k, r in cut:
+            w = w.narrow(a, r * (w.shape[a] // k), w.shape[a] // k)
+        p.copy_(w)
+
+    def grad_tap(self, name: str, g: torch.Tensor, c):
+        """The `TensorStats` of the whole reduced gradient of `name` at
+        config `c` from this rank's part: gathered over a cutting axis,
+        the raw sums reduced over the others."""
+        cut = self._cut(name, c)
+        for a, tr, _, _ in cut:
+            g = tr.all_gather_dim(g, a)
+        acc = StatsAccumulator(g.device)
+        acc.add(g, c.mantissa_bits, bfp.weight_tile_shape(g.ndim, c.tile),
+                want_q=False)
+        self._reduce_stats(acc, [x for x in self._axes(name)
+                                 if x[0] not in [y[0] for y in cut]])
+        return acc.finish()
+
+    def act_reduce(self, acc: StatsAccumulator) -> None:
+        """Sum an activation tap's raw stats over the ranks that hold other
+        tokens: the data ranks, and the model ranks under sequence
+        parallelism (a replica counts once)."""
+        if self.n > 1:
+            acc.reduce_(self.transport)
+        if self.sp:
+            acc.reduce_(self.model)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over ranks of a scalar (the loss: equal token counts
-        per rank make the mean of rank means the global mean)."""
+        """The mean over the data ranks of a scalar (the loss: equal token
+        counts per rank make the mean of rank means the global mean; the
+        model ranks hold the same loss)."""
         t = x.detach().to(torch.float32).reshape(1).clone()
+        if self.n == 1:
+            return t.reshape(())
         return self.transport.all_reduce_(t).reshape(()) / self.n
+
+    def barrier(self) -> None:
+        """Every rank of the mesh."""
+        dist.barrier()
 
 
 def host_like(state):

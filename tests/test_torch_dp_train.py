@@ -39,8 +39,8 @@ processes started once for the module, 2 and 4 at the same time.
     checkpoint (gathered whole on rank 0) loads in one process and in
     `repro.checkpoint`;
   * the collectives of a step, as the transport records them;
-  * the raises: a "model" axis above 1, the controller, telemetry and
-    stochastic rounding under a mesh.
+  * the raises: stochastic rounding and the "pod" axis under a mesh
+    (ROADMAP slice 19).
 
 The ranks are `python tests/torch_dist_worker.py dp RANK N PORT DIR`.
 """
@@ -61,7 +61,6 @@ from repro.models import init_params as jinit_params
 from repro.sharding import master_param_specs as jmaster_specs
 from repro.train import init_train_state as jinit_train_state
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.numerics import TapConfig
 from repro_torch.precision import as_policy
 from repro_torch.train import init_train_state, make_step
 from repro_torch.train.train_step import make_train_step
@@ -257,28 +256,25 @@ def test_checkpoint_resume_and_cross_load(runs):
 
 
 def test_raises_under_a_mesh():
+    """Stochastic rounding and the "pod" axis still raise under a mesh
+    (ROADMAP slice 19). A "model" axis above 1, telemetry and the
+    controller train under a mesh since slice 18
+    (`tests/test_torch_tp_train.py`)."""
     class FakeMesh:
-        def __init__(self, model):
-            self.shape = {"data": 1, "model": model}
-            self.axis_names = ("data", "model")
+        def __init__(self, model, pod=False):
+            self.shape = {**({"pod": 2} if pod else {}), "data": 1,
+                          "model": model}
+            self.axis_names = tuple(self.shape)
 
     arch = _arch()
-    with pytest.raises(NotImplementedError, match="slice 18"):
+    with pytest.raises(NotImplementedError, match="slice 19"):
         make_step(arch, _policy(), _sched(), device="cpu",
-                  mesh=FakeMesh(2))
-    with pytest.raises(NotImplementedError, match="slice 18"):
+                  mesh=FakeMesh(1, pod=True))
+    with pytest.raises(NotImplementedError, match="slice 19"):
         make_train_step(arch, _policy().resolve_segment(0), _sched(),
-                        device="cpu", mesh=FakeMesh(2))
-    from repro_torch.numerics import PrecisionController
-    with pytest.raises(NotImplementedError, match="controller"):
-        make_step(arch, _policy(), _sched(), device="cpu", mesh=FakeMesh(1),
-                  controller=PrecisionController())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        make_step(arch, _policy(), _sched(), device="cpu", mesh=FakeMesh(1),
-                  tap=TapConfig())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        make_train_step(arch, _policy().resolve_segment(0), _sched(),
-                        device="cpu", mesh=FakeMesh(1), taps=TapConfig())
+                        device="cpu", mesh=FakeMesh(2, pod=True))
     sr = as_policy("8~stochastic; backend=pallas").resolve_segment(0)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        make_train_step(arch, sr, _sched(), device="cpu", mesh=FakeMesh(1))
+    for model in (1, 2):
+        with pytest.raises(NotImplementedError, match="stochastic.*slice 19"):
+            make_train_step(arch, sr, _sched(), device="cpu",
+                            mesh=FakeMesh(model))

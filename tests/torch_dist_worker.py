@@ -2,10 +2,12 @@
 
     python tests/torch_dist_worker.py compress RANK N PORT DIR
     python tests/torch_dist_worker.py dp RANK N PORT DIR
+    python tests/torch_dist_worker.py tp RANK N PORT DIR MODEL
 
 `compress` is one rank of `tests/test_torch_grad_compress.py`'s reduce,
-`dp` one rank of `tests/test_torch_dp_train.py`'s ZeRO-1 runs; each
-writes its results under DIR. This module imports torch and the port
+`dp` one rank of `tests/test_torch_dp_train.py`'s ZeRO-1 runs, `tp` one
+rank of `tests/test_torch_tp_train.py`'s runs on a {data N/MODEL, model
+MODEL} mesh; each writes its results under DIR. This module imports torch and the port
 only (no JAX), so a rank starts quickly; the tests import its settings
 and hold the results against the reference and one process.
 """
@@ -196,6 +198,171 @@ def dp(rank: int, n: int, out: str) -> None:
         pickle.dump(res, f)
 
 
+# -- tensor, sequence and expert parallelism -----------------------------------
+
+TP_MESHES = ((1, 2), (2, 2), (1, 4))      # (data, model)
+TP_TILE = 32                               # the sim path's weight tiles
+ARCHS = ("qwen2-vl-72b", "yi-9b", "gemma2-2b", "minicpm-2b",
+         "phi3-mini-3.8b", "arctic-480b", "llama4-scout-17b-a16e",
+         "musicgen-large", "hymba-1.5b", "xlstm-350m")
+
+
+def tp_policy(backend="sim", bits=8):
+    """HBFP at tile 32 on the sim path (the layout then shards every
+    smoke projection at model 2, attention included); tile 64 on the
+    kernel path (the layout folds in the kernels' 128-tiles)."""
+    return as_policy(HBFPConfig(bits, 16, tile=TP_TILE if backend == "sim"
+                                else 64), backend=backend)
+
+
+def smoke(name, dtype="float32"):
+    return dataclasses.replace(get_arch(name).smoke(), dtype=dtype)
+
+
+def arch_batch(a, i):
+    return batch_for_arch(a, B, S, step=i, device="cpu", kind="markov")
+
+
+def tp_run(a, pol, steps, data, mesh=None, **kw):
+    """`steps` steps from the seed-0 init: (losses, the final state (the
+    gathered whole under a mesh, None off rank 0), the step)."""
+    step = make_step(a, pol, sched(), device="cpu", mesh=mesh, **kw)
+    st = init_train_state(0, a, device="cpu",
+                          mesh=None if mesh is None else step.layout)
+    st, losses = _run(step, st, steps, data)
+    return losses, st, step
+
+
+def tp_result(layout, state, losses):
+    """A mesh run's gathered state and its replicas: each leaf that the
+    model ranks hold alike, as this rank's bytes."""
+    out = _gathered(layout, state, losses) or {"losses": losses}
+    p = dict(named_leaves(state.params))
+    out["replicas"] = {n: p[n].numpy().copy() for n in p
+                       if layout.tp_dims[n] is None}
+    return out
+
+
+def _narrow_exact(layout, a, pol):
+    """The narrow copy on the mesh equals the model part of the
+    one-process narrowing, bit for bit."""
+    from repro_torch.train.train_step import _narrow_copy
+    c = pol.resolve_segment(0).global_cfg
+    got = layout.narrow_copy(init_train_state(0, a, device="cpu",
+                                              mesh=layout).params,
+                             c, torch.float32)
+    want = _narrow_copy(init_train_state(0, a, device="cpu").params, c,
+                        torch.float32)
+    flat = lambda t: {**{f"layers/{k}": torch.stack([lp[k] for lp in
+                                                     t["layers"]])
+                         for k in t["layers"][0]},
+                      **{k: v for k, v in t.items() if k != "layers"}}
+    got, want = flat(got), flat(want)
+    ok = True
+    for n, w in want.items():
+        d = layout.tp_dims[n]
+        if d is not None:
+            k = w.shape[d] // layout.m
+            w = w.narrow(d, layout.rank_m * k, k)
+        ok &= torch.equal(got[n].detach(), w.detach())
+    return ok
+
+
+def _operands_exact(tp, pol):
+    """A row split over the model ranks, quantized on the all-reduced
+    (MAX) row amax, equals the model part of the whole row's
+    quantization, bit for bit: the sim path's Q_row, and B3's dequantized
+    x at a one-group row (its plain version on the CPU)."""
+    from repro_torch.core import bfp
+    from repro_torch.kernels import hbfp_matmul as hm
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(16, 128, generator=g) * torch.exp2(
+        torch.randint(-20, 20, (16, 1), generator=g).float())
+    k = 128 // tp.size
+    part = x[:, tp.rank * k:(tp.rank + 1) * k].contiguous()
+    amax = tp.row_amax(part)
+    c = pol.resolve_segment(0).global_cfg
+    ok = torch.equal(bfp.quantize_act(part, c, amax=amax),
+                     bfp.quantize_act(x, c)[:, tp.rank * k:(tp.rank + 1) * k])
+    y = torch.randn(16, 8, generator=g)
+    whole = hm.hbfp_wgrad(x, y, bm=16, bk=128, bn=8, operands=True)[1]
+    mine = hm.hbfp_wgrad(part, y, bm=16, bk=k, bn=8, operands=True,
+                         x_amax=amax)[1]
+    return ok and torch.equal(mine, whole[:, tp.rank * k:(tp.rank + 1) * k])
+
+
+def tp(rank: int, n: int, out: str, model: int) -> None:
+    """Every mesh: the narrow copy, and 3 f32 steps with SP off and on.
+    {1, 2} also: grad_accum 2, 3 bf16 steps on the kernel path, one step
+    of every arch, telemetry and the controller. {2, 2}: the Trainer
+    preempted and resumed."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.numerics import (ControllerConfig, PrecisionController,
+                                      TapConfig)
+    from repro_torch.numerics.stats import stats_to_host
+    mesh = make_host_mesh(model=model)
+    a, pol = arch(), tp_policy()
+    res = {}
+    losses, st, step = tp_run(a, pol, STEPS, batch, mesh)
+    layout = step.layout
+    res["replicated"] = dict(layout.replicated)
+    res["narrow_equal"] = _narrow_exact(layout, a, pol)
+    res["operands_equal"] = _operands_exact(layout.tp, pol)
+    res["steps"] = tp_result(layout, st, losses)
+    mark = len(layout.model.records)
+    step(st, batch(0))
+    res["step_kinds"] = layout.model.bytes_by_kind(mark)
+    losses, st, step = tp_run(a, pol, STEPS, batch, mesh, seq_parallel=True)
+    res["sp"] = tp_result(step.layout, st, losses)
+    data = n // model
+    if (data, model) == (1, 2):
+        losses, st, step = tp_run(a, pol, 1, accum_batch, mesh, grad_accum=2)
+        res["accum"] = tp_result(step.layout, st, losses)
+        b = arch("bfloat16")
+        losses, st, step = tp_run(b, tp_policy("pallas"), STEPS, batch, mesh)
+        res["bf16"] = tp_result(step.layout, st, losses)
+        res["archs"] = {}
+        for name in ARCHS:
+            sa = smoke(name)
+            losses, st, step = tp_run(sa, pol, 1,
+                                      lambda i: arch_batch(sa, i), mesh)
+            res["archs"][name] = tp_result(step.layout, st, losses)
+        # telemetry on every step, and the controller at 4 bits
+        tel = make_step(a, pol, sched(), device="cpu", mesh=mesh,
+                        tap=TapConfig(cadence=1))
+        st = init_train_state(0, a, device="cpu", mesh=tel.layout)
+        st, m = tel(st, batch(0))
+        res["numerics"] = stats_to_host(m["numerics"])
+        ctl = PrecisionController(ControllerConfig(patience=1, cooldown=0),
+                                  base_bits=4)
+        cstep = make_step(a, tp_policy(bits=4), sched(), device="cpu",
+                          mesh=mesh, controller=ctl)
+        st = init_train_state(0, a, device="cpu", mesh=cstep.layout)
+        st, losses = _run(cstep, st, STEPS, batch)
+        res["controller"] = {"log": ctl.log, "overrides": ctl.overrides(),
+                             "losses": losses}
+    if (data, model) == (2, 2):
+        ckpt = os.path.join(out, "tp_ckpt")
+        step = make_step(a, pol, sched(), device="cpu", mesh=mesh)
+        kw = dict(train_step=step, data_fn=batch, ckpt_every=2,
+                  device="cpu")
+        init = lambda: init_train_state(0, a, device="cpu", mesh=step.layout)
+        first = Trainer(init_state=init(), ckpt_dir=ckpt, **kw)
+        try:
+            first.run(4, fail_at_step=3, log_fn=None)
+        except RuntimeError as e:
+            res["preempted"] = str(e)
+        whole = Trainer(init_state=first.state, **kw)
+        whole.run(4, log_fn=None)
+        resumed = Trainer(init_state=init(), ckpt_dir=ckpt, **kw)
+        res["resumed_from"] = resumed.start_step
+        resumed.run(4, log_fn=None)
+        res["resume_exact"] = _states_equal(resumed.state, whole.state)
+        res["final"] = _gathered(step.layout, whole.state)
+    with open(os.path.join(out, f"tp{data}x{model}_{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
 if __name__ == "__main__":
     import torch.distributed as dist
     from repro_torch.launch.transport import init_process_group
@@ -204,5 +371,8 @@ if __name__ == "__main__":
                                     sys.argv[5])
     torch.set_num_threads(1)
     init_process_group(rank, n, port, device="cpu")
-    {"compress": compress, "dp": dp}[scenario](rank, n, out)
+    if scenario == "tp":
+        tp(rank, n, out, int(sys.argv[6]))
+    else:
+        {"compress": compress, "dp": dp}[scenario](rank, n, out)
     dist.destroy_process_group()
