@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phase autotune  # device, build, autotune only
     python3 chip_smoke.py --phase dist      # device, build, dist only
     python3 chip_smoke.py --phase tp        # device, build, tp only
+    python3 chip_smoke.py --phase pod       # device, build, pod only
+    python3 chip_smoke.py --phase sr_kernels  # the index-base cases only
 
 Phases (any failure exits non-zero before the result line):
   1. device   — require CUDA, print the card and its power limit, turn
@@ -32,6 +34,16 @@ Phases (any failure exits non-zero before the result line):
                 M below one 64-token stage), and the adaptive path's
                 weights narrowed at 8 bits in 24 x 24 tiles; the device
                 time of one B1, B2 and B3 call by kernel (passes vs GEMM);
+                ROADMAP slice 19's index bases: B1, B2 and B3 on every
+                route (B3 on its two) at gemma2-2b's wq (M 4096) with
+                each operand a part of a larger one-process operand (a
+                data shard's rows, a column or row block, rows 2^20
+                down so the indices pass 2^31), stochastic, bit for bit
+                against the plain version with the same base and the
+                plain version of the whole operands, sliced (B3: its
+                dequantized operands; dw within its bound), routes
+                checked; the seven projections timed stochastic without
+                and with a base, in turns;
   3b. autotune — ROADMAP A6, on a temp table (REPRO_AUTOTUNE_TABLE, put
                 back after; nothing under results/): gemma2-2b at full
                 width, 2 of 26 layers, 2 x 2048 tokens, trained from one
@@ -70,7 +82,12 @@ Phases (any failure exits non-zero before the result line):
                 tiles, m 2/16, an unaligned x); each launch's route
                 checked against the route table (yi-9b's shapes banded,
                 whole-matrix tiles split); timed beside a clone() of x,
-                with each case's time over its bound;
+                with each case's time over its bound; with an index base
+                (a shard's rows, its columns, rows 2^20 down) on banded
+                and, one element off alignment, split: bit for bit
+                against the plain version with the base and the whole
+                operand's, sliced; the five t24 shapes timed stochastic
+                without and with a base;
   6. train    — one gemma2 and one yi-9b smoke training step on the card
                 agree with the same step on the CPU (yi-9b through flash),
                 and so does a stochastic gemma2 step from one key (both
@@ -131,7 +148,7 @@ Phases (any failure exits non-zero before the result line):
                 yi-9b serving shapes;
  10. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
- 11. serve    — yi-9b at full width, 16 of 48 layers (random seeded
+ 11. serve    — yi-9b at full width, 8 of 48 layers (random seeded
                 bf16 weights), served by the port's ServeEngine: 12
                 overloading requests, paged and slab, each with the
                 generate tick captured as a CUDA graph (the default) and
@@ -154,8 +171,8 @@ Phases (any failure exits non-zero before the result line):
                 versions at the shapes only these paths give them
                 (hymba's padded K 1664 and N 6528, xLSTM's N = 8 gate
                 projection, whose B2 takes the CUDA cores); (b) hymba
-                at full width, 8 of 32 layers, 1 x 4096 tokens, and
-                (c) xlstm (8 of 24 layers, 1 x 2048) trained as train-full
+                at full width, 4 of 32 layers, 1 x 4096 tokens, and
+                (c) xlstm (4 of 24 layers, 1 x 2048) trained as train-full
                 does: exact B1-B3 launches (9 projections a hybrid
                 layer, 4 an mLSTM and 2 an sLSTM layer, and the head),
                 B1/B2 on int8 wgmma (but xLSTM's gate dgrads), B3 on
@@ -199,12 +216,12 @@ Phases (any failure exits non-zero before the result line):
                 = 4096 and 3072, qwen2-vl's 152,064-word head included)
                 against their plain versions, routes checked; (c)
                 qwen2-vl at full width, 3 of 80 layers, 1 x 4096, and (d)
-                musicgen at all 48 layers, 2 x 1536 frames, trained as
+                musicgen at 24 of 48 layers, 2 x 1536 frames, trained as
                 train-full does: exact B1-B6 launches (K heads: B1
                 2·(P + K·C), or 2P + K in one CE chunk), step-0 loss
                 within 2% of fp32, the profiled step split by region; (e)
                 both served through the serve-step stages (qwen2-vl at 16
-                of 80 layers, musicgen at 48): a prefill of 8 x 512
+                of 80 layers, musicgen at 24): a prefill of 8 x 512
                 seeded frames into a 1,024-slot slab, 32 decode ticks on
                 seeded next-frame embeddings, graphed (`GraphedStage`
                 over fixed input buffers) and eager from a clone of the
@@ -249,7 +266,7 @@ Phases (any failure exits non-zero before the result line):
                 `make_step(..., mesh=make_host_mesh(model=2),
                 seq_parallel=)` and the Trainer, "8; backend=pallas",
                 seeded weights, a warm-up step and 3 counted: (a)
-                gemma2-2b at full width, 4 of 26 layers, 2 x 2048
+                gemma2-2b at full width, 2 of 26 layers, 2 x 2048
                 tokens, sequence parallelism off and on; (b) yi-9b at
                 full width, 2 of 48 layers, 1 x 4096 tokens (B4-B6 on 16
                 query and 2 kv heads a rank, a 32,000-column head a
@@ -272,7 +289,28 @@ Phases (any failure exits non-zero before the result line):
                 against their plain versions (B3's dw within its bound),
                 timed, and B1/B2 on all three routes (128-tiles, a group
                 amax above the groups' own) and B3 on both of its (one
-                group a row);
+                group a row); (e) the 11g run with SP on;
+ 11g. sr mesh — ROADMAP slice 19, stochastic rounding under a mesh:
+                gemma2-2b at full width, 2 x 2048 tokens, SR_SPEC, the
+                Trainer's keys, a warm-up step (step 1) and 3 counted, on
+                {data 2} (4 of 26 layers, the dist phase's ranks), on
+                {data 1, model 2} with SP (4 layers, the tp phase's
+                ranks) and, phase pod, on four gloo ranks of the card
+                (`--pod-rank`) on {pod 2, data 1, model 2} (2 layers, 1 x
+                2048 tokens a data rank, a telemetry step every 2, so B7
+                narrows each shard with its base): step 1's narrow copy
+                and every B1-B3 operand printed on each rank (two 64-bit
+                sums of its bits, one position-weighted), then rank 0
+                takes the same steps alone on the full batch (the others
+                waiting, the card freed) and holds them to its own: the
+                narrow copy at each rank's model part and each operand
+                whose input is one process's part (up to the data size's
+                power of two) bit-identical (every weight operand must
+                match), losses within 2e-3 and updates within 0.25 of
+                one process; the ranks' losses alike; B1-B3 launches a
+                rank equal one process's at its tokens, on their
+                training routes; bytes and seconds a step by collective
+                kind on each axis;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -555,7 +593,7 @@ DIST_COMPRESS_TOL = 0.02            # the reference test's bound
 
 # tp (ROADMAP A13, second half): two ranks of one card on {data 1, model 2}
 TP_RANKS = 2
-TP_TRAIN = (("gemma2-2b", 4, 2, 2048, (False, True)),   # arch, layers, B, S,
+TP_TRAIN = (("gemma2-2b", 2, 2, 2048, (False, True)),   # arch, layers, B, S,
             ("yi-9b", 2, 1, 4096, (False,)))           # sequence parallel
 TP_EP = "llama4-scout-17b-a16e"     # its .smoke() under expert parallelism
 TP_EP_B, TP_EP_S = 2, 64
@@ -563,6 +601,32 @@ TP_EP_B, TP_EP_S = 2, 64
 # (M, K, N): ffn_wo and attn_wo's row-parallel input, the head's dgrad g
 TP_AMAX_SHAPES = {"ffn_wo": (4096, 4608, 2304), "attn_wo": (4096, 1024, 2304)}
 TP_HEAD_DGRAD = (4096, 2304, 128000)          # M, K, N (N the rank's vocab)
+
+# stochastic rounding under a mesh (ROADMAP slice 19): every rank draws one
+# process's numbers at its parts (kernels/common.py: IndexBase).
+# B1-B3 at gemma2-2b's wq (M, K, N) on each route, each operand a part of
+# a larger one-process operand: (part, route) cases; the wrap part puts
+# the rows 2^20 down a one-process operand, so its indices pass 2^31
+SR_BASE_SHAPE = (4096, 2304, 2048)
+SR_BASE_ROUTES = {"int8_wgmma": (True, 8), "bf16_wgmma": (False, 8),
+                  "cuda_core": (True, 12)}
+SR_BASE_PARTS = {"hbfp_matmul_fwd": ("data", "col", "data_col", "wrap"),
+                 "hbfp_dgrad": ("data", "row", "wrap"),
+                 "hbfp_wgrad": ("data", "col_row", "wrap")}
+SR_WRAP_ROW = 1 << 20
+# B7 with a base: yi-9b's wq (4096 x 4096) at the adaptive path's m 4,
+# tile 24 (banded), and one element off its 16-byte alignment (split)
+SR_B7_SHAPE = (4096, 4096)
+# the mesh runs: gemma2-2b at full width, 2 x 2048 tokens, a warm-up
+# (step 1, its operands recorded) and 3 counted steps under SR_SPEC:
+# {data 2} in the dist phase's ranks (DIST_LAYERS), {data 1, model 2}
+# with SP in the tp phase's ranks (SR_TP_LAYERS); the pod phase's four
+# gloo ranks on {pod 2, data 1, model 2} at SR_POD_LAYERS, 1 x 2048
+# tokens a data rank, a telemetry step every SR_POD_CADENCE (B7 on the
+# shards)
+SR_MESH_STEPS = 4
+SR_TP_LAYERS = 4
+SR_POD_LAYERS, SR_POD_RANKS, SR_POD_CADENCE = 2, 4, 2
 
 
 def log(*a):
@@ -1053,6 +1117,7 @@ def phase_bwd():
                       "adaptive_w8_t24", w_narrow=(8, 24),
                       route="bf16_wgmma")
     torch.cuda.empty_cache()
+    rows += _sr_base_cases(gen)
     for k in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"):
         tr = [r for r in rows if r["kernel"] == k and r["config"] == "train"]
         im = [r["int_mm_ms"] for r in tr if "int_mm_ms" in r]
@@ -1062,6 +1127,194 @@ def phase_bwd():
             f"{sum(r['plain_ms'] for r in tr):.1f}, matmul_bf16_ms "
             f"{sum(r['matmul_bf16_ms'] for r in tr):.3f}"
             + (f", int_mm_ms {sum(im):.3f}" if len(im) == len(tr) else ""))
+    return rows
+
+
+def _sr_gemm_case(kname, part, route, gen):
+    """One B1/B2/B3 launch whose operands are parts of larger one-process
+    operands (`SR_BASE_PARTS`), stochastic, on `route`: against its plain
+    version with the same bases, bit for bit (B3's dw within its bound),
+    and against the plain version of the whole operands, sliced (the
+    output where it is a slice of the whole's, B3's dequantized operands
+    always); the wrap part against the same-base plain version alone (its
+    one-process operand has 2^20 rows). Returns one row."""
+    import torch
+    from repro_torch.core import HBFPConfig, bfp
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.kernels.common import IndexBase
+    M, K, N = SR_BASE_SHAPE
+    qw, m = SR_BASE_ROUTES[route]
+    dev = torch.device("cuda")
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    # one-process operands twice as large along the split dims
+    rows2 = part in ("data", "data_col")
+    Mg = 2 * M if rows2 else M
+    Kg = 2 * K if part in ("row", "col_row") else K
+    Ng = 2 * N if part in ("col", "data_col", "col_row") else N
+    W = rnd(Kg, Ng) * Kg ** -0.5
+    if not qw:
+        W = bfp.quantize_weight(W, HBFPConfig(mantissa_bits=m, tile=128))
+    W = W.to(torch.bfloat16)
+    X = rnd(Mg, Kg).to(torch.bfloat16)
+    G = (rnd(Mg, Ng) * 1e-3).to(torch.bfloat16).float()
+    r0 = M if rows2 else 0
+    k0, n0 = Kg - K, Ng - N
+    rs, ks, ns = slice(r0, r0 + M), slice(k0, k0 + K), slice(n0, n0 + N)
+    wrap = part == "wrap"
+    rbase = SR_WRAP_ROW if wrap else r0
+    Mb = SR_WRAP_ROW + M if wrap else Mg
+    xb = IndexBase((Mb, Kg), (rbase, k0 if part == "col_row" else 0))
+    gb = IndexBase((Mb, Ng), (rbase, n0))
+    wb = IndexBase((Kg, Ng), (k0 if kname == "hbfp_dgrad" else 0, n0))
+    bm, bk, bn = autotune.align_tiles(
+        autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N), 0)
+    kw = dict(mantissa_bits=m, stochastic=True, bm=bm, bk=bk, bn=bn)
+    seed = 0x5EED
+    g = G[rs, ns].contiguous()
+    before = dict(getattr(hm, kname).launches_by_route)
+    if kname == "hbfp_matmul_fwd":
+        x = X[rs].contiguous()
+        w = W[:, ns].contiguous()
+        a = dict(x_base=xb, w_base=wb, quantize_w=qw, **kw)
+        got = hm.hbfp_matmul_fwd(x, w, seed, **a)
+        same = hm.hbfp_matmul_plain(x, w, seed, **a)
+        whole = None if wrap else hm.hbfp_matmul_plain(
+            X, W, seed, quantize_w=qw, **kw)[rs, ns]
+        checks = [("out", got, same, whole)]
+    elif kname == "hbfp_dgrad":
+        w = W[ks].contiguous()
+        g = G[rs].contiguous()
+        a = dict(g_base=IndexBase((Mb, Ng), (rbase, 0)), w_base=wb,
+                 quantize_w=qw, **kw)
+        got = hm.hbfp_dgrad(g, w, seed, **a)
+        same = hm.hbfp_dgrad_plain(g, w, seed, **a)
+        whole = None if wrap else hm.hbfp_dgrad_plain(
+            G, W, seed, quantize_w=qw, **kw)[rs, ks]
+        checks = [("out", got, same, whole)]
+    else:
+        x = X[rs, ks].contiguous()
+        a = dict(x_base=xb, g_base=gb, operands=True, **kw)
+        dw, xh, gh = hm.hbfp_wgrad(x, g, seed, **a)
+        dwp, xhp, ghp = hm.hbfp_wgrad_plain(x, g, seed, **a)
+        wx = wg = None
+        if not wrap:
+            _, wx, wg = hm.hbfp_wgrad_plain(X, G, seed, operands=True,
+                                            **kw)
+            wx, wg = wx[rs, ks], wg[rs, ns]
+        ok_w, err_w, _ = _wgrad_ok(dw, dwp, xh, gh, M)
+        checks = [("x_hat", xh, xhp, wx), ("g_hat", gh, ghp, wg)]
+        got = dw
+    torch.cuda.synchronize()
+    took = [r for r, n in getattr(hm, kname).launches_by_route.items()
+            if n != before[r]]
+    want_route = route if kname != "hbfp_wgrad" else \
+        hm.wgrad_route(mantissa_bits=m, M=M, K=K, N=N, bm=bm)
+    same_ok = all(torch.equal(k_, p_) for _, k_, p_, _ in checks)
+    whole_ok = None if wrap else all(torch.equal(k_, w_)
+                                     for _, k_, _, w_ in checks)
+    if kname == "hbfp_wgrad":
+        same_ok = same_ok and ok_w
+    err = max(float((k_ - p_).abs().max()) for _, k_, p_, _ in checks)
+    if kname == "hbfp_wgrad":
+        err = max(err, err_w)
+    row = dict(kernel=kname, case=f"base_{part}_{route}", part=part,
+               config="sr_base", route=took[0] if len(took) == 1 else took,
+               M=M, K=K, N=N, m=m, base_rows=rbase, ok=bool(
+                   same_ok and whole_ok is not False),
+               plain_same_base=bool(same_ok), whole_sliced=whole_ok,
+               max_abs_err=err,
+               check="EQ same base" + ("" if wrap else
+                                       ", EQ whole sliced"))
+    log(f"[sr base] {kname} {part} {route} ({M}x{K}x{N} of "
+        f"{Mb}x{Kg}x{Ng}) route={row['route']} same-base EQ={same_ok} "
+        f"whole-sliced EQ={whole_ok} err={err:.3g}")
+    if not row["ok"]:
+        fail(f"{kname} with an index base != plain: {row}")
+    if took != [want_route]:
+        fail(f"{kname} with an index base took {took}, expected "
+             f"{want_route}: {row}")
+    del X, W, G, g, got, checks
+    return row
+
+
+def _sr_base_timing(gen):
+    """B1-B3 at gemma2-2b's seven training projections (M = 4096) under
+    stochastic rounding on the training routes, timed without and with a
+    data shard's index base (the rows 4096 down a one-process operand) in
+    turns (none, base, base, none): the base adds two integer adds a
+    draw. One row a kernel and shape."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.kernels.common import IndexBase
+    M, dev, seed = TRAIN_M, "cuda", 0x5EED
+    rows = []
+    for wname, (K, N) in TRAIN_SHAPES.items():
+        if wname == "head":
+            continue
+        w = (torch.randn((K, N), generator=gen, device=dev)
+             * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        g = (torch.randn((M, N), generator=gen, device=dev)
+             * 1e-3).to(torch.bfloat16).float()
+        bm, bk, bn = autotune.align_tiles(
+            autotune.clip_tiles(autotune.DEFAULT_TILES, M, K, N), 0)
+        kw = dict(mantissa_bits=8, stochastic=True, bm=bm, bk=bk, bn=bn)
+        xb = IndexBase((2 * M, K), (M, 0))
+        gb = IndexBase((2 * M, N), (M, 0))
+        calls = {
+            "hbfp_matmul_fwd": (
+                lambda b: hm.hbfp_matmul_fwd(x, w, seed, x_base=xb if b
+                                             else None, **kw),
+                _bound_ms(M, K, N, 2, 2, "int8")),
+            "hbfp_dgrad": (
+                lambda b: hm.hbfp_dgrad(g, w, seed, g_base=gb if b else None,
+                                        **kw),
+                _bound(2.0 * M * K * N, 4 * M * N + 2 * K * N + 4 * M * K,
+                       "int8")),
+            "hbfp_wgrad": (
+                lambda b: hm.hbfp_wgrad(x, g, seed, x_base=xb if b else None,
+                                        g_base=gb if b else None, **kw),
+                _bound(2.0 * M * K * N, 2 * M * K + 4 * M * N + 4 * K * N,
+                       "bf16"))}
+        for kname, (fn, (bound, by)) in calls.items():
+            n = _reps(lambda: fn(False))
+            t = [_time_ms(lambda: fn(b), n) for b in (False, True, True,
+                                                      False)]
+            row = dict(kernel=kname, weight=wname, config="sr_base_timed",
+                       M=M, K=K, N=N, kernel_ms=(t[0] + t[3]) / 2,
+                       kernel_base_ms=(t[1] + t[2]) / 2, turns_ms=t,
+                       bound_ms=bound, bound_by=by, reps=n)
+            rows.append(row)
+            log(f"[sr base] {kname} {wname} {M}x{K}x{N} stochastic: "
+                f"kernel_ms {row['kernel_ms']:.4f} without a base, "
+                f"{row['kernel_base_ms']:.4f} with one (turns "
+                f"{[round(v, 4) for v in t]}), bound_ms {bound:.4f}")
+        del w, x, g
+    torch.cuda.empty_cache()
+    for k in GEMM_KERNELS:
+        r = [x for x in rows if x["kernel"] == k]
+        log(f"[sr base] {k}: one layer at M={M} stochastic: kernel_ms "
+            f"{sum(x['kernel_ms'] for x in r):.3f} without a base, "
+            f"{sum(x['kernel_base_ms'] for x in r):.3f} with one")
+    return rows
+
+
+def _sr_base_cases(gen) -> list:
+    """ROADMAP slice 19's kernel cases: B1, B2 and B3 on every route with
+    each part of `SR_BASE_PARTS` (`_sr_gemm_case`), then timed on the
+    training route with and without a base (`_sr_base_timing`)."""
+    import torch
+    rows = []
+    for kname, parts in SR_BASE_PARTS.items():
+        for route in SR_BASE_ROUTES:
+            if kname == "hbfp_wgrad" and route == "bf16_wgmma":
+                continue        # B3's routes follow m: the int8 row's
+            for part in parts:
+                rows.append(_sr_gemm_case(kname, part, route, gen))
+                torch.cuda.empty_cache()
+    rows += _sr_base_timing(gen)
     return rows
 
 
@@ -1391,6 +1644,102 @@ def phase_quantize():
                 route == ["banded"]):
             fail(f"bfp_quantize: a yi-9b shape off the banded route, or a "
                  f"whole-matrix tile on it: {row}")
+    torch.cuda.empty_cache()
+    return rows + _sr_b7_cases(gen)
+
+
+def _sr_b7_cases(gen) -> list:
+    """B7 with an index base (ROADMAP slice 19): yi-9b's wq at m 4, tile
+    24, stochastic, with stats, as a shard's rows, a shard's columns (each
+    at a 24-multiple offset of a larger one-process operand, as a ZeRO
+    shard of a weight) and rows 2^20 down (indices past 2^31), on the
+    banded route and, one element off 16-byte alignment, the split
+    route: all five outputs bit-equal to the plain version with the same
+    base; mantissas and exponents to the plain version of the whole
+    operand, sliced (the wrap case: the same base only). Then timed at
+    yi-9b's five t24 shapes without and with a base, in turns."""
+    import torch
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.kernels.common import IndexBase
+    R, C = SR_B7_SHAPE
+    off = (R // 24 - 1) * 24                    # 4080: a tile-row boundary
+    kw = dict(mantissa_bits=4, tile_r=24, tile_c=24, stochastic=True,
+              with_stats=True)
+    seed = 7
+    rows = []
+    for route, mis in (("banded", 0), ("split", 1)):
+        for part in ("rows", "cols", "wrap"):
+            Rg = R + off if part == "rows" else R
+            Cg = C + off if part == "cols" else C
+            X = torch.randn((Rg, Cg), generator=gen, device="cuda") * 2.5
+            r0, c0 = Rg - R, Cg - C
+            x = X[r0:, c0:].contiguous()
+            buf = torch.zeros(R * C + mis, device="cuda")
+            buf[mis:] = x.reshape(-1)
+            x = buf[mis:].view(R, C)
+            Rgp, Cgp = -(-Rg // 24) * 24, -(-Cg // 24) * 24
+            base = IndexBase((SR_WRAP_ROW + R, Cgp), (SR_WRAP_ROW, 0)) \
+                if part == "wrap" else IndexBase((Rgp, Cgp), (r0, c0))
+            bq.reset_counts()
+            got = bq.bfp_quantize(x, seed, base=base, **kw)
+            took = [r for r, n in bq.bfp_quantize.launches_by_route.items()
+                    if n]
+            same = bq.bfp_quantize_plain(x, seed, base=base, **kw)
+            ok_same = all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in zip(got, same))
+            ok_whole = None
+            if part != "wrap":
+                wm, we = bq.bfp_quantize_plain(X, seed, **kw)[:2]
+                ok_whole = torch.equal(got[0], wm[r0:, c0:]) and \
+                    torch.equal(got[1], we[r0 // 24:, c0 // 24:])
+            err = float((got[0].int() - same[0].int()).abs().max())
+            row = dict(kernel="bfp_quantize", case=f"base_{part}_{route}",
+                       R=R, C=C, dtype="float32", m=4, tile=[24, 24],
+                       stochastic=True, seed=seed, input="randn",
+                       offset=mis, part=part, base=[list(base.shape),
+                                                    list(base.offset)],
+                       route=took[0] if len(took) == 1 else took,
+                       ok=bool(ok_same and ok_whole is not False),
+                       plain_same_base=bool(ok_same), whole_sliced=ok_whole,
+                       check="EQ (5 outputs) same base" + (
+                           "" if part == "wrap" else
+                           ", mantissas + exponents EQ whole sliced"),
+                       max_abs_err=err)
+            rows.append(row)
+            log(f"[sr base] bfp_quantize {part} {route} ({R}x{C} of "
+                f"{Rg}x{Cg}) route={row['route']} same-base EQ={ok_same} "
+                f"whole-sliced EQ={ok_whole}")
+            if not row["ok"]:
+                fail(f"bfp_quantize with an index base != plain: {row}")
+            if took != [route]:
+                fail(f"bfp_quantize with an index base took {took}, "
+                     f"expected {route}: {row}")
+            del X, x, buf, got, same
+    for w, (R, C) in QUANT_SHAPES.items():
+        x = torch.randn((R, C), generator=gen, device="cuda") * 2.5
+        base = IndexBase((-(-R // 24) * 24 * 2, -(-C // 24) * 24),
+                         (-(-R // 24) * 24, 0))
+        run = lambda b: bq.bfp_quantize(x, seed, base=base if b else None,
+                                        **kw)
+        n = _reps(lambda: run(False))
+        t = [_time_ms(lambda: run(b), n) for b in (False, True, True,
+                                                   False)]
+        bound, by = _quant_bound(R, C, 4, 24, 24, 256, 512, 4)
+        row = dict(kernel="bfp_quantize", case=f"{w}_t24_m4_stoch_timed",
+                   R=R, C=C, dtype="float32", m=4, tile=[24, 24],
+                   stochastic=True, input="randn", config="sr_base_timed",
+                   kernel_ms=(t[0] + t[3]) / 2,
+                   kernel_base_ms=(t[1] + t[2]) / 2, turns_ms=t,
+                   bound_ms=bound, bound_by=by, reps=n,
+                   device_ms=_graph_ms(lambda: run(False)),
+                   device_base_ms=_graph_ms(lambda: run(True)))
+        rows.append(row)
+        log(f"[sr base] bfp_quantize {w} {R}x{C} m 4 t24 stochastic: "
+            f"kernel_ms {row['kernel_ms']:.4f} without a base, "
+            f"{row['kernel_base_ms']:.4f} with one; device_ms "
+            f"{row['device_ms']:.4f} / {row['device_base_ms']:.4f}; "
+            f"bound_ms {bound:.4f}")
+        del x
     torch.cuda.empty_cache()
     return rows
 
@@ -2138,9 +2487,10 @@ def _sr_proofs(card: str):
     return out
 
 
-# yi-9b serves at full width and 16 of its 48 layers (all 48 took ~115 s
-# of the script's time limit, the eager runs host-bound)
-SERVE_LAYERS = 16
+# yi-9b serves at full width and 8 of its 48 layers (all 48 took ~115 s
+# of the script's time limit, the eager runs host-bound; 16 until the
+# stochastic mesh runs needed the time)
+SERVE_LAYERS = 8
 SERVE_LANES, SERVE_CTX, SERVE_NEW = 8, 1024, 32
 SERVE_LOCKSTEP = 34     # ticks: past the first completions and refills
 # one generate tick's B1 GEMM kernel as the profiler names it (fwd, not
@@ -2482,7 +2832,7 @@ def phase_serve(card: str):
 # sliding window on the sim path, the chunk scan in 32 chunks), xlstm-350m
 # on 1 x 2048 (its sLSTM scan runs token by token); the profiled step is
 # split by these regions
-REC_LAYERS = {"hymba-1.5b": 8, "xlstm-350m": 8}
+REC_LAYERS = {"hymba-1.5b": 4, "xlstm-350m": 4}     # cut from 8 for time
 REC_TRAIN = (("hymba-1.5b", 4096, ("chunk scan", "sim attention")),
              ("xlstm-350m", 2048, ()))
 # xlstm's step is timed, not profiled: the time in its sLSTM loops
@@ -2913,11 +3263,11 @@ def phase_moe(card: str) -> dict:
 # (3.879 B parameters: 0.878 B a layer and a 1.246-B head, ~46.5 GB of f32
 # master and moments) and serves at 16 of 80 (15.29 B, the size llama4
 # served at 6 layers); musicgen-large (four codebook heads of 2,048 words)
-# trains and serves at all 48 layers, on 2 x 1536 frames (MusicGen trains
-# on 30-s segments of 1,500 frames at 50 Hz). (name, layers (0 = all),
-# B, S)
-VA_TRAIN = (("qwen2-vl-72b", 3, 1, 4096), ("musicgen-large", 0, 2, 1536))
-VA_SERVE = (("qwen2-vl-72b", 16), ("musicgen-large", 0))
+# trains and serves at 24 of its 48 layers (cut from 48 for time), on 2 x
+# 1536 frames (MusicGen trains on 30-s segments of 1,500 frames at 50
+# Hz). (name, layers (0 = all), B, S)
+VA_TRAIN = (("qwen2-vl-72b", 3, 1, 4096), ("musicgen-large", 24, 2, 1536))
+VA_SERVE = (("qwen2-vl-72b", 16), ("musicgen-large", 24))
 # served: 8 lanes, a slab cache of 1,024 slots, a prefill of 512 seeded
 # frames a lane, then VA_TICKS decode ticks on seeded next-frame
 # embeddings (no token feedback: the frontend supplies each frame); the
@@ -3178,7 +3528,7 @@ def phase_vlm_audio(card: str) -> dict:
     (M = 4096 and 3072, qwen2-vl's head at its CE chunk's 2048, the
     heads included) against their plain versions,
     routes checked; (c) qwen2-vl at full width, 3 of 80 layers, and (d)
-    musicgen at all 48, trained through the Trainer (exact B1-B6 launches
+    musicgen at 24 of 48, trained through the Trainer (exact B1-B6 launches
     on their tensor-core routes, step-0 loss within 2% of fp32); (e) both
     served at full width through the serve-step stages, the decode tick
     graphed against eager."""
@@ -4402,23 +4752,32 @@ def _acc_full(card: str, family: str, n_layers: int, bound: float) -> dict:
                 runs=runs)
 
 
-def phase_accuracy(card: str) -> dict:
+def _acc_cpu_start():
+    """Start (a)'s CPU half: the smoke grid's rows dealt out to
+    ACC_CPU_PROCS processes of ACC_CPU_THREADS threads; (the pool, the
+    futures of their losses)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(ACC_CPU_PROCS,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    names = [r[0] for r in ACC_ROWS]
+    return pool, [pool.submit(_acc_smoke_losses, "cpu",
+                              names[i::ACC_CPU_PROCS], ACC_CPU_THREADS)
+                  for i in range(ACC_CPU_PROCS)]
+
+
+def phase_accuracy(card: str, cpu=None) -> dict:
     """The paper's accuracy claim on the port: (a) the smoke grid on the
     card, (b) minicpm-2b and phi3-mini at full width, the bound on HBFP8
     tile 24's delta max(0.1, 3x its smoke delta on the card) and HBFP8
     tile 24 no worse than HBFP4 tile 24 plus ACC_CONTROL_NOISE; (a)'s CPU
-    half runs in ACC_CPU_PROCS processes beside both and is checked
-    last."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    half runs in ACC_CPU_PROCS processes beside both (`cpu`: started
+    earlier by `_acc_cpu_start`, beside the training phases) and is
+    checked last."""
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(ACC_CPU_PROCS,
-                             mp_context=multiprocessing.get_context(
-                                 "spawn")) as pool:
-        names = [r[0] for r in ACC_ROWS]
-        on_cpu = [pool.submit(_acc_smoke_losses, "cpu",
-                              names[i::ACC_CPU_PROCS], ACC_CPU_THREADS)
-                  for i in range(ACC_CPU_PROCS)]
+    pool, on_cpu = cpu if cpu is not None else _acc_cpu_start()
+    with pool:
         _reset_counts()
         by_dev = {"cuda": _acc_smoke_losses("cuda")}
         counts, _ = _counts()
@@ -4772,13 +5131,17 @@ def dist_rank(rank: int, n: int, port: int, out: str) -> int:
     torch.cuda.empty_cache()
     tp.barrier()
     resume = _dist_resume(mesh, out, rank)
+    torch.cuda.empty_cache()
+    tp.barrier()
+    sr, sr_one = _sr_rank_pair(mesh, arch, data, sched, out, "sr_dist",
+                               rank, n, lambda: tp.barrier())
     result = dict(rank=rank, backend=backend, depth=depth,
                   tokens=DIST_B * DIST_S // n, losses=losses,
                   step_s=spans[1:], peak_gib=peak, launches=counts,
                   routes=routes, plain_calls=plain, step_bytes=step_bytes,
                   step_collective_s=step_coll_s, staged_per_step=staged,
                   master_gather_s=gather_s, compress=compress, one=one,
-                  resume=resume)
+                  resume=resume, sr=dict(sr, one=sr_one))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
@@ -4787,38 +5150,11 @@ def dist_rank(rank: int, n: int, port: int, out: str) -> int:
 
 def phase_dist(card: str) -> dict:
     """ROADMAP A13 on the card (the module docstring's 11e)."""
-    import torch
     arch, depth, _, _ = _dist_setup()
     b7 = _dist_b7_cases(arch)
     nccl = _dist_nccl(card)
     out = os.path.join(ROOT, "build", "dist_ranks")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    gc.collect()
-    torch.cuda.empty_cache()
-    port = _free_port()
-    t0 = time.perf_counter()
-    # two ranks share the card: expandable segments keep each rank's
-    # freed blocks usable by the next run's other sizes
-    env = dict(os.environ,
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
-         str(DIST_RANKS), str(port), out], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(DIST_RANKS)]
-    texts = []
-    for p in procs:
-        try:
-            texts.append(p.communicate(timeout=600)[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            fail("dist: a rank did not finish in 600 s")
-    ranks_s = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, texts)):
-        if p.returncode != 0:
-            fail(f"dist: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks_s = _run_ranks("--dist-rank", DIST_RANKS, out)
     ranks = []
     for r in range(DIST_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -4886,8 +5222,10 @@ def phase_dist(card: str) -> dict:
     if loss_rel > DIST_TOL["loss"] or upd[worst] > DIST_TOL["updates"]:
         fail(f"dist: two ranks part from one process: losses {losses} vs "
              f"{one['losses']}, updates {upd}")
+    sr = _sr_check("dist", card, [r["sr"] for r in ranks],
+                   ranks[0]["sr"]["one"], want, depth)
     return dict(b7_cases=b7, ranks=ranks, ranks_s=ranks_s, nccl=nccl,
-                loss_rel=loss_rel)
+                loss_rel=loss_rel, sr=sr)
 
 
 def _tp_amax_cases(card: str) -> list:
@@ -5202,6 +5540,11 @@ def tp_rank(rank: int, n: int, port: int, out: str) -> int:
             one={k: v for k, v in one.items() if k not in ("p0", "pend")})
         del one
     dist.barrier()
+    # ROADMAP slice 19: gemma2-2b under SR_SPEC with SP on the same mesh
+    arch, depth, data, sched = _tp_setup("gemma2-2b", SR_TP_LAYERS, 2, 2048)
+    sr, sr_one = _sr_rank_pair(mesh, arch, data, sched, out, "sr_tp", rank,
+                               n, dist.barrier, sp=True)
+    result["sr"] = dict(sr, depth=depth, one=sr_one)
     with open(os.path.join(out, f"tp{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
@@ -5211,36 +5554,11 @@ def tp_rank(rank: int, n: int, port: int, out: str) -> int:
 def phase_tp(card: str) -> dict:
     """ROADMAP A13's second half on the card (the module docstring's
     11f)."""
-    import torch
     t0 = time.perf_counter()
     amax = _tp_amax_cases(card)
     amax_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     out = os.path.join(ROOT, "build", "tp_ranks")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    gc.collect()
-    torch.cuda.empty_cache()
-    port = _free_port()
-    env = dict(os.environ,
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-         str(TP_RANKS), str(port), out], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(TP_RANKS)]
-    texts = []
-    for p in procs:
-        try:
-            texts.append(p.communicate(timeout=600)[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            fail("tp: a rank did not finish in 600 s")
-    ranks_s = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, texts)):
-        if p.returncode != 0:
-            fail(f"tp: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks_s = _run_ranks("--tp-rank", TP_RANKS, out)
     ranks = []
     for r in range(TP_RANKS):
         with open(os.path.join(out, f"tp{r}.json")) as f:
@@ -5309,10 +5627,518 @@ def phase_tp(card: str) -> dict:
                      f"{worst} {upd[worst]}")
             checks[tag] = dict(loss_rel=loss_rel, update_rel=upd[worst],
                                worst=worst)
+    arch = _tp_setup("gemma2-2b", SR_TP_LAYERS, 2, 2048)[0]
+    want = {k: v for k, v in _train_launches(arch, 4096).items()
+            if k in GEMM_KERNELS}
+    sr = _sr_check("tp_sp", card, [r["sr"] for r in ranks],
+                   ranks[0]["sr"]["one"], want, ranks[0]["sr"]["depth"])
     log(f"[tp] the B1-B3 row-amax cases {amax_s:.1f} s, the ranks "
         f"{ranks_s:.1f} s | {card}")
     return dict(amax_cases=amax, amax_s=amax_s, ranks=ranks,
-                ranks_s=ranks_s, checks=checks)
+                ranks_s=ranks_s, checks=checks, sr=sr)
+
+
+# -- stochastic rounding under a mesh (ROADMAP slice 19) ---------------------
+
+def _fingerprint(t) -> list:
+    """Two 64-bit sums of t's bits, one weighted by a hash of each
+    position, taken on the card a chunk at a time, and t's shape: equal
+    tensors give equal prints; two that differ in any bit give equal
+    prints only by a collision of the weighted sum."""
+    import torch
+    v = t.detach().contiguous().reshape(-1)
+    v = v.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[
+        v.element_size()])
+    a = b = 0
+    step = 1 << 24
+    for i0 in range(0, v.numel(), step):
+        c = v[i0:i0 + step].to(torch.int64)
+        i = torch.arange(i0, i0 + c.numel(), device=c.device,
+                         dtype=torch.int64)
+        h = (i * -7046029254386353131) ^ (i >> 7)     # 0x9E3779B97F4A7C15
+        a += int((c * h).sum())
+        b += int(c.sum())
+    m = (1 << 64) - 1
+    return [a & m, b & m, list(t.shape)]
+
+
+class _SROperands:
+    """Within the block, every operand that B1-B3 quantize: the inputs as
+    the kernels get them (padded 2-D), their quantized values (B3's own
+    dequantized operands; B1's and B2's from the plain quantize passes,
+    which the kernel cases hold the kernels to) and their index bases.
+    Mode "rank" keeps (key, base, print of the input, print of the
+    quantized operand); mode "one" (one process) takes the ranks' records
+    and, for each of its own operands, slices it at each rank record's
+    base and compares the prints: a rank's input may be one process's
+    times the data size (a rank's loss is the mean of its tokens), a
+    power of two that quantization keeps."""
+
+    def __init__(self, ranks=None):
+        self.records = []
+        self.seen = set()
+        self.one = ranks is not None
+        self.by_key = {}
+        for r, recs in enumerate(ranks or []):
+            for rec in recs:
+                self.by_key.setdefault(tuple(rec["key"]), []).append(
+                    (r, rec))
+        self.result = {"matched": {}, "bad": [], "checked": 0}
+
+    def _add(self, what, seed, raw, quantize, base):
+        """Record or check one operand; `quantize()` gives its quantized
+        value, computed only where it is needed (a remat recompute
+        repeats its forward's operands: printed once)."""
+        import torch
+        key = (what, int(seed))
+        b = None if base is None else [list(base.shape), list(base.offset)]
+        if not self.one:
+            raw_print = _fingerprint(raw.to(torch.float32))
+            if (key, tuple(raw_print[:2])) in self.seen:
+                return
+            self.seen.add((key, tuple(raw_print[:2])))
+            self.records.append(dict(
+                key=list(key), base=b, raw=raw_print,
+                out=_fingerprint(quantize().to(torch.float32))))
+            return
+        out = None
+        for r, rec in self.by_key.get(key, []):
+            if rec.get("hit"):
+                continue
+            shape = rec["raw"][2]
+            off = (0, 0) if rec["base"] is None else rec["base"][1]
+            if off[0] + shape[0] > raw.shape[0] or \
+                    off[1] + shape[1] > raw.shape[1]:
+                continue
+            sl = (slice(off[0], off[0] + shape[0]),
+                  slice(off[1], off[1] + shape[1]))
+            for f in (1.0, 2.0, 4.0):
+                part = raw[sl].to(torch.float32) * f
+                if _fingerprint(part)[:2] != rec["raw"][:2]:
+                    continue
+                rec["hit"] = True
+                if out is None:
+                    out = quantize()
+                ok = _fingerprint(out[sl].to(torch.float32) * f)[:2] == \
+                    rec["out"][:2]
+                self.result["checked"] += 1
+                self.result["matched"][what] = \
+                    self.result["matched"].get(what, 0) + 1
+                if not ok:
+                    self.result["bad"].append([r, list(key)])
+                break
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import linear
+        from repro_torch.kernels import ref
+        self._saved = {n: getattr(linear, n) for n in
+                       ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")}
+        fwd, dgrad, wgrad = (self._saved[n] for n in
+                             ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"))
+
+        def rows(a, seed, width, kw, name, stream):
+            af = a.to(torch.float32)
+            out = torch.empty_like(af)
+            C = af.shape[1]
+            for c0 in range(0, C, width):
+                q, d = ref._quantize_rows(
+                    af, c0, width, C, kw["mantissa_bits"], kw.get("block", 0),
+                    kw["stochastic"], ref._seed_value(seed), stream,
+                    kw.get(f"{name}_amax"), kw.get(f"{name}_base"))
+                out[:, c0:c0 + width] = q * d
+            return out
+
+        def wq(w, seed, kw):
+            q, d = ref._quantize_w(w.to(torch.float32), 0, 0, w.shape[1],
+                                   kw["bk"], kw["bn"], kw["mantissa_bits"],
+                                   kw["stochastic"], ref._seed_value(seed),
+                                   kw.get("w_base"))
+            return q * d
+
+        def b1(x, w, seed=None, **kw):
+            y = fwd(x, w, seed, **kw)
+            self._add("fwd.x", seed, x,
+                      lambda: rows(x, seed, kw["bk"], kw, "x", 0),
+                      kw.get("x_base"))
+            if kw.get("quantize_w", True):
+                self._add("fwd.w", seed, w, lambda: wq(w, seed, kw),
+                          kw.get("w_base"))
+            return y
+
+        def b2(g, w, seed=None, **kw):
+            dx = dgrad(g, w, seed, **kw)
+            self._add("dgrad.g", seed, g,
+                      lambda: rows(g, seed, kw["bn"], kw, "g", 0x20000000),
+                      kw.get("g_base"))
+            if kw.get("quantize_w", True):
+                self._add("dgrad.w", seed, w, lambda: wq(w, seed, kw),
+                          kw.get("w_base"))
+            return dx
+
+        def b3(x, g, seed=None, **kw):
+            want = kw.pop("operands", False)
+            dw, xh, gh = wgrad(x, g, seed, operands=True, **kw)
+            self._add("wgrad.x", seed, x, lambda: xh, kw.get("x_base"))
+            self._add("wgrad.g", seed, g, lambda: gh, kw.get("g_base"))
+            return (dw, xh, gh) if want else dw
+
+        linear.hbfp_matmul_fwd, linear.hbfp_dgrad, linear.hbfp_wgrad = \
+            b1, b2, b3
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import linear
+        for n, fn in self._saved.items():
+            setattr(linear, n, fn)
+        return False
+
+
+def _sr_narrow_prints(narrow) -> dict:
+    """{leaf name: print} of a narrow copy, a stacked leaf's layers
+    stacked [L, ...] (as `train_step._narrow_copy` lays out the copy)."""
+    import torch
+    flat = {f"layers/{k}": torch.stack([lp[k].detach() for lp in
+                                        narrow["layers"]])
+            for k in narrow["layers"][0]}
+    flat.update((k, v.detach()) for k, v in narrow.items() if k != "layers")
+    return {k: _fingerprint(v) for k, v in flat.items()}
+
+
+def _sr_rank_run(mesh, arch, data, sched, out, tag, rank, sp=False,
+                 tap=None) -> dict:
+    """One rank's stochastic run (the module docstring's 11g): step 1's
+    narrow copy printed on the shards' narrowing, a warm-up step whose
+    B1-B3 operands are printed (`_SROperands`), the counted steps through
+    the Trainer (launches a rank by route, losses, step times, peak, the
+    collectives by axis), the master gathered to rank 0's host. Writes
+    the records to out/<tag>_rank<RANK>.json for the one-process check
+    (`_sr_one_process`, rank 0, after every rank has freed the card)."""
+    import torch
+    from repro_torch.kernels import bfp_quantize as bq
+    from repro_torch.kernels import hbfp_matmul as hm
+    from repro_torch.obs import MemorySink, Recorder
+    from repro_torch.train import Trainer, init_train_state, make_step
+    t0 = time.perf_counter()
+    step = make_step(arch, SR_SPEC, sched, mesh=mesh, seq_parallel=sp,
+                     tap=tap)
+    lay = step.layout
+    init = init_train_state(0, arch, mesh=lay)
+    sink, lines = MemorySink(), []
+    trainer = Trainer(train_step=step, data_fn=data, seed=SR_SEED,
+                      init_state=init, recorder=Recorder([sink]))
+    prints = {}
+
+    def narrow_copy(*a, **kw):                # step 1's narrow copy
+        out = type(lay).narrow_copy(lay, *a, **kw)
+        prints.update(_sr_narrow_prints(out))
+        return out
+
+    lay.narrow_copy = narrow_copy
+    with _SROperands() as rec:
+        trainer.run(1, log_every=1, log_fn=lines.append)     # step 1
+    del lay.narrow_copy
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    hm.reset_counts()
+    bq.reset_counts()
+    axes = {"data": lay.transport, "model": lay.model}
+    axes = {k: t for k, t in axes.items() if t is not None}
+    marks = {k: (len(t.records), dict(t.staged)) for k, t in axes.items()}
+    trainer.run(SR_MESH_STEPS, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    counted = SR_MESH_STEPS - 1
+    per = lambda d: {k: v / counted for k, v in d.items()}
+    coll = {k: dict(bytes=per(t.bytes_by_kind(marks[k][0])),
+                    seconds=per(t.seconds_by_kind(marks[k][0])),
+                    staged=per({s: v - marks[k][1].get(s, 0)
+                                for s, v in t.staged.items()}))
+            for k, t in axes.items()}
+    spans = [ev.data["dur_us"] / 1e6 for ev in sink.events
+             if ev.kind == "span" and ev.data.get("name") == "train/step"]
+    res = dict(tag=tag, rank=rank, rank_m=lay.rank_m, rank_d=lay.rank,
+               m=lay.m, n=lay.n, axis=lay.axis,
+               losses=[float(ln.split("loss=")[1].split()[0])
+                       for ln in lines],
+               step_s=spans[1:],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: getattr(hm, k).launches for k in GEMM_KERNELS},
+               routes={k: dict(getattr(hm, k).launches_by_route)
+                       for k in GEMM_KERNELS},
+               plain_calls=sum(getattr(hm, k).plain_calls
+                               for k in GEMM_KERNELS)
+               + bq.bfp_quantize.plain_calls,
+               b7_launches=bq.bfp_quantize.launches,
+               b7_routes=dict(bq.bfp_quantize.launches_by_route),
+               collectives=coll, records=rec.records, narrow=prints,
+               tp_dims={n: d for n, d in lay.tp_dims.items()},
+               seconds=dict(warm_up=t_warm))
+    t1 = time.perf_counter()
+    master = lay.gather(trainer.state.params)
+    res["seconds"]["gather"] = time.perf_counter() - t1
+    with open(os.path.join(out, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    del trainer, step, lay, init
+    torch.cuda.empty_cache()
+    return res, master
+
+
+def _sr_one_process(arch, data, sched, out, tag, n_ranks, master,
+                    tap=None) -> dict:
+    """Rank 0, the card to itself: one process on the full batch from the
+    same init and keys: its narrow copy sliced at each rank's model part
+    against the ranks' prints, its step-1 operands sliced at each rank's
+    bases against theirs (`_SROperands`), its losses, and its updates
+    against the mesh's gathered master (p_end - p0, relative Frobenius
+    per leaf)."""
+    import torch
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.train import Trainer, init_train_state, make_step
+    from repro_torch.train import train_step as train_step_mod
+    t0 = time.perf_counter()
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(out, f"{tag}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(0, arch)
+    narrow_bad, narrow_checked = [], []
+
+    def narrow_copy(*a, **kw):                # step 1's narrow copy
+        whole = plain_narrow(*a, **kw)
+        flat = {f"layers/{k}": torch.stack([lp[k].detach() for lp in
+                                            whole["layers"]])
+                for k in whole["layers"][0]}
+        flat.update((k, v.detach()) for k, v in whole.items()
+                    if k != "layers")
+        for res in ranks:
+            for name, t in flat.items():
+                d = res["tp_dims"][name]
+                if d is not None:
+                    k = t.shape[d] // res["m"]
+                    t = t.narrow(d, res["rank_m"] * k, k)
+                if _fingerprint(t)[:2] != res["narrow"][name][:2]:
+                    narrow_bad.append([res["rank"], name])
+        narrow_checked.append(len(flat))
+        return whole
+
+    p0 = {n: t.to("cpu", copy=True) for n, t in named_leaves(state.params)}
+    trainer = Trainer(train_step=make_step(arch, SR_SPEC, sched, tap=tap),
+                      init_state=state, data_fn=data, seed=SR_SEED)
+    lines = []
+    plain_narrow = train_step_mod._narrow_copy
+    train_step_mod._narrow_copy = narrow_copy
+    try:
+        with _SROperands([r["records"] for r in ranks]) as rec:
+            trainer.run(1, log_every=1, log_fn=lines.append)
+    finally:
+        train_step_mod._narrow_copy = plain_narrow
+    trainer.run(SR_MESH_STEPS, log_every=1, log_fn=lines.append)
+    torch.cuda.synchronize()
+    upd = {}
+    mm = dict(named_leaves(master))
+    for name, b in named_leaves(trainer.state.params):
+        a = torch.from_numpy(mm[name]).cuda()
+        dd = torch.linalg.vector_norm((b - p0[name].cuda()).double())
+        upd[name] = float(torch.linalg.vector_norm((a - b).double())
+                          / dd.clamp_min(1e-30))
+        del a
+    unmatched = {}
+    for recs in rec.by_key.values():
+        for r, x in recs:
+            if not x.get("hit"):
+                unmatched[x["key"][0]] = unmatched.get(x["key"][0], 0) + 1
+    out_ = dict(losses=[float(ln.split("loss=")[1].split()[0])
+                        for ln in lines],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                update_rel=upd, narrow_bad=narrow_bad,
+                narrow_checked=narrow_checked,
+                operands=dict(rec.result, unmatched=unmatched,
+                              recorded=sum(len(r["records"])
+                                           for r in ranks)),
+                seconds=time.perf_counter() - t0)
+    del trainer, state, p0
+    torch.cuda.empty_cache()
+    return out_
+
+
+def _sr_check(tag: str, card: str, ranks: list, one: dict, want: dict,
+              depth: str, loss_steps: int = SR_MESH_STEPS) -> dict:
+    """The phase's checks of a stochastic mesh run (the module docstring's
+    11g): step 1's narrow copy and every B1-B3 operand of one process's
+    that a rank's input matches bit-identical to one process's part (the
+    weights always match); B1-B3 launches a rank equal one process's at a
+    rank's tokens, on their training routes, no plain call; the ranks'
+    losses alike; losses within DIST_TOL["loss"] and updates within
+    DIST_TOL["updates"] of one process."""
+    ops = one["operands"]
+    for res in ranks:
+        c = res["collectives"]
+        log(f"[sr {tag} rank {res['rank']}] {depth}: losses "
+            f"{res['losses']}, step times "
+            f"{[round(t, 3) for t in res['step_s']]} s, peak "
+            f"{res['peak_gib']:.2f} GiB; B1-B3 {res['launches']} (expected "
+            f"{want}) by route {res['routes']}; B7 {res['b7_launches']} "
+            f"{res['b7_routes']}; a step's collectives {c} | {card}")
+        if res["launches"] != want or res["plain_calls"]:
+            fail(f"sr {tag} rank {res['rank']}: launches {res['launches']} "
+                 f"!= {want} or plain calls {res['plain_calls']}")
+        if not _all_on({k: res["routes"][k] for k in ROUTED_KERNELS},
+                       "int8_wgmma") or not _all_on(
+                {"hbfp_wgrad": res["routes"]["hbfp_wgrad"]}, "bf16_wgmma"):
+            fail(f"sr {tag} rank {res['rank']}: a launch off its training "
+                 f"route: {res['routes']}")
+        if res["losses"] != ranks[0]["losses"] or \
+                not all(abs(x) < float("inf") for x in res["losses"]):
+            fail(f"sr {tag}: the ranks' losses part: {res['losses']} vs "
+                 f"{ranks[0]['losses']}")
+    losses = ranks[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       one["losses"]))
+    upd = one["update_rel"]
+    worst = max(upd, key=upd.get)
+    log(f"[sr {tag}] against one process on the full batch (peak "
+        f"{one['peak_gib']:.2f} GiB, {one['seconds']:.1f} s): losses "
+        f"{losses} vs {one['losses']} (worst rel {loss_rel:.3g}, tol "
+        f"{DIST_TOL['loss']}); updates within rel {upd[worst]:.3g} "
+        f"({worst}; tol {DIST_TOL['updates']}); step 1's narrow copy "
+        f"{'bit-identical' if not one['narrow_bad'] else one['narrow_bad']}"
+        f"; operands {ops['recorded']} recorded, {ops['checked']} matched "
+        f"one process's input ({ops['matched']}), {len(ops['bad'])} "
+        f"quantized differently, unmatched {ops['unmatched']} | {card}")
+    if one["narrow_bad"] or ops["bad"] or len(one["narrow_checked"]) != 1:
+        fail(f"sr {tag}: a rank's step-1 narrow copy or quantized operand "
+             f"is not one process's part: {one['narrow_bad']} {ops['bad']}")
+    if any(ops["unmatched"].get(k) for k in ("fwd.w", "dgrad.w")) or \
+            not ops["checked"]:
+        fail(f"sr {tag}: a weight operand matched no one-process part: "
+             f"{ops}")
+    if loss_rel > DIST_TOL["loss"] or upd[worst] > DIST_TOL["updates"]:
+        fail(f"sr {tag}: the ranks part from one process: losses {losses} "
+             f"vs {one['losses']}, worst update {worst} {upd[worst]}")
+    return dict(loss_rel=loss_rel, update_rel=upd[worst], worst=worst,
+                operands=ops)
+
+
+def _sr_rank_pair(mesh, arch, data, sched, out, tag, rank, n, barrier,
+                  sp=False, tap=None):
+    """`_sr_rank_run` on every rank, then `_sr_one_process` on rank 0 while
+    the others wait with the card freed: (this rank's result without its
+    records and prints, the one-process result on rank 0 or None)."""
+    import torch
+    res, master = _sr_rank_run(mesh, arch, data, sched, out, tag, rank,
+                               sp=sp, tap=tap)
+    barrier()
+    one = None
+    if rank == 0:
+        one = _sr_one_process(arch, data, sched, out, tag, n, master, tap)
+    del master
+    torch.cuda.empty_cache()
+    barrier()
+    return {k: v for k, v in res.items()
+            if k not in ("records", "narrow", "tp_dims")}, one
+
+
+def pod_rank(rank: int, n: int, port: int, out: str) -> int:
+    """`--pod-rank RANK N PORT DIR`: one rank of the pod phase on
+    {pod 2, data 1, model 2} (the module docstring's 11g); writes
+    DIR/pod<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.transport import init_process_group
+    from repro_torch.numerics import TapConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_process_group(rank, n, port)
+    mesh = init_device_mesh("cuda", (2, 1, 2),
+                            mesh_dim_names=("pod", "data", "model"))
+    arch, depth, data, sched = _tp_setup("gemma2-2b", SR_POD_LAYERS, 2,
+                                         2048)
+    res, one = _sr_rank_pair(mesh, arch, data, sched, out, "sr_pod", rank,
+                             n, dist.barrier,
+                             tap=TapConfig(cadence=SR_POD_CADENCE))
+    with open(os.path.join(out, f"pod{rank}.json"), "w") as f:
+        json.dump(dict(res, backend=backend, depth=depth, one=one), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(flag: str, n: int, out: str, timeout: int = 600) -> float:
+    """Start `n` rank processes of this script (`flag` RANK N PORT OUT),
+    two or more gloo ranks sharing the card (expandable segments keep
+    each rank's freed blocks usable by the next run's other sizes), and
+    wait for them; returns their wall seconds. A rank that fails or
+    outlives `timeout` fails the phase (the others are stopped)."""
+    import torch
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t0 = time.perf_counter()
+    env = dict(os.environ,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(n),
+         str(port), out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(n)]
+    texts = []
+    for p in procs:
+        try:
+            texts.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"{flag}: a rank did not finish in {timeout} s")
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            fail(f"{flag}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_pod(card: str) -> dict:
+    """ROADMAP slice 19's pod mesh on the card (the module docstring's
+    11g): four gloo ranks of the card on {pod 2, data 1, model 2},
+    gemma2-2b at full width and SR_POD_LAYERS of 26 layers, 1 x 2048
+    tokens a data rank, under SR_SPEC with a telemetry step every
+    SR_POD_CADENCE (B7 narrowing each shard), held to one process."""
+    out = os.path.join(ROOT, "build", "pod_ranks")
+    secs = _run_ranks("--pod-rank", SR_POD_RANKS, out)
+    ranks = []
+    for r in range(SR_POD_RANKS):
+        with open(os.path.join(out, f"pod{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    arch = _tp_setup("gemma2-2b", SR_POD_LAYERS, 2, 2048)[0]
+    want = {k: v for k, v in _train_launches(arch, 2048).items()
+            if k in GEMM_KERNELS}
+    for res in ranks:
+        if res["backend"] != "gloo" or tuple(res["axis"]) != ("pod", "data") \
+                or res["n"] != 2 or res["m"] != 2:
+            fail(f"pod: rank {res['rank']} on {res['backend']}, data axes "
+                 f"{res['axis']} of {res['n']}, model {res['m']}")
+        if not res["b7_launches"] or set(
+                r for r, k in res["b7_routes"].items() if k) - set(
+                B7_MAIN_ROUTES):
+            fail(f"pod: B7 on the shards {res['b7_launches']} "
+                 f"{res['b7_routes']}")
+    check = _sr_check("pod", card, ranks, ranks[0]["one"], want,
+                      ranks[0]["depth"])
+    log(f"[pod] the ranks {secs:.1f} s | {card}")
+    return dict(ranks=ranks, ranks_s=secs, check=check)
+
+
+def phase_sr_kernels(card: str) -> dict:
+    """`--phase sr_kernels`: ROADMAP slice 19's kernel cases alone (the
+    bwd phase's and the quantize phase's index-base cases)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    gemm = _sr_base_cases(gen)
+    b7 = _sr_b7_cases(torch.Generator(device="cuda").manual_seed(97))
+    log(f"[sr base] {len(gemm)} B1-B3 rows and {len(b7)} B7 rows | {card}")
+    return dict(gemm=gemm, b7=b7)
 
 
 def _tp_runs(tp: dict) -> list:
@@ -5375,12 +6201,19 @@ def _bwd_entry(name, rows, by_path, replaces, source, by_route=None):
              if "kernel_split_ms" in r}
     if split:
         extra["kernel_split_ms"] = split
+    st = [r for r in rows if r["kernel"] == name
+          and r["config"] == "sr_base_timed"]
+    if st:
+        # stochastic, the seven projections of a layer: without and with
+        # a data shard's index base (ROADMAP slice 19)
+        extra["stochastic_ms"] = sum(r["kernel_ms"] for r in st)
+        extra["stochastic_base_ms"] = sum(r["kernel_base_ms"] for r in st)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "held_against": name + "_plain",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["kernel"] == name),
+                           if r["kernel"] == name and "max_abs_err" in r),
         "ms": sum(r["kernel_ms"] for r in tr),
         "plain_ms": sum(r["plain_ms"] for r in tr),
         "bound_ms": sum(r["bound_ms"] for r in tr),
@@ -5422,7 +6255,7 @@ def _flash_entry(name, rows, by_path, replaces, source, by_route):
     }
 
 
-def _quant_entry(rows, adapt, train_sr, dist):
+def _quant_entry(rows, adapt, train_sr, dist, pod):
     """B7's JSON entry: times summed over yi-9b's five distinct weight
     shapes at the adaptive path's weight-tap format (m 4, tile 24, with
     stats); max_abs_err over every quantize case; launches by path on the
@@ -5440,13 +6273,18 @@ def _quant_entry(rows, adapt, train_sr, dist):
                "packed_save": adapt["packed"]["launches"],
                "telemetry_stochastic": tel_sr["b7_launches"],
                "dist_compress": sum(c["b7_launches"] for c in reduces[:-1]),
-               "dist_compress_nccl": reduces[-1]["b7_launches"]}
+               "dist_compress_nccl": reduces[-1]["b7_launches"],
+               "pod_sr_telemetry": sum(r["b7_launches"]
+                                       for r in pod["ranks"])}
     by_route = {r: adapt["launches"][f"bfp_quantize/{r}"]
                 + adapt["packed"]["launches_by_route"][r]
                 + tel_sr["b7_routes"][r]
                 + sum(c["b7_routes"][r] for c in reduces)
+                + sum(x["b7_routes"][r] for x in pod["ranks"])
                 for r in adapt["packed"]["launches_by_route"]}
     grad = dist["b7_cases"]
+    st = [r for r in rows if r.get("config") == "sr_base_timed"]
+    rows = [r for r in rows if "max_abs_err" in r]
     cases = {}
     for r in rows + grad:
         cases.setdefault(r["route"], []).append(r["case"])
@@ -5470,6 +6308,11 @@ def _quant_entry(rows, adapt, train_sr, dist):
         "grad_tiling_device_ms": sum(r["device_ms"] for r in grad),
         "grad_tiling_bound_ms": sum(r["bound_ms"] for r in grad),
         "grad_tiling_plain_ms": sum(r["plain_ms"] for r in grad),
+        # stochastic at the five t24 shapes, without and with an index base
+        "stochastic_ms": sum(r["kernel_ms"] for r in st),
+        "stochastic_base_ms": sum(r["kernel_base_ms"] for r in st),
+        "stochastic_device_ms": sum(r["device_ms"] for r in st),
+        "stochastic_base_device_ms": sum(r["device_base_ms"] for r in st),
     }
 
 
@@ -5488,12 +6331,16 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 6:
         return tp_rank(int(sys.argv[2]), int(sys.argv[3]),
                        int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--pod-rank"] and len(sys.argv) == 6:
+        return pod_rank(int(sys.argv[2]), int(sys.argv[3]),
+                        int(sys.argv[4]), sys.argv[5])
     t0 = time.perf_counter()
     name, card = phase_device()
     build = phase_build()
     phases = {"recurrent": phase_recurrent, "moe": phase_moe,
               "vlm_audio": phase_vlm_audio, "autotune": phase_autotune,
-              "dist": phase_dist, "tp": phase_tp}
+              "dist": phase_dist, "tp": phase_tp, "pod": phase_pod,
+              "sr_kernels": phase_sr_kernels}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -5512,6 +6359,8 @@ def main() -> int:
     log(f"[time] flash kernels done at {time.perf_counter() - t0:.1f} s")
     quant = phase_quantize()
     log(f"[time] quantize kernel done at {time.perf_counter() - t0:.1f} s")
+    # the accuracy phase's CPU half runs beside the training phases
+    acc_cpu = _acc_cpu_start()
     train_smoke = {a: phase_train(a) for a in ("gemma2-2b", "yi-9b")}
     from repro_torch.kernels.common import fold_in
     train_smoke["gemma2-2b stochastic"] = phase_train(
@@ -5527,7 +6376,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     adapt = phase_adaptive_full(card)
     log(f"[time] adaptive training done at {time.perf_counter() - t0:.1f} s")
-    acc = phase_accuracy(card)
+    acc = phase_accuracy(card, acc_cpu)
     log(f"[time] accuracy done at {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels()
     log(f"[time] kernels done at {time.perf_counter() - t0:.1f} s")
@@ -5544,6 +6393,8 @@ def main() -> int:
     log(f"[time] dist done at {time.perf_counter() - t0:.1f} s")
     tp = phase_tp(card)
     log(f"[time] tp done at {time.perf_counter() - t0:.1f} s")
+    pod = phase_pod(card)
+    log(f"[time] pod done at {time.perf_counter() - t0:.1f} s")
     bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"] + va["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5555,7 +6406,7 @@ def main() -> int:
                    "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve, "recurrent": rec, "moe": moe,
                    "vlm_audio": va, "autotune": at, "dist": dist,
-                   "tp": tp},
+                   "tp": tp, "pod": pod},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -5589,7 +6440,13 @@ def main() -> int:
                          **{p: t["launches"][k] for p, t in at_train.items()},
                          "dist_gemma2": sum(r["launches"][k]
                                             for r in dist["ranks"]),
-                         **_tp_paths(tp, k)}
+                         **_tp_paths(tp, k),
+                         **{p: sum(r["launches"][k] for r in rs)
+                            for p, rs in sr_runs.items()}}
+    # ROADMAP slice 19's stochastic mesh runs, every rank
+    sr_runs = {"dist_sr_gemma2": [r["sr"] for r in dist["ranks"]],
+               "tp_sr_gemma2_sp": [r["sr"] for r in tp["ranks"]],
+               "pod_sr_gemma2": pod["ranks"]}
     rec_served = {f"serve_{a.split('-')[0]}": r["launches"]
                   for a, r in (*rec["serve"].items(),
                                *moe["serve"].items(),
@@ -5609,6 +6466,7 @@ def main() -> int:
         + sum(t["routes"][k][r] for t in at_train.values())
         + sum(d["routes"][k][r] for d in dist["ranks"])
         + sum(m["routes"][k][r] for m in _tp_runs(tp))
+        + sum(x["routes"][k][r] for rs in sr_runs.values() for x in rs)
         + (served if r == "bf16_wgmma" else 0)
         + (at["serve"]["routes"][r] if k == "hbfp_matmul_fwd" else 0)
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
@@ -5638,6 +6496,8 @@ def main() -> int:
         "train_ms": b1_train["ms"], "train_bound_ms": b1_train["bound_ms"],
         "train_plain_ms": b1_train["plain_ms"],
         "train_int_mm_ms": b1_train["int_mm_ms"],
+        "stochastic_ms": b1_train["stochastic_ms"],
+        "stochastic_base_ms": b1_train["stochastic_base_ms"],
     }
     b2 = _bwd_entry("hbfp_dgrad", bwd, by_path("hbfp_dgrad"),
                     "src/repro/kernels/hbfp_matmul.py:262",
@@ -5667,7 +6527,7 @@ def main() -> int:
                             ("hbfp_flash_dkv", "241"))]
     print(json.dumps({"kernels": [b1, b2, b3, *b456,
                                   _quant_entry(quant, adapt, train_sr,
-                                               dist)]}))
+                                               dist, pod)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

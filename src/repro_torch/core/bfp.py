@@ -28,7 +28,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.bfp_quantize import bfp_quantize
-from repro_torch.kernels.common import seed_from_key, uniform_from_index
+from repro_torch.kernels.common import (IndexBase, base_rows, index_base,
+                                        is_whole, seed_from_key,
+                                        uniform_from_index)
 from repro_torch.kernels.ref import _wrap_i32
 
 EXP_FLOOR = -100
@@ -64,6 +66,12 @@ def _tile_view(shape: Tuple[int, ...], tile_shape: Sequence[Optional[int]]):
     return tuple(padded), tuple(grouped), tuple(reduce_axes), needs_pad
 
 
+def padded_shape(shape: Sequence[int],
+                 tile_shape: Sequence[Optional[int]]) -> Tuple[int, ...]:
+    """The zero-padded shape a tensor of `shape` is quantized on."""
+    return _tile_view(tuple(shape), tile_shape)[0]
+
+
 def _pad_to(x: torch.Tensor, padded: Sequence[int]) -> torch.Tensor:
     pad = []
     for p, d in reversed(list(zip(padded, x.shape))):
@@ -92,41 +100,36 @@ def tile_scales(x: torch.Tensor, mantissa_bits: int,
 _DRAW_CHUNK = 1 << 24
 
 
-def _padded_rows(shape, padded, device) -> torch.Tensor:
-    """int64 row numbers, in the padded layout, of the rows of x.shape
-    (a row runs along the last dim)."""
-    r = torch.zeros((), dtype=torch.int64, device=device)
-    for d, p in zip(shape[:-1], padded[:-1]):
-        r = r[..., None] * p + torch.arange(d, device=device)
-    return r.reshape(-1)
-
-
-def _round_stochastic(v: torch.Tensor, padded, key: int) -> torch.Tensor:
+def _round_stochastic(v: torch.Tensor, padded, key: int,
+                      base: Optional[IndexBase] = None) -> torch.Tensor:
     """floor(v + u), u drawn at each element's row-major index in the
-    padded shape, a chunk of rows at a time."""
+    padded shape (with `base`, in the padded one-process operand of which
+    v is a part: `kernels.common.base_rows`), a chunk of rows at a
+    time."""
     if v.ndim == 0:
         return _round_stochastic(v.reshape(1), (1,), key).reshape(())
     seed = seed_from_key(key)
-    C, Cp = v.shape[-1], padded[-1]
-    rows = _padded_rows(v.shape, padded, v.device)
+    C = v.shape[-1]
+    starts = base_rows(base or index_base(v.shape), v.shape, padded,
+                       v.device)
     v2 = v.reshape(-1, C)
     out = torch.empty_like(v2)
     cols = torch.arange(C, dtype=torch.int32, device=v.device)
     step = max(1, _DRAW_CHUNK // max(C, 1))
     for r0 in range(0, v2.shape[0], step):
-        # int32 adds wrap, so only the [rows, 1] base is formed in int64
-        idx = _wrap_i32(rows[r0:r0 + step, None] * Cp) + cols
+        # int32 adds wrap, so only the [rows, 1] start is formed in int64
+        idx = _wrap_i32(starts[r0:r0 + step, None]) + cols
         out[r0:r0 + step] = torch.floor(v2[r0:r0 + step]
                                         + uniform_from_index(seed, idx))
     return out.reshape(v.shape)
 
 
 def _round(v: torch.Tensor, rounding: str, key: Optional[int],
-           padded) -> torch.Tensor:
+           padded, base: Optional[IndexBase] = None) -> torch.Tensor:
     if rounding == "stochastic":
         if key is None:
             raise ValueError("stochastic rounding requires a key")
-        return _round_stochastic(v, padded, key)
+        return _round_stochastic(v, padded, key, base)
     return torch.round(v)  # round-half-even
 
 
@@ -134,12 +137,17 @@ def quantize(x: torch.Tensor, mantissa_bits: int,
              tile_shape: Sequence[Optional[int]],
              rounding: str = "nearest",
              key: Optional[int] = None,
-             amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+             amax: Optional[torch.Tensor] = None,
+             base: Optional[IndexBase] = None) -> torch.Tensor:
     """FP→BFP→FP simulation: the dequantized tensor, in x's dtype.
     Stochastic rounding needs an int `key`. `amax` ([..., 1], f32), for
     row tiles (1, ..., 1, None) only, is each row's group amax taken
     instead of the row's own (the global row max of a row whose features
-    are split over tensor-parallel ranks)."""
+    are split over tensor-parallel ranks). `base` (a
+    `kernels.common.IndexBase` on the unpadded one-process operand) makes
+    x that part of it: its draws are the one-process operand's at the
+    part's elements (x's tiles must be whole tiles of that operand, or
+    rows on their global `amax`)."""
     if mantissa_bits >= 24:
         return x
     dt = x.dtype
@@ -152,8 +160,11 @@ def quantize(x: torch.Tensor, mantissa_bits: int,
     else:
         delta = pow2(_max_exponent(amax) - mantissa_bits + 2)
     lim = float(2 ** (mantissa_bits - 1) - 1)
-    padded = _tile_view(tuple(x.shape), tile_shape)[0]
-    q = _round(xf / delta, rounding, key, padded).clamp(-lim, lim)
+    if is_whole(base, x.shape):
+        base = None
+    padded = padded_shape(x.shape if base is None else base.shape,
+                          tile_shape)
+    q = _round(xf / delta, rounding, key, padded, base).clamp(-lim, lim)
     return (q * delta).to(dt)
 
 
@@ -171,18 +182,19 @@ def weight_tile_shape(rank: int, tile: Optional[int]
     return (1,) * (rank - 2) + (tile, tile)
 
 
-def quantize_act(x, cfg, key=None, amax=None):
+def quantize_act(x, cfg, key=None, amax=None, base=None):
     """Quantize an activation/gradient tensor per the paper's policy
-    (`amax`: the rows' group amax, see `quantize`)."""
+    (`amax`: the rows' group amax, `base`: x's part, see `quantize`)."""
     return quantize(x, cfg.mantissa_bits, act_tile_shape(x.ndim, cfg.act_block),
-                    cfg.rounding, key, amax)
+                    cfg.rounding, key, amax, base)
 
 
-def quantize_weight(x, cfg, key=None, wide: bool = False):
-    """Quantize a weight tensor (narrow compute copy, or wide storage)."""
+def quantize_weight(x, cfg, key=None, wide: bool = False, base=None):
+    """Quantize a weight tensor (narrow compute copy, or wide storage);
+    `base`: x's part of the whole weight (see `quantize`)."""
     m = cfg.wide_mantissa_bits if wide else cfg.mantissa_bits
     return quantize(x, m, weight_tile_shape(x.ndim, cfg.tile), cfg.rounding,
-                    key)
+                    key, base=base)
 
 
 # ----------------------------------------------------------------------------

@@ -24,7 +24,11 @@ gradient over the ranks before its one cast.
 Stochastic rounding takes the call's int key and, as the reference,
 folds the operand into it (0 for x, 1 for w, 2 for g); a backward GEMM
 at a diverged role width or block folds a (role, width, block) salt
-too (`_role_key`), so it never consumes another role's draws.
+too (`_role_key`), so it never consumes another role's draws. Under a
+mesh each operand is a part of the one a single process quantizes:
+`x_base` and `w_base` (`kernels.common.IndexBase`) say which, g's base
+follows from them (`grad_base`), and every role of an operand draws at
+its part's one-process indices.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
-from repro_torch.kernels.common import fold_in, role_stream_salt
+from repro_torch.kernels.common import (IndexBase, fold_in,
+                                        role_stream_salt)
 from repro_torch.sharding.tensor_parallel import (local_row_amax,
                                                   row_amax_needed)
 
@@ -59,33 +64,51 @@ def _role_key(key: Optional[int], i: int, role: str, role_cfg: HBFPConfig,
     return fold_in(k, salt) if salt else k
 
 
-def _q_act(x, cfg: HBFPConfig, key, contract_axis: int, tp=None):
+def grad_base(x_base: Optional[IndexBase], w_base: Optional[IndexBase],
+              x_shape, w_shape) -> Optional[IndexBase]:
+    """The base of the output gradient g [..., N] of a product of the
+    parts x [..., K] at `x_base` and w [..., K, N] at `w_base`: x's lead
+    dims and w's last (None when both are whole)."""
+    if x_base is None and w_base is None:
+        return None
+    xs = IndexBase(tuple(x_shape), (0,) * len(x_shape)) if x_base is None \
+        else x_base
+    ws = IndexBase(tuple(w_shape), (0,) * len(w_shape)) if w_base is None \
+        else w_base
+    return IndexBase(xs.shape[:-1] + ws.shape[-1:],
+                     xs.offset[:-1] + ws.offset[-1:])
+
+
+def _q_act(x, cfg: HBFPConfig, key, contract_axis: int, tp=None,
+           base: Optional[IndexBase] = None):
     """Per-row exponents along the contraction axis (optionally blocked by
     cfg.act_block); on the global row amax, reduced over `tp` (a TPCall
     whose ranks each hold a part of every row: the last axis), where the
-    parts cut an exponent group."""
+    parts cut an exponent group; drawn as the part `base`."""
     tile = [1] * x.ndim
     tile[contract_axis] = cfg.act_block
     amax = None
     if tp is not None and row_amax_needed(cfg.act_block, x.shape[-1],
                                           x.shape[-1] * tp.size):
         amax = tp.reduce_max(local_row_amax(x))
-    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key, amax)
+    return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key, amax,
+                        base)
 
 
-def _q_w(w, cfg: HBFPConfig, key):
+def _q_w(w, cfg: HBFPConfig, key, base: Optional[IndexBase] = None):
     return bfp.quantize(w, cfg.mantissa_bits,
                         bfp.weight_tile_shape(w.ndim, cfg.tile),
-                        cfg.rounding, key)
+                        cfg.rounding, key, base=base)
 
 
-def _q_b(b, cfg: HBFPConfig, key, kind: str):
-    """Quantize the right-hand operand b[..., K, N]."""
+def _q_b(b, cfg: HBFPConfig, key, kind: str,
+         base: Optional[IndexBase] = None):
+    """Quantize the right-hand operand b[..., K, N] (the part `base`)."""
     if kind == "weight":
         if not cfg.requantize_weights:
             return b
-        return _q_w(b, cfg, key)
-    return _q_act(b, cfg, key, contract_axis=b.ndim - 2)
+        return _q_w(b, cfg, key, base)
+    return _q_act(b, cfg, key, contract_axis=b.ndim - 2, base=base)
 
 
 def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -100,10 +123,13 @@ def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 class _HBFPMatmulFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key, tp):
+    def forward(ctx, x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key, tp,
+                bases):
         row = tp if tp is not None and tp.kind == "row" else None
-        xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1, tp=row)
-        wq = _q_b(w, cfg, _fold(key, 1), w_kind)
+        xb, wb = bases
+        xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1, tp=row,
+                    base=xb)
+        wq = _q_b(w, cfg, _fold(key, 1), w_kind, wb)
         if row is not None:
             # the partial product in f32, summed over the ranks outside
             y = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
@@ -115,12 +141,14 @@ class _HBFPMatmulFn(torch.autograd.Function):
         ctx.save_for_backward(*((xq, wq) if uniform else (x, w)))
         ctx.cfgs = (cfg, dgrad_cfg, wgrad_cfg, w_kind, key)
         ctx.tp = tp
+        ctx.bases = (xb, wb, grad_base(xb, wb, x.shape, w.shape))
         return y
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         cfg, dgrad_cfg, wgrad_cfg, w_kind, key = ctx.cfgs
+        xb, wb, gb = ctx.bases
         tp = ctx.tp
         col = tp if tp is not None and tp.kind == "col" else None
         row = tp if tp is not None and tp.kind == "row" else None
@@ -131,17 +159,18 @@ class _HBFPMatmulFn(torch.autograd.Function):
         if dgrad_cfg is None and wgrad_cfg is None:
             xq, wq = a, b
             gq_d = gq_w = _q_act(g, cfg, _fold(key, 2),
-                                 contract_axis=g.ndim - 1, tp=col)
+                                 contract_axis=g.ndim - 1, tp=col, base=gb)
         else:
             dcfg = dgrad_cfg if dgrad_cfg is not None else cfg
             wcfg = wgrad_cfg if wgrad_cfg is not None else cfg
-            wq = _q_b(b, dcfg, _role_key(key, 1, "dgrad", dcfg, cfg), w_kind)
+            wq = _q_b(b, dcfg, _role_key(key, 1, "dgrad", dcfg, cfg), w_kind,
+                      wb)
             gq_d = _q_act(g, dcfg, _role_key(key, 2, "dgrad", dcfg, cfg),
-                          contract_axis=g.ndim - 1, tp=col)
+                          contract_axis=g.ndim - 1, tp=col, base=gb)
             xq = _q_act(a, wcfg, _role_key(key, 0, "wgrad", wcfg, cfg),
-                        contract_axis=a.ndim - 1, tp=row)
+                        contract_axis=a.ndim - 1, tp=row, base=xb)
             gq_w = _q_act(g, wcfg, _role_key(key, 2, "wgrad", wcfg, cfg),
-                          contract_axis=g.ndim - 1, tp=col)
+                          contract_axis=g.ndim - 1, tp=col, base=gb)
         if tp is not None and tp.reduce_dx is not None:
             # the f32 partial input gradient, summed, cast once
             dx = tp.reduce_dx(torch.matmul(
@@ -154,21 +183,23 @@ class _HBFPMatmulFn(torch.autograd.Function):
         else:
             dw = _sum_to(torch.matmul(xq.transpose(-1, -2), gq_w), wq)
         return (dx.to(xq.dtype), dw.to(wq.dtype), None, None, None, None,
-                None, None)
+                None, None, None)
 
 
 def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
                 cfg: Optional[HBFPConfig], key: Optional[int] = None,
                 w_kind: str = "weight", *, dgrad_cfg=None,
-                wgrad_cfg=None, tp=None) -> torch.Tensor:
+                wgrad_cfg=None, tp=None, x_base=None,
+                w_base=None) -> torch.Tensor:
     """y = Q(x) @ Q(w) with BFP backward passes. x: [..., M, K]; w: [K, N]
     or [..., K, N] with batch dims broadcasting against x. cfg None is a
     plain matmul. Stochastic rounding needs an int `key`. w_kind "act"
     gives the right operand per-vector exponents along the contraction.
     dgrad_cfg/wgrad_cfg (None or equal to cfg: the uniform path) quantize
     the backward GEMMs at their own widths. `tp` (a TPCall, 2-D w only)
-    runs it as one rank's part of a tensor-parallel product (module
-    doc)."""
+    runs it as one rank's part of a tensor-parallel product; `x_base`,
+    `w_base` (`kernels.common.IndexBase`, None for a whole operand) the
+    operands' parts of one process's (module doc)."""
     if cfg is None:
         return _fp_matmul(x, w, tp)
     if w.ndim != 2 and w.ndim != x.ndim:
@@ -179,8 +210,10 @@ def hbfp_matmul(x: torch.Tensor, w: torch.Tensor,
         dgrad_cfg = None
     if wgrad_cfg == cfg:
         wgrad_cfg = None
+    if cfg.rounding != "stochastic":
+        x_base = w_base = None          # nearest rounding draws nothing
     return _HBFPMatmulFn.apply(x, w, cfg, dgrad_cfg, wgrad_cfg, w_kind, key,
-                               tp)
+                               tp, (x_base, w_base))
 
 
 class _FPMatmulFn(torch.autograd.Function):

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core import bfp
 from repro_torch.core.formats import HBFPConfig
-from repro_torch.kernels.common import fold_in
+from repro_torch.kernels.common import (IndexBase, fold_in, index_base,
+                                        shift_base)
 
 FP_NAME_FRAGMENTS = ("embed", "router", "bias", "scale", "norm", "gate_bias",
                      "a_log", "dt_bias", "conv")
@@ -75,17 +76,24 @@ def param_key(key: Optional[int], name: str, c: Optional[HBFPConfig],
     return k if index is None else fold_in(k, index)
 
 
-def leaf_slices(leaf: torch.Tensor, key: Optional[int]):
-    """(index, slice, key) over the leading slices of a stacked leaf, each
-    below rank 3, slice i keyed `fold_in(key, i)`; a leaf below rank 3 is
-    its own slice, index ()."""
+def leaf_slices(leaf: torch.Tensor, key: Optional[int],
+                base: Optional[IndexBase] = None):
+    """(index, slice, key, base) over the leading slices of a stacked
+    leaf, each below rank 3, slice i keyed `fold_in(key, i)`; a leaf below
+    rank 3 is its own slice, index (). With `base` (the leaf's part in the
+    whole leaf, `kernels.common.IndexBase`) the leaf is a shard: slice i
+    is the whole leaf's slice i + offset, keyed by that global index and
+    given the base of its trailing dims; without one each base is None."""
     if leaf.ndim < 3:
-        yield (), leaf, key
+        yield (), leaf, key, base
         return
     for i in range(leaf.shape[0]):
-        k = None if key is None else fold_in(key, i)
-        for idx, s, ks in leaf_slices(leaf[i], k):
-            yield (i,) + idx, s, ks
+        g = i if base is None else i + base.offset[0]
+        k = None if key is None else fold_in(key, g)
+        sub = None if base is None else IndexBase(base.shape[1:],
+                                                  base.offset[1:])
+        for idx, s, ks, bs in leaf_slices(leaf[i], k, sub):
+            yield (i,) + idx, s, ks, bs
 
 
 def resolve_param_cfg(cfg, name: str,
@@ -98,42 +106,49 @@ def resolve_param_cfg(cfg, name: str,
     return fp(name, role) if fp is not None else cfg
 
 
-# elements of a matrix quantized at once under nearest rounding (bounds
-# the f32 temporaries of a large head to ~256 MB each)
+# elements of a matrix quantized at once (bounds the f32 temporaries of a
+# large head to ~256 MB each)
 _ROW_BLOCK_ELEMS = 1 << 26
 
 
 def _quantize_matrix(w: torch.Tensor, c: HBFPConfig, wide: bool,
-                     key: Optional[int]) -> torch.Tensor:
-    """quantize_weight of one slice. A large matrix under nearest rounding
-    goes in blocks of whole tile rows: the same tiles, so the same
-    result, with block-sized temporaries. Stochastic rounding draws by
-    element position in the whole slice, so it stays whole."""
+                     key: Optional[int],
+                     base: Optional[IndexBase] = None) -> torch.Tensor:
+    """quantize_weight of one slice (`base`: its part in the whole slice).
+    A large matrix goes in blocks of whole tile rows: the same tiles, so
+    the same result, with block-sized temporaries; under stochastic
+    rounding each block is drawn at its rows' index in the whole slice
+    (its base), so the draws are the whole slice's too."""
     rows = w.shape[0] if w.ndim == 2 else 0
     block = 0
-    if rows and c.tile and c.rounding != "stochastic" and key is None:
+    if rows and c.tile:
         block = (_ROW_BLOCK_ELEMS // max(w.shape[1], 1)) // c.tile * c.tile
     if not block or block >= rows:
-        return bfp.quantize_weight(w, c, key, wide=wide)
+        return bfp.quantize_weight(w, c, key, wide=wide, base=base)
+    if base is None:
+        base = index_base(w.shape)
     out = torch.empty_like(w)
     for r0 in range(0, rows, block):
-        out[r0:r0 + block] = bfp.quantize_weight(w[r0:r0 + block], c,
-                                                 wide=wide)
+        out[r0:r0 + block] = bfp.quantize_weight(
+            w[r0:r0 + block], c, key, wide=wide,
+            base=shift_base(base, 0, r0))
     return out
 
 
 def quantize_leaf(leaf: torch.Tensor, c: HBFPConfig, wide: bool,
-                  key: Optional[int] = None) -> torch.Tensor:
+                  key: Optional[int] = None,
+                  base: Optional[IndexBase] = None) -> torch.Tensor:
     """quantize_weight over a stacked [L, ...] tensor one leading slice at a
     time (`leaf_slices`; a MoE leaf [L, E, D, F] one [D, F] slice at a
     time): the tiles never cross the leading axes, so the nearest result
     is the whole tensor's while the f32 temporaries stay one slice large.
-    `key` is the leaf's `param_key`."""
+    `key` is the leaf's `param_key`; `base` makes the leaf that shard of
+    the whole leaf (its slices keyed and drawn as the whole leaf's)."""
     if leaf.ndim < 3:
-        return _quantize_matrix(leaf, c, wide, key)
+        return _quantize_matrix(leaf, c, wide, key, base)
     out = torch.empty_like(leaf)
-    for idx, s, k in leaf_slices(leaf, key):
-        out[idx] = _quantize_matrix(s, c, wide, k)
+    for idx, s, k, b in leaf_slices(leaf, key, base):
+        out[idx] = _quantize_matrix(s, c, wide, k, b)
     return out
 
 
@@ -169,17 +184,29 @@ def widen_params(params, cfg, key: Optional[int] = None):
     return _quantize_tree(params, cfg, key, wide=True)
 
 
+def slice_base(base: Optional[IndexBase], index: Optional[int]):
+    """(the global layer index, the slice's base) of local slice `index`
+    of a leaf that is the part `base` of the whole leaf (index None: the
+    leaf itself)."""
+    if index is None or base is None:
+        return index, base
+    return index + base.offset[0], IndexBase(base.shape[1:], base.offset[1:])
+
+
 def apply_update_(name: str, leaf: torch.Tensor, index: Optional[int],
-                  update: torch.Tensor, cfg, key: Optional[int] = None
-                  ) -> None:
+                  update: torch.Tensor, cfg, key: Optional[int] = None,
+                  base: Optional[IndexBase] = None) -> None:
     """leaf ← Q_wide(leaf + update) in place, for the whole leaf (index
     None) or one layer slice of a stacked leaf: f32 update, wide-BFP
-    storage, rounded on the slice's stream of `key` (`param_key`)."""
+    storage, rounded on the slice's stream of `key` (`param_key`). `base`
+    makes the leaf a shard of the whole leaf: the slice is keyed by its
+    global layer index and drawn at its elements' whole-leaf indices."""
     p = leaf if index is None else leaf[index]
     new = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
     c = _weight_cfg(cfg, name, leaf)
     if c is not None:
-        new = quantize_leaf(new, c, True, param_key(key, name, c, index))
+        gi, b = slice_base(base, index)
+        new = quantize_leaf(new, c, True, param_key(key, name, c, gi), b)
     p.copy_(new)
 
 

@@ -31,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels.hbfp_matmul import (_DTYPES, _launch, _ptr,
-                                             _seed_int)
+                                             _seed_int, base_args)
 from repro_torch.kernels.ref import bfp_quantize_ref as bfp_quantize_plain
 from repro_torch.kernels.ref import bfp_tiles
 
@@ -159,9 +159,11 @@ def reset_counts() -> None:
 def bfp_quantize(x: torch.Tensor, seed=0, *, mantissa_bits: int = 8,
                  tile_r=128, tile_c=128, stochastic: bool = False,
                  block_r: int = 256, block_c: int = 512,
-                 with_stats: bool = False):
+                 with_stats: bool = False, base=None):
     """B7. x: [R, C] f32/bf16 (contiguous on the card); tile_r/tile_c
-    None share one exponent along the whole dim. Returns (mantissa,
+    None share one exponent along the whole dim. `base` (None, or a 2-D
+    `kernels.common.IndexBase` on the padded one-process operand) draws
+    the stochastic stream as that part of the operand. Returns (mantissa,
     exponent) or, with stats, (mantissa, exponent, clip, exp_min,
     exp_max)."""
     if x.ndim != 2:
@@ -174,7 +176,8 @@ def bfp_quantize(x: torch.Tensor, seed=0, *, mantissa_bits: int = 8,
                          f"got {mantissa_bits}")
     kw = dict(mantissa_bits=mantissa_bits, tile_r=tile_r, tile_c=tile_c,
               stochastic=stochastic, block_r=block_r, block_c=block_c,
-              with_stats=with_stats)
+              with_stats=with_stats, base=base)
+    base_args(base, x.shape[1])                            # checked here
     if x.device.type == "cpu":
         bfp_quantize.plain_calls += 1
         return bfp_quantize_plain(x, seed, **kw)
@@ -202,8 +205,9 @@ def bfp_quantize(x: torch.Tensor, seed=0, *, mantissa_bits: int = 8,
     _launch(_LIB, "bfp_quantize", x.device, x.data_ptr(),
             int(x.dtype == torch.bfloat16), mant.data_ptr(), int(m16),
             expo.data_ptr(), *ptrs, _ptr(scratch), R, C, tr, tc, br, bc,
-            mantissa_bits, int(stochastic), _seed_int(seed), int(with_stats),
-            *plan, words)
+            mantissa_bits, int(stochastic), _seed_int(seed),
+            *((0, 0, Cp) if base is None else base_args(base, C)),
+            int(with_stats), *plan, words)
     bfp_quantize.launches += 1
     bfp_quantize.launches_by_route[route] += 1
     return (mant, expo, *stats)

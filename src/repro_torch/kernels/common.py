@@ -14,8 +14,17 @@ device touches a key, so deriving one never waits for the card, and a
 recomputed forward or a resumed run derives the same keys. The draws are
 the xorshift stream below, equal on the CPU and the card; they are not
 the reference's threefry draws, so parity with it is statistical.
+
+Under a mesh a rank quantizes a part of the operand one process would
+quantize: `IndexBase` says which, and every quantizer (`core.bfp`, the
+kernels' plain versions and the CUDA passes) draws at the element's
+index in the one-process operand, so the draws do not depend on the
+mesh.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -108,6 +117,126 @@ def uniform_from_index(seed, idx: torch.Tensor) -> torch.Tensor:
     s = (idx.to(torch.int32) * _as_i32(0x9E3779B9)) ^ seed
     s = xorshift32(xorshift32(s | 1))
     return ((s >> 7) & 0x00FFFFFF).to(torch.float32) * (1.0 / 16777216.0)
+
+
+class IndexBase(NamedTuple):
+    """Where one process's part of an operand lies in the operand that a
+    single process quantizes at the same call with the same key: that
+    operand's `shape` and the part's `offset` in each dim. A stochastic
+    draw is keyed by the element's row-major index in the one-process
+    operand padded as its quantizer pads it,
+
+        i = Σ_d (local_d + offset_d) · stride_d   (wrapped to int32),
+
+    so every part of a mesh draws what one process draws there. `shape`
+    is unpadded for `core.bfp.quantize` (it pads it as it pads the part);
+    the GEMM and conversion kernels take operands their caller padded,
+    and with them the 2-D base of `flat_base` on the padded shape. A base
+    with the part's own shape and no offset is the whole operand: its own
+    row-major stream, bit for bit."""
+    shape: Tuple[int, ...]
+    offset: Tuple[int, ...]
+
+
+def index_base(shape: Sequence[int],
+               offset: Optional[Sequence[int]] = None) -> IndexBase:
+    """The base of a part at `offset` (None: the origin) of the
+    one-process operand `shape`."""
+    shape = tuple(int(d) for d in shape)
+    offset = (0,) * len(shape) if offset is None else \
+        tuple(int(o) for o in offset)
+    if len(offset) != len(shape):
+        raise ValueError(f"offset {offset} does not match shape {shape}")
+    return IndexBase(shape, offset)
+
+
+def part_base(shape: Sequence[int], parts=()) -> Optional[IndexBase]:
+    """The base of a tensor of local `shape` that is a part of the
+    one-process operand along each (dim, offset, global size) of `parts`
+    (whole along every other dim); None when `parts` is empty."""
+    parts = [p for p in parts if p is not None]
+    if not parts:
+        return None
+    g, o = list(shape), [0] * len(shape)
+    for d, off, size in parts:
+        d %= len(shape)
+        o[d] += int(off)
+        g[d] = int(size)
+    return IndexBase(tuple(int(v) for v in g), tuple(o))
+
+
+def shift_base(base: IndexBase, dim: int, start: int,
+               size: Optional[int] = None) -> IndexBase:
+    """`base` with its part moved `start` along `dim` of a one-process
+    operand `size` long there (None: the shape as it is): the base of a
+    slice of a part, or of a part split over more ranks."""
+    dim %= len(base.shape)
+    shape = list(base.shape)
+    if size is not None:
+        shape[dim] = int(size)
+    off = list(base.offset)
+    off[dim] += int(start)
+    return IndexBase(tuple(shape), tuple(off))
+
+
+def is_whole(base: Optional[IndexBase], shape: Sequence[int]) -> bool:
+    """True when `base` names no part of a larger operand for a tensor of
+    `shape` (None, or the whole operand: no offset and the same shape):
+    the tensor draws its own row-major stream."""
+    return base is None or (not any(base.offset)
+                            and tuple(base.shape) == tuple(shape))
+
+
+def base_rows(base: IndexBase, local_shape: Sequence[int],
+              padded: Sequence[int], device) -> torch.Tensor:
+    """int64 [rows]: the one-process index of each local row's first
+    element, Σ_{d<last} (i_d + offset_d)·stride_d + offset_last, with the
+    strides of the padded one-process shape `padded` (a row runs along
+    the last dim). The plain arithmetic every plain version uses."""
+    local_shape = tuple(local_shape)
+    if len(local_shape) != len(base.shape) or len(padded) != len(base.shape):
+        raise ValueError(f"a base of rank {len(base.shape)} for a part of "
+                         f"shape {local_shape}")
+    for d, (l, o, p) in enumerate(zip(local_shape, base.offset, padded)):
+        if o < 0 or o + l > p:
+            raise ValueError(f"part {local_shape} at {base.offset} leaves "
+                             f"the padded operand {tuple(padded)} on dim {d}")
+    r = torch.zeros((), dtype=torch.int64, device=device)
+    for l, o, p in zip(local_shape[:-1], base.offset[:-1], padded[:-1]):
+        r = r[..., None] * p + (torch.arange(l, device=device) + o)
+    return r.reshape(-1) * padded[-1] + base.offset[-1]
+
+
+def flat_base(base: Optional[IndexBase], local_shape: Sequence[int],
+              ld: int) -> IndexBase:
+    """The 2-D base (rows, ld) at (row offset, column offset) of a part
+    flattened to [rows, C] (every dim but the last into rows), as the
+    GEMM and conversion kernels take it: the one-process operand
+    flattened alike and padded to the row length `ld`. The part's rows
+    must be one contiguous run of the one-process rows; a part that is
+    not (a slice of an inner dim of several outer rows) is refused, never
+    given another stream."""
+    local_shape = tuple(int(d) for d in local_shape)
+    rows = math.prod(local_shape[:-1])
+    if base is None:
+        return IndexBase((rows, int(ld)), (0, 0))
+    G, o, l = base.shape, base.offset, local_shape
+    if len(G) != len(l):
+        raise ValueError(f"a base of rank {len(G)} for a part of shape {l}")
+    lead = len(l) - 1
+    k = next((d for d in range(lead) if l[d] > 1), lead)
+    for d in range(k + 1, lead):
+        if l[d] != G[d] or o[d]:
+            raise ValueError(
+                f"part {l} at {o} of {G}: its rows are not one contiguous "
+                f"run of the one-process rows (dim {d})")
+    if o[-1] + l[-1] > ld:
+        raise ValueError(f"part {l} at {o}: its columns pass the row "
+                         f"length {ld}")
+    row = 0
+    for d in range(lead):
+        row = row * G[d] + o[d]
+    return IndexBase((math.prod(G[:-1]), int(ld)), (row, o[-1]))
 
 
 def pow2(e: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,10 @@
 // block of (block_r x block_c) elements on the reference's _fit_block grid.
 // Rounding is round-half-even (rintf) or floor(v + u) with u from the
 // paper's xorshift stream, indexed by row * Cp + col with Cp the PADDED
-// column count, hashed in uint32 exactly as kernels/common.py does.
+// column count, hashed in uint32 exactly as kernels/common.py does; when x
+// is a part of the operand one process converts (a rank's shard of a
+// weight), by (row_off + row) * ld + col_off + col, that operand's index
+// (IndexBase in hbfp_common.cuh; (0, 0, Cp) for the whole x).
 // Elements past R or C are the reference's zero padding: they count 0 in
 // the amax and are never written, so the input is never copied. x / delta
 // is computed as x * inv_step (hbfp_common.cuh): the same correctly
@@ -182,6 +185,7 @@ __device__ __forceinline__ int convert_one(float x, float inv, float lim,
 
 struct Geom {
   int R, C, tr, tc, nTr, nTc, Cp;
+  IndexBase ib;  // the stochastic index base of x's part
 };
 
 // ---------------------------------------------------------------------------
@@ -258,9 +262,8 @@ __global__ void __launch_bounds__(kBandThreads, 2)
     for (int i = 0; i < kBandItems; ++i) {
       const int row = row0 + q * b.Hs, col = col0 + p * b.Wt * V;
       if (in[i]) {
-        const uint32_t idx = static_cast<uint32_t>(row) *
-                                 static_cast<uint32_t>(g.Cp) +
-                             static_cast<uint32_t>(col);
+        const uint32_t idx = base_index(g.ib, static_cast<uint32_t>(row),
+                                        static_cast<uint32_t>(col));
         int qv[V];
 #pragma unroll
         for (int e = 0; e < V; ++e)
@@ -323,8 +326,8 @@ __device__ __forceinline__ long long split_load(const XT* __restrict__ x,
   if (r >= static_cast<uint32_t>(g.tr) || row >= g.R || col >= g.C)
     return -1;
   const long long off = static_cast<long long>(row) * g.C + col;
-  idx = static_cast<uint32_t>(row) * static_cast<uint32_t>(g.Cp) +
-        static_cast<uint32_t>(col);
+  idx = base_index(g.ib, static_cast<uint32_t>(row),
+                   static_cast<uint32_t>(col));
   if constexpr (V == 1) {
     v[0] = to_f(x[off]);
   } else {
@@ -517,13 +520,16 @@ void launch_by_mantissa(int mant_16, int route, int V, const Band& b, int n,
 // the banded geometry (T, RB, Wt, P, Hs, Q, threads; see Band) and the
 // split route's CTAs per tile n_split. scratch holds scratch_words uint32:
 // split needs n_tiles * n_split words (twice that with stats), banded
-// none. A plan the kernels cannot run is refused. Returns a cudaError_t
+// none. A plan the kernels cannot run is refused. (row_off, col_off, ld):
+// x's part in the padded one-process operand for the stochastic index
+// ((0, 0, Cp) for the whole x; ld >= col_off + C). Returns a cudaError_t
 // code.
 extern "C" int bfp_quantize(const void* x, int x_bf16, void* mant,
                             int mant_16, int8_t* expo, int* clip, int* emin,
                             int* emax, unsigned int* scratch, int R, int C,
                             int tr, int tc, int block_r, int block_c,
                             int mbits, int stochastic, int seed,
+                            int row_off, int col_off, int ld,
                             int with_stats, int route, int V, int T, int RB,
                             int Wt, int P, int Hs, int Q, int threads,
                             int n_split, int scratch_words,
@@ -536,7 +542,8 @@ extern "C" int bfp_quantize(const void* x, int x_bf16, void* mant,
     return static_cast<int>(cudaErrorInvalidValue);
   const int nTr = (R + tr - 1) / tr, nTc = (C + tc - 1) / tc;
   const int Rp = nTr * tr, Cp = nTc * tc;
-  if (Rp % block_r || Cp % block_c)
+  IndexBase ib;
+  if (Rp % block_r || Cp % block_c || !make_base(row_off, col_off, ld, C, &ib))
     return static_cast<int>(cudaErrorInvalidValue);
   const int VX = kVecBytes / (x_bf16 ? 2 : 4);
   const bool vec = vec_ok(C, tc, x_bf16, x);
@@ -555,7 +562,7 @@ extern "C" int bfp_quantize(const void* x, int x_bf16, void* mant,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geom g{R, C, tr, tc, nTr, nTc, Cp};
+  const Geom g{R, C, tr, tc, nTr, nTc, Cp, ib};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const uint32_t useed = static_cast<uint32_t>(seed);
   int* clip_out = with_stats ? clip : nullptr;

@@ -10,6 +10,9 @@
 // [-100, 126]; step delta = 2^(e - m + 2); round half to even (rintf) or
 // floor(v + u) with u from the paper's xorshift stream, hashed in uint32
 // on the int32 global element index plus the operand's stream offset.
+// The global index is the element's in the operand one process quantizes
+// (IndexBase): a rank that holds a part of it draws one process's
+// numbers there.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +70,20 @@ __device__ __forceinline__ float uniform_from_index(uint32_t seed,
   return static_cast<float>((s >> 7) & 0x00FFFFFFu) * (1.0f / 16777216.0f);
 }
 
+// Where an operand's part lies in the one-process operand, both padded
+// to their tiles: local element (r, c) draws at index
+// (row_off + r) * ld + col_off + c (+ the operand's stream offset), in
+// uint32, so it wraps exactly as the one-process int32 index does.
+// {0, 0, C} is the whole [R, C] operand. Kernels/common.py: flat_base.
+struct IndexBase {
+  uint32_t row_off, col_off, ld;
+};
+
+__device__ __forceinline__ uint32_t base_index(const IndexBase& b,
+                                               uint32_t r, uint32_t c) {
+  return (b.row_off + r) * b.ld + b.col_off + c;
+}
+
 __device__ __forceinline__ float quantize_val(float x, float delta, float lim,
                                               int stochastic, uint32_t seed,
                                               uint32_t idx) {
@@ -95,7 +112,8 @@ __device__ __forceinline__ void store_q(__nv_bfloat16* q, size_t i, float v) {
 // amax, exponent, mantissas. q gets integral mantissas (f32, or int8/bf16
 // for QT of the tensor-core routes), or mantissa * delta when dequant is
 // set; s[row, group] gets delta. `stream` is the operand's offset in the
-// stochastic stream (kStreamX, kStreamG). A non-null amax_in [M, C/gx]
+// stochastic stream (kStreamX, kStreamG), `ib` its part's index base. A
+// non-null amax_in [M, C/gx]
 // (one value per row when the row is one group) is taken as each group's
 // amax instead of the group's own: the global row max of a row whose
 // columns are split over tensor-parallel ranks, so that every rank's part
@@ -106,7 +124,7 @@ __global__ void quantize_rows_kernel(const XT* __restrict__ x,
                                      float* __restrict__ s, int M, int C,
                                      int gx, int mbits, int stochastic,
                                      uint32_t seed, uint32_t stream,
-                                     int dequant,
+                                     IndexBase ib, int dequant,
                                      const float* __restrict__ amax_in) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -128,8 +146,9 @@ __global__ void quantize_rows_kernel(const XT* __restrict__ x,
   const float delta = pow2i(max_exponent(amax) - mbits + 2);
   const float lim = static_cast<float>((1 << (mbits - 1)) - 1);
   for (int c = lane; c < gx; c += 32) {
-    const uint32_t idx = static_cast<uint32_t>(row) * static_cast<uint32_t>(C) +
-                         static_cast<uint32_t>(g * gx + c) + stream;
+    const uint32_t idx = base_index(ib, static_cast<uint32_t>(row),
+                                    static_cast<uint32_t>(g * gx + c)) +
+                         stream;
     const float v = quantize_val(to_f(x[base + c]), delta, lim, stochastic,
                                  seed, idx);
     store_q(q, base + c, dequant ? __fmul_rn(v, delta) : v);
@@ -141,14 +160,14 @@ __global__ void quantize_rows_kernel(const XT* __restrict__ x,
 // reduction, then the group's mantissas (or dequantized values) into wq
 // and delta into sw [K/gk, N/gn]. TRANS writes wq transposed, [N, K]
 // (the forward's int8 operand, K-major for wgmma), threads running along
-// K. The stream index is w's own element index, so the forward and dgrad
-// replay the same draws.
+// K. The stream index is w's own element index (at its part's base `ib`),
+// so the forward and dgrad replay the same draws.
 template <typename WT, typename QT = float, bool TRANS = false>
 __global__ void quantize_w_kernel(const WT* __restrict__ w,
                                   QT* __restrict__ wq,
                                   float* __restrict__ sw, int K, int N,
                                   int gk, int gn, int mbits, int stochastic,
-                                  uint32_t seed, int dequant) {
+                                  uint32_t seed, IndexBase ib, int dequant) {
   __shared__ float red[32];
   const int n0 = blockIdx.x * gn;
   const int k0 = blockIdx.y * gk;
@@ -175,9 +194,9 @@ __global__ void quantize_w_kernel(const WT* __restrict__ w,
   for (int t = threadIdx.x; t < count; t += blockDim.x) {
     const int r = TRANS ? t % gk : t / gn, c = TRANS ? t / gk : t % gn;
     const size_t off = static_cast<size_t>(k0 + r) * N + n0 + c;
-    const uint32_t idx =
-        static_cast<uint32_t>(k0 + r) * static_cast<uint32_t>(N) +
-        static_cast<uint32_t>(n0 + c) + kStreamW;
+    const uint32_t idx = base_index(ib, static_cast<uint32_t>(k0 + r),
+                                    static_cast<uint32_t>(n0 + c)) +
+                         kStreamW;
     const float q = quantize_val(to_f(w[off]), delta, lim, stochastic, seed, idx);
     store_q(wq, TRANS ? static_cast<size_t>(n0 + c) * K + k0 + r : off,
             dequant ? __fmul_rn(q, delta) : q);
@@ -188,23 +207,38 @@ __global__ void quantize_w_kernel(const WT* __restrict__ w,
 template <typename XT, typename QT = float>
 void launch_quantize_rows(const void* x, QT* q, float* s, int M, int C,
                           int gx, int mbits, int stochastic, uint32_t seed,
-                          uint32_t stream, int dequant, cudaStream_t st,
-                          const float* amax_in = nullptr) {
+                          uint32_t stream, IndexBase ib, int dequant,
+                          cudaStream_t st, const float* amax_in = nullptr) {
   const long long warps = static_cast<long long>(M) * (C / gx);
   const int blocks = static_cast<int>((warps * 32 + kThreads - 1) / kThreads);
   quantize_rows_kernel<XT, QT><<<blocks, kThreads, 0, st>>>(
       static_cast<const XT*>(x), q, s, M, C, gx, mbits, stochastic, seed,
-      stream, dequant, amax_in);
+      stream, ib, dequant, amax_in);
 }
 
 template <typename WT, typename QT = float, bool TRANS = false>
 void launch_quantize_w(const void* w, QT* wq, float* sw, int K, int N,
                        int gk, int gn, int mbits, int stochastic,
-                       uint32_t seed, int dequant, cudaStream_t st) {
+                       uint32_t seed, IndexBase ib, int dequant,
+                       cudaStream_t st) {
   dim3 grid(N / gn, K / gk);
   quantize_w_kernel<WT, QT, TRANS><<<grid, kThreads, 0, st>>>(
       static_cast<const WT*>(w), wq, sw, K, N, gk, gn, mbits, stochastic,
-      seed, dequant);
+      seed, ib, dequant);
+}
+
+// The index base an entry point takes for a [rows, cols] operand: its
+// part at (row_off, col_off) of a one-process operand `ld` long a row.
+// false when the part's columns pass the row.
+inline bool make_base(int row_off, int col_off, int ld, int cols,
+                      IndexBase* out) {
+  if (row_off < 0 || col_off < 0 || ld <= 0 ||
+      static_cast<long long>(col_off) + cols > ld)
+    return false;
+  *out = IndexBase{static_cast<uint32_t>(row_off),
+                   static_cast<uint32_t>(col_off),
+                   static_cast<uint32_t>(ld)};
+  return true;
 }
 
 constexpr int kTN = 64;  // CTA tile columns

@@ -182,16 +182,22 @@ wgrad_gemm_kernel(const float* __restrict__ xq, const float* __restrict__ gq,
 // the reference's clipped, block-aligned tiles; K and N must be multiples
 // of them. A scratch set that does not match the route is refused.
 // g_amax: null, or [M, N/gg] f32 group amaxes taken instead of g's own.
-// Returns a cudaError_t code.
+// (g_row, g_col, g_ld), (w_row, w_col, w_ld): the operands' parts in the
+// one-process operands (IndexBase in hbfp_common.cuh; (0, 0, N) and
+// (0, 0, N) whole). Returns a cudaError_t code.
 extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
                           int w_bf16, float* dx, float* gq, float* sg,
                           float* wq, float* sw, void* gq8, void* wq8,
                           float* part, int M, int K, int N, int bk, int bn,
                           int mbits, int stochastic, int quantize_w,
-                          int block, int seed, const float* g_amax,
-                          void* stream_ptr) {
+                          int block, int seed, int g_row, int g_col,
+                          int g_ld, int w_row, int w_col, int w_ld,
+                          const float* g_amax, void* stream_ptr) {
+  IndexBase gib, wib;
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
-      N % bn || mbits < 2 || mbits > 12 || block < 0)
+      N % bn || mbits < 2 || mbits > 12 || block < 0 ||
+      !make_base(g_row, g_col, g_ld, N, &gib) ||
+      !make_base(w_row, w_col, w_ld, N, &wib))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool g_sub = block > 0 && block < bn;
   const bool w_sub = block > 0 && (block < bk || block < bn);
@@ -214,20 +220,20 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
       return static_cast<int>(cudaErrorInvalidValue);
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
-                                          stochastic, useed, kStreamG,
+                                          stochastic, useed, kStreamG, gib,
                                           dequant, stream,
           g_amax);
     else
       launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
-                                  useed, kStreamG, dequant, stream,
+                                  useed, kStreamG, gib, dequant, stream,
           g_amax);
     if (quantize_w) {
       if (w_bf16)
         launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
-                                         stochastic, useed, dequant, stream);
+                                         stochastic, useed, wib, dequant, stream);
       else
         launch_quantize_w<float>(w, wq, sw, K, N, gk, gn, mbits, stochastic,
-                                 useed, dequant, stream);
+                                 useed, wib, dequant, stream);
     }
     launch_gemm_case<true>(quantize_w, mode, mbits, w_bf16, gq, sg, w, wq,
                            sw, dx, M, N, K, bn, bk, stream);
@@ -240,31 +246,31 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
     int8_t* q = static_cast<int8_t*>(gq8);
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
-                                          stochastic, useed, kStreamG, 0,
+                                          stochastic, useed, kStreamG, gib, 0,
                                           stream,
           g_amax);
     else
       launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
-                                  useed, kStreamG, 0, stream,
+                                  useed, kStreamG, gib, 0, stream,
           g_amax);
     int8_t* qw = static_cast<int8_t*>(wq8);
     if (w_bf16)
       launch_quantize_w<__nv_bfloat16, int8_t>(w, qw, sw, K, N, bk, bn,
-                                               mbits, stochastic, useed, 0,
+                                               mbits, stochastic, useed, wib, 0,
                                                stream);
     else
       launch_quantize_w<float, int8_t>(w, qw, sw, K, N, bk, bn, mbits,
-                                       stochastic, useed, 0, stream);
+                                       stochastic, useed, wib, 0, stream);
   } else {
     __nv_bfloat16* q = static_cast<__nv_bfloat16*>(gq8);
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, q, sg, M, N, bn, mbits,
-                                          stochastic, useed, kStreamG, 0,
+                                          stochastic, useed, kStreamG, gib, 0,
                                           stream,
           g_amax);
     else
       launch_quantize_rows<float>(g, q, sg, M, N, bn, mbits, stochastic,
-                                  useed, kStreamG, 0, stream,
+                                  useed, kStreamG, gib, 0, stream,
           g_amax);
   }
   const cudaError_t e = sm90::tc_gemm<true>(
@@ -282,16 +288,23 @@ extern "C" int hbfp_dgrad(const void* g, int g_bf16, const void* w,
 // sg [M, N/gg] f32. K and N must be multiples of (bk, bn), M of bm. A
 // scratch set that does not match the route is refused. x_amax, g_amax:
 // null, or the operand's [M, K/gx] / [M, N/gg] f32 group amaxes taken
-// instead of its own. Returns a cudaError_t code.
+// instead of its own. (x_row, x_col, x_ld), (g_row, g_col, g_ld): the
+// operands' parts in the one-process operands (IndexBase; (0, 0, K) and
+// (0, 0, N) whole). Returns a cudaError_t code.
 extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
                           int g_bf16, float* dw, float* xq, float* sx,
                           float* gq, float* sg, void* xh, void* gh,
                           float* part, int M, int K, int N, int bm, int bk,
                           int bn, int mbits, int stochastic, int block,
-                          int seed, const float* x_amax,
-                          const float* g_amax, void* stream_ptr) {
+                          int seed, int x_row, int x_col, int x_ld,
+                          int g_row, int g_col, int g_ld,
+                          const float* x_amax, const float* g_amax,
+                          void* stream_ptr) {
+  IndexBase xib, gib;
   if (M <= 0 || K <= 0 || N <= 0 || bm <= 0 || bk <= 0 || bn <= 0 ||
-      M % bm || K % bk || N % bn || mbits < 2 || mbits > 12 || block < 0)
+      M % bm || K % bk || N % bn || mbits < 2 || mbits > 12 || block < 0 ||
+      !make_base(x_row, x_col, x_ld, K, &xib) ||
+      !make_base(g_row, g_col, g_ld, N, &gib))
     return static_cast<int>(cudaErrorInvalidValue);
   const int gx = (block > 0 && block < bk) ? block : bk;
   const int gg = (block > 0 && block < bn) ? block : bn;
@@ -306,21 +319,21 @@ extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
     __nv_bfloat16* gb = static_cast<__nv_bfloat16*>(gh);
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, xb, sx, M, K, gx, mbits,
-                                          stochastic, useed, kStreamX, 1,
+                                          stochastic, useed, kStreamX, xib, 1,
                                           stream,
           x_amax);
     else
       launch_quantize_rows<float>(x, xb, sx, M, K, gx, mbits, stochastic,
-                                  useed, kStreamX, 1, stream,
+                                  useed, kStreamX, xib, 1, stream,
           x_amax);
     if (g_bf16)
       launch_quantize_rows<__nv_bfloat16>(g, gb, sg, M, N, gg, mbits,
-                                          stochastic, useed, kStreamG, 1,
+                                          stochastic, useed, kStreamG, gib, 1,
                                           stream,
           g_amax);
     else
       launch_quantize_rows<float>(g, gb, sg, M, N, gg, mbits, stochastic,
-                                  useed, kStreamG, 1, stream,
+                                  useed, kStreamG, gib, 1, stream,
           g_amax);
     const cudaError_t e = tc_wgrad(xh, gh, dw, part, M, K, N, bm,
                                          stream);
@@ -331,21 +344,21 @@ extern "C" int hbfp_wgrad(const void* x, int x_bf16, const void* g,
     return static_cast<int>(cudaErrorInvalidValue);
   if (x_bf16)
     launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
-                                        stochastic, useed, kStreamX, 1,
+                                        stochastic, useed, kStreamX, xib, 1,
                                         stream,
           x_amax);
   else
     launch_quantize_rows<float>(x, xq, sx, M, K, gx, mbits, stochastic,
-                                useed, kStreamX, 1, stream,
+                                useed, kStreamX, xib, 1, stream,
           x_amax);
   if (g_bf16)
     launch_quantize_rows<__nv_bfloat16>(g, gq, sg, M, N, gg, mbits,
-                                        stochastic, useed, kStreamG, 1,
+                                        stochastic, useed, kStreamG, gib, 1,
                                         stream,
           g_amax);
   else
     launch_quantize_rows<float>(g, gq, sg, M, N, gg, mbits, stochastic,
-                                useed, kStreamG, 1, stream,
+                                useed, kStreamG, gib, 1, stream,
           g_amax);
   dim3 grid((N + kTN - 1) / kTN, (K + kTN - 1) / kTN);
   wgrad_gemm_kernel<<<grid, kThreads, 0, stream>>>(xq, gq, dw, M, K, N);

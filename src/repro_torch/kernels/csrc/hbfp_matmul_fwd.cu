@@ -27,7 +27,9 @@
 // (dequantized operands with varying exponents) is held to a tolerance.
 // Rounding is round-half-even (rintf); the stochastic stream hashes the
 // int32 global element index in uint32 arithmetic exactly as
-// kernels/common.py does.
+// kernels/common.py does: the index in the one-process operand, so that a
+// rank holding a part of x or w (a data shard's rows, a tensor-parallel
+// column or row block) draws one process's numbers (IndexBase).
 //
 // Routes (tc_route in hbfp_gemm_sm90.cuh; the wrapper's gemm_route
 // mirrors it). int8_wgmma: quantize_w set, no sub-tile groups, m <= 8 (the
@@ -75,18 +77,25 @@ using namespace hbfp;
 // reference's clipped, block-aligned tiles; M, K, N must be multiples of
 // them. A scratch set that does not match the route is refused. x_amax:
 // null, or [M, K/gx] f32 group amaxes that the row pass takes instead of
-// x's own (the global row max of a tensor-parallel shard). Returns a
-// cudaError_t code.
+// x's own (the global row max of a tensor-parallel shard). (x_row,
+// x_col, x_ld) and (w_row, w_col, w_ld): each operand's part in the
+// one-process operand, padded (IndexBase in hbfp_common.cuh; (0, 0, K)
+// and (0, 0, N) for the whole operands); only stochastic rounding reads
+// them. Returns a cudaError_t code.
 extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
                                int w_bf16, float* y, float* xq, float* sx,
                                float* wq, float* sw, void* xq8, void* wq8,
                                float* part, int M, int K, int N, int bk,
                                int bn, int mbits, int stochastic,
                                int quantize_w, int block, int seed,
-                               const float* x_amax,
+                               int x_row, int x_col, int x_ld, int w_row,
+                               int w_col, int w_ld, const float* x_amax,
                                void* stream_ptr) {
+  IndexBase xib, wib;
   if (M <= 0 || K <= 0 || N <= 0 || bk <= 0 || bn <= 0 || K % bk ||
-      N % bn || mbits < 2 || mbits > 12 || block < 0)
+      N % bn || mbits < 2 || mbits > 12 || block < 0 ||
+      !make_base(x_row, x_col, x_ld, K, &xib) ||
+      !make_base(w_row, w_col, w_ld, N, &wib))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool x_sub = block > 0 && block < bk;
   const bool w_sub = block > 0 && (block < bk || block < bn);
@@ -108,20 +117,20 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
       return static_cast<int>(cudaErrorInvalidValue);
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, xq, sx, M, K, gx, mbits,
-                                          stochastic, useed, kStreamX,
+                                          stochastic, useed, kStreamX, xib,
                                           dequant, stream,
           x_amax);
     else
       launch_quantize_rows<float>(x, xq, sx, M, K, gx, mbits, stochastic,
-                                  useed, kStreamX, dequant, stream,
+                                  useed, kStreamX, xib, dequant, stream,
           x_amax);
     if (quantize_w) {
       if (w_bf16)
         launch_quantize_w<__nv_bfloat16>(w, wq, sw, K, N, gk, gn, mbits,
-                                         stochastic, useed, dequant, stream);
+                                         stochastic, useed, wib, dequant, stream);
       else
         launch_quantize_w<float>(w, wq, sw, K, N, gk, gn, mbits, stochastic,
-                                 useed, dequant, stream);
+                                 useed, wib, dequant, stream);
     }
     launch_gemm_case<false>(quantize_w, mode, mbits, w_bf16, xq, sx, w, wq,
                             sw, y, M, K, N, bk, bn, stream);
@@ -134,30 +143,30 @@ extern "C" int hbfp_matmul_fwd(const void* x, int x_bf16, const void* w,
     int8_t* q = static_cast<int8_t*>(xq8);
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, q, sx, M, K, bk, mbits,
-                                          stochastic, useed, kStreamX, 0,
+                                          stochastic, useed, kStreamX, xib, 0,
                                           stream,
           x_amax);
     else
       launch_quantize_rows<float>(x, q, sx, M, K, bk, mbits, stochastic,
-                                  useed, kStreamX, 0, stream,
+                                  useed, kStreamX, xib, 0, stream,
           x_amax);
     int8_t* qw = static_cast<int8_t*>(wq8);
     if (w_bf16)
       launch_quantize_w<__nv_bfloat16, int8_t, true>(
-          w, qw, sw, K, N, bk, bn, mbits, stochastic, useed, 0, stream);
+          w, qw, sw, K, N, bk, bn, mbits, stochastic, useed, wib, 0, stream);
     else
       launch_quantize_w<float, int8_t, true>(w, qw, sw, K, N, bk, bn, mbits,
-                                             stochastic, useed, 0, stream);
+                                             stochastic, useed, wib, 0, stream);
   } else {
     __nv_bfloat16* q = static_cast<__nv_bfloat16*>(xq8);
     if (x_bf16)
       launch_quantize_rows<__nv_bfloat16>(x, q, sx, M, K, bk, mbits,
-                                          stochastic, useed, kStreamX, 0,
+                                          stochastic, useed, kStreamX, xib, 0,
                                           stream,
           x_amax);
     else
       launch_quantize_rows<float>(x, q, sx, M, K, bk, mbits, stochastic,
-                                  useed, kStreamX, 0, stream,
+                                  useed, kStreamX, xib, 0, stream,
           x_amax);
   }
   const cudaError_t e = sm90::tc_gemm<false>(

@@ -40,6 +40,17 @@ of each row quantizes it on the global row max, all-reduced (MAX) over
 the model group, and gets the one-process mantissas and exponents. An
 amax equal to the group's own max gives the same bits as None.
 
+Index bases (stochastic rounding under a mesh): B1 takes `x_base`,
+`w_base`, B2 `g_base`, `w_base`, B3 `x_base`, `g_base`, each None (the
+operand is the whole one-process operand) or a 2-D
+`kernels.common.IndexBase` (`flat_base`) on the padded one-process
+operand: the part's (row, column) offset and that operand's padded row
+length. Every route's quantize passes (`quantize_rows_kernel`,
+`quantize_w_kernel` in `csrc/hbfp_common.cuh`) draw element (r, c) at
+(row_off + r)·ld + col_off + c, so a data shard, a tensor-parallel column
+or row block, draws one process's numbers. The base goes to the kernel
+as given, never dropped, and the plain version takes the same one.
+
 Counters: each wrapper's `.launches` counts kernel launches,
 `.launches_by_route` the same launches by route, and
 `.plain_calls` counts CPU calls of its plain version (`reset_counts()`
@@ -74,17 +85,17 @@ SOURCES = {"hbfp_matmul_fwd": os.path.join(_CSRC, "hbfp_matmul_fwd.cu"),
            "hbfp_flash_attn": os.path.join(_CSRC, "hbfp_flash_attn.cu"),
            "bfp_quantize": os.path.join(_CSRC, "bfp_quantize.cu")}
 _ENTRIES = {
-    "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipip" + "p" * 7 + "i" * 10
+    "hbfp_matmul_fwd": {"hbfp_matmul_fwd": "pipip" + "p" * 7 + "i" * 16
                         + "pp"},
-    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 10 + "pp",
-                        "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 10 + "ppp"},
+    "hbfp_matmul_bwd": {"hbfp_dgrad": "pipip" + "p" * 7 + "i" * 16 + "pp",
+                        "hbfp_wgrad": "pipip" + "p" * 7 + "i" * 16 + "ppp"},
     "hbfp_flash_attn": {"hbfp_flash_fwd": "pppipp" + "p" * 6 + "i" * 8
                         + "fp",
                         "hbfp_flash_dq": "ppppppip" + "p" * 9 + "i" * 8
                         + "fp",
                         "hbfp_flash_dkv": "ppppppipp" + "p" * 10 + "i" * 8
                         + "fp"},
-    "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 21 + "p"},
+    "bfp_quantize": {"bfp_quantize": "pipi" + "p" * 5 + "i" * 24 + "p"},
 }
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_DIR = os.path.join(_ROOT, "build", "repro_torch")
@@ -337,6 +348,21 @@ def _amax_arg(amax: Optional[torch.Tensor], M: int, C: int, group: int,
     return amax.data_ptr()
 
 
+def base_args(base, cols: int) -> tuple:
+    """(row_off, col_off, ld) of a 2-D `IndexBase` for an operand whose
+    padded rows are `cols` long (None: the whole operand, (0, 0, cols)),
+    as the entry points take it; checked so that every value fits the C
+    side's int."""
+    if base is None:
+        return 0, 0, int(cols)
+    if len(base.shape) != 2:
+        raise ValueError(f"the kernels take a 2-D index base, got {base}")
+    (row, col), ld = base.offset, base.shape[1]
+    if min(row, col) < 0 or col + cols > ld or max(row, ld) >= 1 << 31:
+        raise ValueError(f"index base {base} for rows of {cols}")
+    return int(row), int(col), int(ld)
+
+
 def _launch(lib_name: str, entry: str, dev: torch.device, *args) -> None:
     fn = getattr(load(lib_name), entry)
     with torch.cuda.device(dev):
@@ -357,10 +383,11 @@ def _is_bf16(t: torch.Tensor) -> int:
 def _gemm_launch(op: str, lib_entry: str, a: torch.Tensor, w: torch.Tensor,
                  out: torch.Tensor, seed, M: int, K: int, N: int, *,
                  mantissa_bits: int, stochastic: bool, quantize_w: bool,
-                 block: int, bk: int, bn: int, amax=None) -> str:
+                 block: int, bk: int, bn: int, amax=None, a_base=None,
+                 w_base=None) -> str:
     """Allocate the route's scratch and launch B1 or B2 (`amax` the row
-    amax pointer of its activation operand, or None); returns the
-    route."""
+    amax pointer of its activation operand, or None; `a_base`, `w_base`
+    the operands' index bases); returns the route."""
     route = gemm_route(op, mantissa_bits=mantissa_bits,
                        quantize_w=quantize_w, block=block, bk=bk, bn=bn, N=N,
                        w_dtype=w.dtype)
@@ -374,7 +401,8 @@ def _gemm_launch(op: str, lib_entry: str, a: torch.Tensor, w: torch.Tensor,
             w.data_ptr(), _is_bf16(w), out.data_ptr(),
             *(_ptr(t) for t in scratch.values()), M, K, N, bk, bn,
             mantissa_bits, int(stochastic), int(quantize_w), int(block),
-            _seed_int(seed), amax)
+            _seed_int(seed), *base_args(a_base, a.shape[1]),
+            *base_args(w_base, N), amax)
     return route
 
 
@@ -382,12 +410,13 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
                     mantissa_bits: int = 8, stochastic: bool = False,
                     quantize_w: bool = True, block: int = 0,
                     bm: int = 128, bk: int = 128,
-                    bn: int = 128, x_amax: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    bn: int = 128, x_amax: Optional[torch.Tensor] = None,
+                    x_base=None, w_base=None) -> torch.Tensor:
     """B1, fused quantize + matmul. x: [M,K] f32/bf16, w: [K,N] f32/bf16,
     both contiguous on one device and divisible by the clipped tiles (the
-    caller pads, `kernels/linear.py`); `x_amax` x's row amax (module
-    doc). Returns y [M,N] f32."""
+    caller pads, `kernels/linear.py`); `x_amax` x's row amax, `x_base`,
+    `w_base` the operands' index bases (module doc). Returns y [M,N]
+    f32."""
     _check(x, w, "hbfp_matmul_fwd")
     if x.shape[1] != w.shape[0]:
         raise ValueError(f"bad shapes {tuple(x.shape)} x {tuple(w.shape)}")
@@ -396,9 +425,11 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
     bm, bk, bn = _tiles("hbfp_matmul_fwd", M, K, N, bm, bk, bn, block)
     kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
               quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
+    base_args(x_base, K), base_args(w_base, N)             # checked here
     if x.device.type == "cpu":
         hbfp_matmul_fwd.plain_calls += 1
-        return hbfp_matmul_plain(x, w, seed, x_amax=x_amax, **kw)
+        return hbfp_matmul_plain(x, w, seed, x_amax=x_amax, x_base=x_base,
+                                 w_base=w_base, **kw)
     _launchable(x, mantissa_bits, "hbfp_matmul_fwd")
     amax = _amax_arg(x_amax, M, K, _row_group(block, bk), x.device,
                      "hbfp_matmul_fwd")
@@ -406,7 +437,7 @@ def hbfp_matmul_fwd(x: torch.Tensor, w: torch.Tensor, seed=None, *,
     route = _gemm_launch("fwd", "hbfp_matmul_fwd", x, w, y, seed, M, K, N,
                          mantissa_bits=mantissa_bits, stochastic=stochastic,
                          quantize_w=quantize_w, block=block, bk=bk, bn=bn,
-                         amax=amax)
+                         amax=amax, a_base=x_base, w_base=w_base)
     hbfp_matmul_fwd.launches += 1
     hbfp_matmul_fwd.launches_by_route[route] += 1
     return y
@@ -416,11 +447,12 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
                mantissa_bits: int = 8, stochastic: bool = False,
                quantize_w: bool = True, block: int = 0,
                bm: int = 128, bk: int = 128, bn: int = 128,
-               g_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+               g_amax: Optional[torch.Tensor] = None, g_base=None,
+               w_base=None) -> torch.Tensor:
     """B2, dx[M,K] = Q(g)[M,N] · Q(w)[K,N]ᵀ. g: [M,N] f32/bf16, w: [K,N]
     f32/bf16 as stored, contiguous, divisible by the clipped tiles (bm over
-    M, bk over K, bn over the contracted N); `g_amax` g's row amax.
-    Returns dx [M,K] f32."""
+    M, bk over K, bn over the contracted N); `g_amax` g's row amax,
+    `g_base`, `w_base` the operands' index bases. Returns dx [M,K] f32."""
     _check(g, w, "hbfp_dgrad")
     if g.shape[1] != w.shape[1]:
         raise ValueError(f"dgrad: bad shapes {tuple(g.shape)}, "
@@ -430,9 +462,11 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
     bm, bk, bn = _tiles("hbfp_dgrad", M, K, N, bm, bk, bn, block)
     kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
               quantize_w=quantize_w, block=block, bm=bm, bk=bk, bn=bn)
+    base_args(g_base, N), base_args(w_base, N)             # checked here
     if g.device.type == "cpu":
         hbfp_dgrad.plain_calls += 1
-        return hbfp_dgrad_plain(g, w, seed, g_amax=g_amax, **kw)
+        return hbfp_dgrad_plain(g, w, seed, g_amax=g_amax, g_base=g_base,
+                                w_base=w_base, **kw)
     _launchable(g, mantissa_bits, "hbfp_dgrad")
     amax = _amax_arg(g_amax, M, N, _row_group(block, bn), g.device,
                      "hbfp_dgrad")
@@ -440,7 +474,7 @@ def hbfp_dgrad(g: torch.Tensor, w: torch.Tensor, seed=None, *,
     route = _gemm_launch("dgrad", "hbfp_dgrad", g, w, dx, seed, M, K, N,
                          mantissa_bits=mantissa_bits, stochastic=stochastic,
                          quantize_w=quantize_w, block=block, bk=bk, bn=bn,
-                         amax=amax)
+                         amax=amax, a_base=g_base, w_base=w_base)
     hbfp_dgrad.launches += 1
     hbfp_dgrad.launches_by_route[route] += 1
     return dx
@@ -451,12 +485,14 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
                block: int = 0, bm: int = 128, bk: int = 128,
                bn: int = 128, operands: bool = False,
                x_amax: Optional[torch.Tensor] = None,
-               g_amax: Optional[torch.Tensor] = None):
+               g_amax: Optional[torch.Tensor] = None, x_base=None,
+               g_base=None):
     """B3, dw[K,N] = (Q(x)·δx)[M,K]ᵀ · (Q(g)·δg)[M,N]. x: [M,K], g: [M,N],
     f32/bf16, contiguous, divisible by the clipped tiles (bm over the
     contracted M, bk over K, bn over N); `x_amax`, `g_amax` the operands'
-    row amaxes. Returns dw [K,N] f32, or (dw, x̂, ĝ) with the dequantized
-    operands (f32) when `operands` is set."""
+    row amaxes, `x_base`, `g_base` their index bases. Returns dw [K,N]
+    f32, or (dw, x̂, ĝ) with the dequantized operands (f32) when
+    `operands` is set."""
     _check(x, g, "hbfp_wgrad")
     if x.shape[0] != g.shape[0]:
         raise ValueError(f"wgrad: bad shapes {tuple(x.shape)}, "
@@ -466,10 +502,11 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
     bm, bk, bn = _tiles("hbfp_wgrad", M, K, N, bm, bk, bn, block)
     kw = dict(mantissa_bits=mantissa_bits, stochastic=stochastic,
               block=block, bm=bm, bk=bk, bn=bn, operands=operands)
+    bases = (*base_args(x_base, K), *base_args(g_base, N))
     if x.device.type == "cpu":
         hbfp_wgrad.plain_calls += 1
         return hbfp_wgrad_plain(x, g, seed, x_amax=x_amax, g_amax=g_amax,
-                                **kw)
+                                x_base=x_base, g_base=g_base, **kw)
     _launchable(x, mantissa_bits, "hbfp_wgrad")
     amaxes = (_amax_arg(x_amax, M, K, _row_group(block, bk), x.device,
                         "hbfp_wgrad"),
@@ -485,7 +522,7 @@ def hbfp_wgrad(x: torch.Tensor, g: torch.Tensor, seed=None, *,
             x.data_ptr(), _is_bf16(x), g.data_ptr(), _is_bf16(g),
             dw.data_ptr(), *(_ptr(t) for t in scratch.values()), M, K, N,
             bm, bk, bn, mantissa_bits, int(stochastic), int(block),
-            _seed_int(seed), *amaxes)
+            _seed_int(seed), *bases, *amaxes)
     hbfp_wgrad.launches += 1
     hbfp_wgrad.launches_by_route[route] += 1
     if not operands:

@@ -21,6 +21,13 @@ quantizes x (B1, B3) on the global row amax where a K-block spans the
 ranks (the whole row is one K-block) and returns B1's f32 partial sums;
 a column-parallel call does the same for g (B2, B3) and sums B2's f32
 input gradient over the ranks (`reduce_dx`) before its one cast.
+
+Stochastic rounding under a mesh (`x_base`, `w_base`: each operand's
+part of the one a single process multiplies, `kernels.common.IndexBase`):
+each GEMM gets the 2-D bases of its operands (`flat_base`) on the
+one-process operands padded to that GEMM's tiles at the global shape, so
+every quantize pass of B1-B3 draws one process's numbers. A part whose
+rows are not one contiguous run of the one-process rows is refused.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.hbfp_ops import _fp_matmul
 from repro_torch.kernels import autotune
-from repro_torch.kernels.common import role_stream_salt
+from repro_torch.kernels.common import (IndexBase, flat_base, is_whole,
+                                        role_stream_salt)
 from repro_torch.kernels.hbfp_matmul import (hbfp_dgrad, hbfp_matmul_fwd,
                                              hbfp_wgrad)
 from repro_torch.sharding.tensor_parallel import (local_row_amax,
@@ -73,8 +81,39 @@ def _pad_rows(a: Optional[torch.Tensor], mr: int):
     return (F.pad(a, (0, pr)) if pr else a).contiguous()
 
 
+class _Parts(NamedTuple):
+    """The parts of one product under a mesh: x's N-d base and w's 2-D
+    base (unpadded; None for a whole operand), the local shapes of x and
+    w, and the global (K, N) that the one-process operands pad to each
+    GEMM's tiles."""
+    x: Optional[IndexBase]
+    w: Optional[IndexBase]
+    x_shape: tuple
+    w_shape: tuple
+    K: int
+    N: int
+
+
+def _gemm_bases(parts: Optional[_Parts], spec: KernelSpec, op: str,
+                M: int) -> dict:
+    """The 2-D index bases of one GEMM's operands ({} without parts): the
+    one-process operands padded to the GEMM's tiles at the global (K, N)
+    (x's rows run along K, g's and w's along N; g's rows are x's)."""
+    if parts is None:
+        return {}
+    _, bk, bn = _tiles(getattr(spec, op), M, parts.K, parts.N, spec.block)
+    ldk, ldn = -(-parts.K // bk) * bk, -(-parts.N // bn) * bn
+    xb = flat_base(parts.x, parts.x_shape, ldk)
+    wb = flat_base(parts.w, parts.w_shape, ldn)
+    gb = IndexBase((xb.shape[0], ldn), (xb.offset[0], wb.offset[1]))
+    return {"fwd": dict(x_base=xb, w_base=wb),
+            "dgrad": dict(g_base=gb, w_base=wb),
+            "wgrad": dict(x_base=xb, g_base=gb)}[op]
+
+
 def _fwd_impl(spec: KernelSpec, x2: torch.Tensor, w: torch.Tensor,
-              seed, x_amax=None, out_f32: bool = False) -> torch.Tensor:
+              seed, x_amax=None, out_f32: bool = False,
+              parts: Optional[_Parts] = None) -> torch.Tensor:
     M, K = x2.shape
     N = w.shape[1]
     bm, bk, bn = _tiles(spec.fwd, M, K, N, spec.block)
@@ -82,7 +121,7 @@ def _fwd_impl(spec: KernelSpec, x2: torch.Tensor, w: torch.Tensor,
         _pad2(x2, bm, bk).contiguous(), _pad2(w, bk, bn).contiguous(), seed,
         mantissa_bits=spec.mantissa_bits, stochastic=spec.stochastic,
         quantize_w=spec.quantize_w, block=spec.block, bm=bm, bk=bk, bn=bn,
-        x_amax=_pad_rows(x_amax, bm))
+        x_amax=_pad_rows(x_amax, bm), **_gemm_bases(parts, spec, "fwd", M))
     y = y[:M, :N]
     return y if out_f32 else y.to(x2.dtype)
 
@@ -126,16 +165,18 @@ class _MatmulFn(torch.autograd.Function):
     operands, as the reference's `_vjp_bwd`."""
 
     @staticmethod
-    def forward(ctx, x2, w, spec: KernelSpec, seed: int, tp=None):
+    def forward(ctx, x2, w, spec: KernelSpec, seed: int, tp=None,
+                parts=None):
         amax = None
         if tp is not None and (tp.x_fwd or tp.x_wgrad):
             amax = tp.call.reduce_max(local_row_amax(x2))
         y = _fwd_impl(spec, x2, w, seed, amax if tp and tp.x_fwd else None,
-                      out_f32=tp is not None and tp.call.kind == "row")
+                      out_f32=tp is not None and tp.call.kind == "row",
+                      parts=parts)
         # saved after the launch: a recomputing checkpoint that stops at
         # its last saved tensor still runs the kernel
         ctx.save_for_backward(x2, w)
-        ctx.spec, ctx.seed, ctx.tp = spec, seed, tp
+        ctx.spec, ctx.seed, ctx.tp, ctx.parts = spec, seed, tp, parts
         ctx.x_amax = amax if tp is not None and tp.x_wgrad else None
         return y
 
@@ -162,7 +203,8 @@ class _MatmulFn(torch.autograd.Function):
                 mantissa_bits=m_d, stochastic=spec.stochastic,
                 quantize_w=spec.quantize_w, block=spec.block, bm=bm, bk=bk,
                 bn=bn, g_amax=_pad_rows(g_amax if tp and tp.g_dgrad
-                                        else None, bm))[:M, :K]
+                                        else None, bm),
+                **_gemm_bases(ctx.parts, spec, "dgrad", M))[:M, :K]
             if tp is not None and tp.call.reduce_dx is not None:
                 dx = tp.call.reduce_dx(dx)
             dx = dx.to(x2.dtype)
@@ -175,9 +217,10 @@ class _MatmulFn(torch.autograd.Function):
                 mantissa_bits=m_w, stochastic=spec.stochastic,
                 block=spec.block, bm=bm, bk=bk, bn=bn,
                 x_amax=_pad_rows(ctx.x_amax, bm),
-                g_amax=_pad_rows(g_amax if tp and tp.g_wgrad else None, bm)
+                g_amax=_pad_rows(g_amax if tp and tp.g_wgrad else None, bm),
+                **_gemm_bases(ctx.parts, spec, "wgrad", M)
             )[:K, :N].to(w.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
 def resolve_spec(cfg, M: int, K: int, N: int, dtype: str = "float32",
@@ -206,13 +249,14 @@ def resolve_spec(cfg, M: int, K: int, N: int, dtype: str = "float32",
 def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
                        seed: Optional[int] = None, *,
                        dgrad_cfg=None, wgrad_cfg=None,
-                       tp=None) -> torch.Tensor:
+                       tp=None, x_base=None, w_base=None) -> torch.Tensor:
     """BFP matmul y = Q(x)·Q(w) with kernel backward passes. x: [..., K];
     w: [K, N]. cfg None or >= 24 mantissa bits is a plain matmul, as in
     the reference. Stochastic rounding needs an int `seed`.
     `dgrad_cfg`/`wgrad_cfg` run the backward GEMMs at their own widths;
-    `tp` (a TPCall) runs one rank's part of a tensor-parallel product
-    (module doc)."""
+    `tp` (a TPCall) runs one rank's part of a tensor-parallel product;
+    `x_base` (over x's dims) and `w_base` (2-D) the operands' parts of one
+    process's (module doc)."""
     if cfg is None or cfg.mantissa_bits >= 24:
         return _fp_matmul(x, w, tp)
     if w.ndim != 2:
@@ -231,5 +275,12 @@ def hbfp_matmul_kernel(x: torch.Tensor, w: torch.Tensor, cfg,
                         dtype=autotune.dtype_name(x.dtype),
                         dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg)
     needs = None if tp is None else _tp_needs(tp, spec, Kg, Ng)
-    y = _MatmulFn.apply(x2, w, spec, int(seed), needs)
+    parts = None
+    if spec.stochastic and not (is_whole(x_base, x.shape)
+                                and is_whole(w_base, w.shape)):
+        parts = _Parts(x_base, w_base, tuple(x.shape), tuple(w.shape), Kg,
+                       Ng)
+        for op in ("fwd", "dgrad", "wgrad"):     # refuse a part now
+            _gemm_bases(parts, spec, op, x2.shape[0])
+    y = _MatmulFn.apply(x2, w, spec, int(seed), needs, parts)
     return y.reshape(*x.shape[:-1], N)

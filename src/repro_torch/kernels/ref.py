@@ -45,10 +45,15 @@ def _seed_value(seed) -> int:
 
 
 def _index(r0: int, nr: int, c0: int, nc: int, C: int, stream: int,
-           device) -> torch.Tensor:
-    """int32 global element indices r * C + c + stream of a slab."""
+           device, base=None) -> torch.Tensor:
+    """int32 global element indices r * C + c + stream of a slab of a
+    [R, C] operand; with `base` (a 2-D `IndexBase` on the padded
+    one-process operand, `kernels.common.flat_base`) the operand is a part
+    of that one and r, c, C are its row, column and row length."""
     r = torch.arange(r0, r0 + nr, dtype=torch.int64, device=device)
     c = torch.arange(c0, c0 + nc, dtype=torch.int64, device=device)
+    if base is not None:
+        r, c, C = r + base.offset[0], c + base.offset[1], base.shape[1]
     return _wrap_i32(r[:, None] * C + c[None, :] + stream)
 
 
@@ -63,12 +68,13 @@ def _given_amax(amax: torch.Tensor, R: int, c0: int, width: int,
 
 def _quantize_rows(a: torch.Tensor, c0: int, width: int, C: int,
                    mantissa_bits: int, block: int, stochastic: bool,
-                   seed: int, stream: int, amax=None):
+                   seed: int, stream: int, amax=None, base=None):
     """Columns [c0, c0 + width) of the f32 [R, C] operand `a`, quantized
     per (row, block group): (q, delta) on the operand's stochastic
-    stream, each group on its own amax or, given `amax`, on that one."""
+    stream (at `base`, see `_index`), each group on its own amax or,
+    given `amax`, on that one."""
     s = a[:, c0:c0 + width]
-    idx = _index(0, a.shape[0], c0, width, C, stream, a.device) \
+    idx = _index(0, a.shape[0], c0, width, C, stream, a.device, base) \
         if stochastic else None
     g = row_group_amax(s, block) if amax is None else \
         _given_amax(amax, a.shape[0], c0, width, block)
@@ -77,12 +83,13 @@ def _quantize_rows(a: torch.Tensor, c0: int, width: int, C: int,
 
 
 def _quantize_w(ws: torch.Tensor, r0: int, c0: int, N: int, rb: int,
-                cb: int, mantissa_bits: int, stochastic: bool, seed: int):
+                cb: int, mantissa_bits: int, stochastic: bool, seed: int,
+                base=None):
     """A slab of w [K, N] starting at (r0, c0), quantized per (rb, cb)
     group on STREAM_W with w's own element indices (so the forward and
-    dgrad draw the same numbers): (q, delta)."""
-    idx = _index(r0, ws.shape[0], c0, ws.shape[1], N, STREAM_W, ws.device) \
-        if stochastic else None
+    dgrad draw the same numbers), at `base` (see `_index`): (q, delta)."""
+    idx = _index(r0, ws.shape[0], c0, ws.shape[1], N, STREAM_W, ws.device,
+                 base) if stochastic else None
     return quantize_block(ws, mantissa_bits, _slab_group_amax(ws, rb, cb),
                           stochastic=stochastic, seed=seed, idx=idx)
 
@@ -110,12 +117,13 @@ def bfp_tiles(R: int, C: int, tile_r, tile_c, block_r: int, block_c: int):
 
 def bfp_quantize_ref(x, seed=0, *, mantissa_bits=8, tile_r=128, tile_c=128,
                      stochastic=False, block_r=256, block_c=512,
-                     with_stats=False):
+                     with_stats=False, base=None):
     """B7's plain version: x [R, C] zero-padded to whole (tile_r, tile_c)
     tiles, one exponent per tile, mantissas sliced back to [R, C] (int8
     for m <= 8, else int16). Returns (mantissa, exponent int8) or, with
     stats, also (clip count per tile, exponent min and max per fitted
-    block), all int32."""
+    block), all int32. `base` (a 2-D `IndexBase` on the padded
+    one-process operand) draws x as that part of it."""
     R, C = x.shape
     tr, tc, Rp, Cp, br, bc = bfp_tiles(R, C, tile_r, tile_c, block_r,
                                        block_c)
@@ -124,7 +132,7 @@ def bfp_quantize_ref(x, seed=0, *, mantissa_bits=8, tile_r=128, tile_c=128,
         xf = torch.nn.functional.pad(xf, (0, Cp - C, 0, Rp - R))
     g = xf.reshape(Rp // tr, tr, Cp // tc, tc)
     amax = g.abs().amax(dim=(1, 3), keepdim=True)
-    idx = _index(0, Rp, 0, Cp, Cp, 0, x.device).reshape(g.shape) \
+    idx = _index(0, Rp, 0, Cp, Cp, 0, x.device, base).reshape(g.shape) \
         if stochastic else None
     q, delta, clipped = quantize_block(
         g, mantissa_bits, amax, stochastic=stochastic,
@@ -144,14 +152,17 @@ def bfp_quantize_ref(x, seed=0, *, mantissa_bits=8, tile_r=128, tile_c=128,
 
 def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
                     quantize_w=True, block=0, bm=128, bk=128, bn=128,
-                    out_dtype=torch.float32, x_amax=None):
+                    out_dtype=torch.float32, x_amax=None, x_base=None,
+                    w_base=None):
     """y = Σ_k Q_row(x)·Q_tile(w)·δx·δw with per-(row, K-block) activation
     exponents and per-(bk, bn) weight-tile exponents, f32 accumulation in
     ascending K-block order. quantize_w=False contracts the given
     (pre-narrowed) w in f32; block>0 refines x to per-(row, block) and w to
     (block, block) groups and dequantizes before an f32 dot (DESIGN.md
-    §13). `x_amax` ([M] or [M, K/group]) replaces x's group amaxes.
-    Shapes must be divisible by the clipped tiles."""
+    §13). `x_amax` ([M] or [M, K/group]) replaces x's group amaxes;
+    `x_base`, `w_base` (2-D `IndexBase`s, `_index`) draw each operand as
+    that part of the one-process operand. Shapes must be divisible by the
+    clipped tiles."""
     M, K = x.shape
     K2, N = w.shape
     if K != K2:
@@ -169,7 +180,7 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
     rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
     for k0 in range(0, K, bk_):
         qx, dx = _quantize_rows(xf, k0, bk_, K, mantissa_bits, block,
-                                stochastic, seed_v, STREAM_X, x_amax)
+                                stochastic, seed_v, STREAM_X, x_amax, x_base)
         ws = wf[k0:k0 + bk_]                                   # [bk, N]
         if not quantize_w:
             if x_sub:
@@ -178,7 +189,7 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
                 acc = acc + (qx @ ws) * dx
             continue
         qw, dw = _quantize_w(ws, k0, 0, N, rb, cb, mantissa_bits, stochastic,
-                             seed_v)
+                             seed_v, w_base)
         if x_sub or w_sub:
             acc = acc + (qx * dx) @ (qw * dw)
             continue
@@ -189,13 +200,14 @@ def hbfp_matmul_ref(x, w, seed=None, *, mantissa_bits=8, stochastic=False,
 
 def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
                    quantize_w=True, block=0, bm=128, bk=128, bn=128,
-                   out_dtype=torch.float32, g_amax=None):
+                   out_dtype=torch.float32, g_amax=None, g_base=None,
+                   w_base=None):
     """dx[M,K] = Q(g)·Q(w)ᵀ: gradient rows quantized per (row, N-block)
     on STREAM_G, weight tiles per (bk, bn) block of w on STREAM_W (the
     forward's element index), f32 accumulation over N-blocks in ascending
     order. quantize_w=False contracts the given (pre-narrowed) w; block>0
     refines the exponent groups like hbfp_matmul_ref; `g_amax` replaces
-    g's group amaxes."""
+    g's group amaxes; `g_base`, `w_base` as hbfp_matmul_ref's."""
     M, N = g.shape
     K, N2 = w.shape
     if N != N2:
@@ -213,7 +225,7 @@ def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
     rb, cb = (min(block, bk_), min(block, bn_)) if w_sub else (bk_, bn_)
     for n0 in range(0, N, bn_):
         qg, dg = _quantize_rows(gf, n0, bn_, N, mantissa_bits, block,
-                                stochastic, seed_v, STREAM_G, g_amax)
+                                stochastic, seed_v, STREAM_G, g_amax, g_base)
         ws = wf[:, n0:n0 + bn_]                                 # [K, bn]
         if not quantize_w:
             if g_sub:
@@ -222,7 +234,7 @@ def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
                 acc = acc + (qg @ ws.T) * dg
             continue
         qw, dw = _quantize_w(ws, 0, n0, N, rb, cb, mantissa_bits, stochastic,
-                             seed_v)
+                             seed_v, w_base)
         if g_sub or w_sub:
             acc = acc + (qg * dg) @ (qw * dw).T
             continue
@@ -233,13 +245,14 @@ def hbfp_dgrad_ref(g, w, seed=None, *, mantissa_bits=8, stochastic=False,
 
 def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
                    block=0, bm=128, bk=128, bn=128, out_dtype=torch.float32,
-                   operands=False, x_amax=None, g_amax=None):
+                   operands=False, x_amax=None, g_amax=None, x_base=None,
+                   g_base=None):
     """dw[K,N] = (Q(x)·δx)ᵀ·(Q(g)·δg): x rows per (row, K-block) on the
     forward's STREAM_X, g rows per (row, N-block) on STREAM_G, dequantized
     f32 products accumulated over M-blocks in ascending order, as the
     reference does. `operands` also returns the dequantized x̂ [M,K] and
     ĝ [M,N] (what the kernel's scratch holds); `x_amax`, `g_amax` replace
-    the operands' group amaxes."""
+    the operands' group amaxes; `x_base`, `g_base` as hbfp_matmul_ref's."""
     M, K = x.shape
     M2, N = g.shape
     if M != M2:
@@ -250,16 +263,16 @@ def hbfp_wgrad_ref(x, g, seed=None, *, mantissa_bits=8, stochastic=False,
                          f"({bm_},{bk_},{bn_})")
     seed_v = _seed_value(seed)
 
-    def dequant(a, C, width, stream, amax):
+    def dequant(a, C, width, stream, amax, base):
         out = torch.empty_like(a)
         for c0 in range(0, C, width):
             q, d = _quantize_rows(a, c0, width, C, mantissa_bits, block,
-                                  stochastic, seed_v, stream, amax)
+                                  stochastic, seed_v, stream, amax, base)
             out[:, c0:c0 + width] = q * d
         return out
 
-    xh = dequant(x.to(torch.float32), K, bk_, STREAM_X, x_amax)
-    gh = dequant(g.to(torch.float32), N, bn_, STREAM_G, g_amax)
+    xh = dequant(x.to(torch.float32), K, bk_, STREAM_X, x_amax, x_base)
+    gh = dequant(g.to(torch.float32), N, bn_, STREAM_G, g_amax, g_base)
     acc = torch.zeros((K, N), dtype=torch.float32, device=x.device)
     for m0 in range(0, M, bm_):
         acc = acc + xh[m0:m0 + bm_].T @ gh[m0:m0 + bm_]

@@ -85,12 +85,17 @@ def dequantize_kv(q: torch.Tensor, e: torch.Tensor, dtype):
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window):
+def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window, heads=None):
     """One query block against all kv. qb: [B,Hkv,G,C,hd]; k, v:
-    [B,Hkv,S,hd]; qpos: [C] or [B,C]; kpos: [B,S]."""
+    [B,Hkv,S,hd]; qpos: [C] or [B,C]; kpos: [B,S]. `heads` (offset,
+    global count) places the kv heads in one process's under tensor
+    parallelism, for the products' index bases."""
     acfg = _acfg(ctx)
+    hp = () if heads is None else ((1, *heads),)
     kt = k.transpose(-1, -2)[:, :, None]               # [B,Hkv,1,hd,S]
-    scores = ctx_matmul(qb, kt, ctx, "qk", cfg=acfg, w_kind="act")
+    scores = ctx_matmul(qb, kt, ctx, "qk", cfg=acfg, w_kind="act",
+                        x_base=ctx.batch_base(qb.shape, hp),
+                        w_base=ctx.batch_base(kt.shape, hp))
     scores = softcap(scores.to(torch.float32), cap)
     if qpos.ndim == 1:
         qp = qpos[None, :, None]
@@ -103,15 +108,18 @@ def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window):
     scores = torch.where(mask[:, None, None], scores,
                          scores.new_full((), NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(qb.dtype)
-    return ctx_matmul(probs, v[:, :, None], ctx, "pv", cfg=acfg,
-                      w_kind="act")
+    vb = v[:, :, None]
+    return ctx_matmul(probs, vb, ctx, "pv", cfg=acfg, w_kind="act",
+                      x_base=ctx.batch_base(probs.shape, hp),
+                      w_base=ctx.batch_base(vb.shape, hp))
 
 
 def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
-        q_chunk: Optional[int] = None):
+        q_chunk: Optional[int] = None, heads=None):
     """q: [B,H,Sq,hd]; k, v: [B,Hkv,Skv,hd]. Causal + optional window.
     With q_chunk (dividing Sq) the query blocks run one after another,
-    bounding the score tensor to one chunk."""
+    bounding the score tensor to one chunk. `heads`: see
+    `_attend_block`."""
     B, H, Sq, hd = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
@@ -121,14 +129,14 @@ def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
     scale = q.new_full((), 1.0 / (hd ** 0.5))
     qs = (q * scale).reshape(B, Hkv, G, Sq, hd)
     if q_chunk is None or Sq <= q_chunk or Sq % q_chunk != 0:
-        out = _attend_block(qs, k, v, qpos, kpos, ctx, cap, window)
+        out = _attend_block(qs, k, v, qpos, kpos, ctx, cap, window, heads)
         return out.reshape(B, H, Sq, hd)
     outs = []
     for s0 in range(0, Sq, q_chunk):
         qp = qpos[s0:s0 + q_chunk] if qpos.ndim == 1 \
             else qpos[:, s0:s0 + q_chunk]
         outs.append(_attend_block(qs[:, :, :, s0:s0 + q_chunk], k, v, qp,
-                                  kpos, ctx, cap, window))
+                                  kpos, ctx, cap, window, heads))
     return torch.cat(outs, dim=3).reshape(B, H, Sq, hd)
 
 
@@ -253,7 +261,9 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
     and Hkv/m kv heads, each query head's kv head on the same rank, and
     wo is row-parallel."""
     B, S, D = x.shape
+    heads = None
     if ctx.tp is not None and getattr(p["attn_wq"], "tp_dim", None) == -1:
+        heads = (ctx.tp.rank * (n_kv_heads // ctx.tp.size), n_kv_heads)
         n_heads //= ctx.tp.size
         n_kv_heads //= ctx.tp.size
     q = ctx_matmul(x, p["attn_wq"], ctx, "wq", out="shard")
@@ -277,7 +287,7 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
             out = flash_mha(q, k, v, ctx)
         else:
             out = mha(q, k, v, tok_pos, tok_pos, ctx, cap=attn_cap,
-                      window=window, q_chunk=q_chunk)
+                      window=window, q_chunk=q_chunk, heads=heads)
         new_cache = None
         if return_cache:
             if bfp_cache:
@@ -294,7 +304,7 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
             new_cache, kd, vd, npos = _slab_append(cache, k, v, tok_pos,
                                                    bfp_cache, x.dtype)
         out = mha(q, kd, vd, tok_pos, npos, ctx, cap=attn_cap, window=window,
-                  q_chunk=None)
+                  q_chunk=None, heads=heads)
 
     out = out.transpose(1, 2).reshape(B, S, n_heads * head_dim)
     out = ctx_matmul(out, p["attn_wo"], ctx, "wo")

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.hbfp_ops import hbfp_matmul
-from repro_torch.kernels.common import fold_in, seed_from_key
+from repro_torch.kernels.common import fold_in, part_base, seed_from_key
 from repro_torch.precision.policy import as_segment, role_width_for
 
 
@@ -77,7 +77,8 @@ _ATTN_ROLE = {"qk": "attn_qk", "pv": "attn_pv"}
 
 
 def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
-               out: str = "gather", tp_dim=_UNSET):
+               out: str = "gather", tp_dim=_UNSET, x_base=_UNSET,
+               w_base=None):
     """Route one model dot product through the Ctx's resolved policy, with
     the reference's dispatch: attention roles take their role width on the
     sim path; backend "pallas" sends 2-D weight-kind products to the
@@ -89,15 +90,29 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
     Under tensor parallelism (`ctx.tp`) a 2-D weight sharded over "model"
     (its `tp_dim` attribute, or `tp_dim` given for a slice of a sharded
     leaf) runs as its rank's part (`TPGroup.matmul`): a column-parallel
-    output stays sharded with out="shard", else it is gathered."""
+    output stays sharded with out="shard", else it is gathered.
+
+    Under a mesh each operand is a part of the one a single process
+    multiplies here (its stochastic draws follow that one's element
+    indices): `x_base` defaults to x's rows of the data-parallel batch
+    (`ctx.dp`, dim 0) and `w_base` to a whole weight (an activation-kind
+    w: its batch rows); a site whose operands are parts along other dims
+    (attention's local heads, the experts, a CE chunk) passes its
+    `kernels.common.IndexBase`s, and `TPGroup.matmul` adds the model
+    axis's column or row block."""
     cfg = ctx.cfg if cfg is _UNSET else cfg
     key = ctx.key_for(site)
+    if x_base is _UNSET:
+        x_base = ctx.batch_base(x.shape)
+        if w_kind != "weight" and w_base is None:
+            w_base = ctx.batch_base(w.shape)
     role = _ATTN_ROLE.get(site)
     if role is not None:
         rw = role_width_for(ctx.roles, role)
         if rw is not None:
             cfg = rw.apply(cfg)
-        return hbfp_matmul(x, w, cfg, key, w_kind=w_kind)
+        return hbfp_matmul(x, w, cfg, key, w_kind=w_kind, x_base=x_base,
+                           w_base=w_base)
     dgrad_cfg = wgrad_cfg = None
     if cfg is not None and ctx.roles:
         dg = role_width_for(ctx.roles, "dgrad")
@@ -109,21 +124,23 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
     kernel = (ctx.backend == "pallas" and cfg is not None and w.ndim == 2
               and w_kind == "weight")
 
-    def run(x, w, tp=None):
+    def run(x, w, tp=None, x_base=None, w_base=None):
         if kernel:
             from repro_torch.kernels.linear import hbfp_matmul_kernel
             seed = None if key is None else seed_from_key(key)
             return hbfp_matmul_kernel(x, w, cfg, seed, dgrad_cfg=dgrad_cfg,
-                                      wgrad_cfg=wgrad_cfg, tp=tp)
+                                      wgrad_cfg=wgrad_cfg, tp=tp,
+                                      x_base=x_base, w_base=w_base)
         return hbfp_matmul(x, w, cfg, key, w_kind=w_kind,
-                           dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg, tp=tp)
+                           dgrad_cfg=dgrad_cfg, wgrad_cfg=wgrad_cfg, tp=tp,
+                           x_base=x_base, w_base=w_base)
 
     d = None
     if ctx.tp is not None and w.ndim == 2 and w_kind == "weight":
         d = getattr(w, "tp_dim", None) if tp_dim is _UNSET else tp_dim
     if d is None:
-        return run(x, w)
-    return ctx.tp.matmul(x, w, d, run, out=out)
+        return run(x, w, None, x_base, w_base)
+    return ctx.tp.matmul(x, w, d, run, out=out, x_base=x_base)
 
 
 def swiglu_ffn(x, p, ctx):
@@ -164,15 +181,20 @@ class Ctx:
                rank and the sequence-parallel flag), the port's
                counterpart of the reference's `act_constraint` and
                `shard_fn` slots: products on sharded weights run as this
-               rank's part (`ctx_matmul`).
+               rank's part (`ctx_matmul`);
+    dp       — None, or this rank's rows of the data-parallel batch
+               (`sharding.tensor_parallel.DataPart`: the first row and
+               the global batch, dim 0 of the activations): each
+               operand's stochastic draws are one process's at its rows,
+               and the MoE groups lie on the data shards.
     """
 
     __slots__ = ("policy", "cfg", "key", "backend", "roles", "device",
-                 "act_tap", "tp")
+                 "act_tap", "tp", "dp")
 
     def __init__(self, cfg=None, key: Optional[int] = None, backend=None,
                  policy=None, device=None, act_tap: bool = False,
-                 tp=None):
+                 tp=None, dp=None):
         if policy is None:
             policy = as_segment(cfg, backend=backend or "sim")
         self.policy = policy
@@ -183,6 +205,15 @@ class Ctx:
         self.device = device
         self.act_tap = act_tap
         self.tp = tp
+        self.dp = dp
+
+    def batch_base(self, shape, parts=()):
+        """The index base of an activation of local `shape` whose dim 0
+        is the batch: its data-parallel rows and the further
+        (dim, offset, global size) `parts`; None for a whole operand."""
+        rows = None if self.dp is None else (0, self.dp.offset,
+                                             self.dp.size)
+        return part_base(shape, (rows, *parts))
 
     def key_for(self, site: str) -> Optional[int]:
         """The stochastic-rounding key of `site` (None unless the format
@@ -197,4 +228,5 @@ class Ctx:
         """The context of layer i: the key folded with i."""
         return Ctx(key=None if self.key is None else fold_in(self.key, i),
                    backend=self.backend, policy=self.policy,
-                   device=self.device, act_tap=self.act_tap, tp=self.tp)
+                   device=self.device, act_tap=self.act_tap, tp=self.tp,
+                   dp=self.dp)

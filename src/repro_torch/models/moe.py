@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import part_base
 from repro_torch.models.layers import ctx_matmul, swiglu_ffn
 
 
@@ -65,8 +66,10 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], order[..., :k]
 
 
-def route(x, router_w, n_experts: int, top_k: int):
-    """x: [G, T, D] grouped tokens -> (gates [G,T,k], idx [G,T,k], aux)."""
+def route(x, router_w, n_experts: int, top_k: int, mean=None):
+    """x: [G, T, D] grouped tokens -> (gates [G,T,k], idx [G,T,k], aux).
+    `mean` (a data-parallel rank's groups: `DataPart.mean`) turns the
+    local means of the load-balance loss into the global ones."""
     logits = torch.einsum("gtd,de->gte", x.to(torch.float32),
                           router_w.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
@@ -75,6 +78,8 @@ def route(x, router_w, n_experts: int, top_k: int):
     # Switch-style load-balance loss over the first choice: E · Σ_e f_e · p_e
     me = probs.mean(dim=(0, 1))                                 # [E]
     ce = _one_hot(idx[..., 0], n_experts, torch.float32).mean(dim=(0, 1))
+    if mean is not None:
+        me, ce = mean(me), mean(ce)
     aux = n_experts * torch.sum(me * ce)
     return gates, idx, aux
 
@@ -134,14 +139,34 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
     in f32, which the ranks add (at most top_k nonzero terms an output,
     the sum one process's f32 accumulation gives) before one cast. Under
     sequence parallelism x is the gathered sequence, and each part of the
-    output comes back on the local tokens."""
+    output comes back on the local tokens.
+
+    Under data parallelism (`ctx.dp`) the groups are the global batch's,
+    on the data axis as the reference's `shard_fn` puts them: a rank
+    routes its whole groups alone (so its capacity is one process's), the
+    load-balance loss takes the global means, and the experts' operands
+    are their one-process part along the groups (the index bases of the
+    stochastic draws, with the experts' block under expert parallelism).
+    A rank whose tokens do not fall on whole groups is refused."""
     B, S, D = x.shape
     T_all = B * S
-    G = n_groups_for(T_all, n_groups, group_tokens)
+    dp = ctx.dp
+    if dp is None:
+        G = n_groups_for(T_all, n_groups, group_tokens)
+        g0, G_all = 0, G
+    else:
+        G_all = n_groups_for(dp.size * S, n_groups, group_tokens)
+        per = dp.size * S // G_all
+        if T_all % per or (dp.offset * S) % per:
+            raise ValueError(
+                f"a data shard of {T_all} tokens at token {dp.offset * S} "
+                f"cuts the {G_all} MoE groups of {per} tokens")
+        G, g0 = T_all // per, dp.offset * S // per
     T = T_all // G
     xg = x.reshape(G, T, D)
 
-    gates, idx, aux = route(xg, p["router_w"], n_experts, top_k)
+    gates, idx, aux = route(xg, p["router_w"], n_experts, top_k,
+                            None if dp is None else dp.mean)
     capacity = capacity_for(T, top_k, capacity_factor, n_experts)
     dispatch, combine = make_dispatch(gates, idx, n_experts, capacity,
                                       x.dtype)
@@ -155,11 +180,19 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
         combine = tp.split(combine, 2)
     expert_in = expert_in.reshape(E, G * capacity, D)
 
+    # the operands' parts of one process's: the rank's experts, its groups
+    ex = (0, tp.rank * E, n_experts) if ep else None
+    rows = None if dp is None else (1, g0 * capacity, G_all * capacity)
+    xb = lambda t: part_base(t.shape, (ex, rows))
+    wb = lambda w: part_base(w.shape, (ex,))
     # per-expert SwiGLU in HBFP: [E, G·Cap, D] @ [E, D, F] (the sim path)
-    g = ctx_matmul(expert_in, p["moe_wg"], ctx, "moe_g")
-    u = ctx_matmul(expert_in, p["moe_wi"], ctx, "moe_i")
+    g = ctx_matmul(expert_in, p["moe_wg"], ctx, "moe_g",
+                   x_base=xb(expert_in), w_base=wb(p["moe_wg"]))
+    u = ctx_matmul(expert_in, p["moe_wi"], ctx, "moe_i",
+                   x_base=xb(expert_in), w_base=wb(p["moe_wi"]))
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    eo = ctx_matmul(h, p["moe_wo"], ctx, "moe_o")
+    eo = ctx_matmul(h, p["moe_wo"], ctx, "moe_o", x_base=xb(h),
+                    w_base=wb(p["moe_wo"]))
     eo = eo.reshape(E, G, capacity, D)
 
     if ep:

@@ -62,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bfp import act_tile_shape
 from repro_torch.device import check_on, dtype_of, resolve_device
+from repro_torch.kernels.common import IndexBase
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -486,22 +487,28 @@ def _run_stack(params, x, positions, arch: ArchConfig, ctx,
     return x, _stack_caches(built), aux
 
 
-def _head_logits(params, x, arch: ArchConfig, ctx):
+_BATCH_ROWS = object()
+
+
+def _head_logits(params, x, arch: ArchConfig, ctx, x_base=_BATCH_ROWS):
     """LM head on [..., D] hidden states -> f32 logits [..., V], or
     [..., K, V] with K codebooks: one [D,V] product a head, at sites
     "head0".."head{K-1}" (which fold the reference's key: its first four
     bytes, "head", the same for every head). A vocab-sharded head (under
-    tensor parallelism) gives this rank's columns of the logits."""
+    tensor parallelism) gives this rank's columns of the logits. `x_base`:
+    x's part of the one-process operand (default: its batch rows)."""
     hcfg = ctx.cfg if (ctx.cfg and ctx.cfg.quantize_lm_head) else None
     head = params["head_w"]
+    kw = {} if x_base is _BATCH_ROWS else {"x_base": x_base}
     if arch.n_codebooks > 1:
         d = getattr(head, "tp_dim", None)
         logits = torch.stack(
             [ctx_matmul(x, head[k], ctx, f"head{k}", cfg=hcfg, out="shard",
-                        tp_dim=d)
+                        tp_dim=d, **kw)
              for k in range(arch.n_codebooks)], dim=-2)
     else:
-        logits = ctx_matmul(x, head, ctx, "head", cfg=hcfg, out="shard")
+        logits = ctx_matmul(x, head, ctx, "head", cfg=hcfg, out="shard",
+                            **kw)
     logits = logits / arch.logit_divisor
     return softcap(logits.to(torch.float32), arch.final_softcap)
 
@@ -540,17 +547,41 @@ def forward(params, batch, arch: ArchConfig, ctx: Ctx, device=None):
     return (tp.gather(logits, -1) if sharded else logits), aux
 
 
-def _ce(params, xc, lc, arch: ArchConfig, ctx):
+def _ce(params, xc, lc, arch: ArchConfig, ctx, x_base=None):
     """Summed next-token CE of one token chunk: head, softcap, logsumexp.
     lc: [t], or [t, K] with K codebooks. A vocab-sharded head takes the
-    vocab-parallel CE (`TPGroup.vocab_ce`)."""
-    logits = _head_logits(params, xc, arch, ctx)        # [t, (K,) V] f32
+    vocab-parallel CE (`TPGroup.vocab_ce`). `x_base`: the chunk's part of
+    the one-process chunk (`_ce_pieces`)."""
+    logits = _head_logits(params, xc, arch, ctx, x_base)  # [t, (K,) V] f32
     if ctx.tp is not None and getattr(params["head_w"], "tp_dim",
                                       None) == -1:
         return ctx.tp.vocab_ce(logits, lc).sum()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lc[..., None]).squeeze(-1)
     return (lse - ll).sum()
+
+
+def _ce_pieces(B: int, S: int, D: int, lc: int, dp):
+    """(start, length, x_base) of the CE's head products over the B·S
+    local tokens (width D). One process takes `loss_chunk` chunks of its
+    tokens when they are more than one whole number of them (each chunk
+    its own operand, every chunk drawing from the same key), else all at
+    once. A data-parallel rank (`dp`) cuts its tokens at one process's
+    chunk bounds and draws each piece at its rows of its chunk."""
+    T = B * S
+    if dp is None:
+        if lc and T > lc and T % lc == 0:
+            return [(c0, lc, None) for c0 in range(0, T, lc)]
+        return [(0, T, None)]
+    Tg, t0 = dp.size * S, dp.offset * S
+    n = lc if lc and Tg > lc and Tg % lc == 0 else Tg
+    out, t = [], t0
+    while t < t0 + T:
+        c = t // n * n
+        end = min(c + n, t0 + T)
+        out.append((t - t0, end - t, IndexBase((n, D), (t - c, 0))))
+        t = end
+    return out
 
 
 def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
@@ -596,16 +627,16 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     T = B * S
     xt = x.reshape(T, D)
     lt = labels.reshape(T, *labels.shape[2:])
-    lc = arch.loss_chunk
-    if lc and T > lc and T % lc == 0:
+    pieces = _ce_pieces(B, S, D, arch.loss_chunk, ctx.dp)
+    if len(pieces) > 1:
         remat = arch.remat and torch.is_grad_enabled()
         tot = torch.zeros((), dtype=torch.float32, device=dev)
-        for c0 in range(0, T, lc):
-            args = (params, xt[c0:c0 + lc], lt[c0:c0 + lc], arch, ctx)
+        for c0, n, xb in pieces:
+            args = (params, xt[c0:c0 + n], lt[c0:c0 + n], arch, ctx, xb)
             tot = tot + (checkpoint(_ce, *args, use_reentrant=False)
                          if remat else _ce(*args))
     else:
-        tot = _ce(params, xt, lt, arch, ctx)
+        tot = _ce(params, xt, lt, arch, ctx, pieces[0][2])
     nll = tot / labels.numel()
     loss = nll + aux_weight * aux
     metrics = {"nll": nll, "aux": aux, "loss": loss}

@@ -89,7 +89,7 @@ def narrow_params_with_stats(params, cfg, key: Optional[int] = None
             return q
         acc = StatsAccumulator(leaf.device)
         q = torch.empty_like(leaf)
-        for idx, s, ks in leaf_slices(leaf, k):
+        for idx, s, ks, _ in leaf_slices(leaf, k):
             q[idx] = acc.add(s, c.mantissa_bits,
                              bfp.weight_tile_shape(s.ndim, c.tile), key=ks)
         stats[name] = acc.finish()

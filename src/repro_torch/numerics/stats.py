@@ -34,7 +34,8 @@ import torch
 
 from repro_torch.core import bfp
 from repro_torch.kernels.bfp_quantize import bfp_quantize
-from repro_torch.kernels.common import seed_from_key
+from repro_torch.kernels.common import (IndexBase, flat_base, is_whole,
+                                        seed_from_key)
 
 EXP_BINS = 32
 EXP_BIN_WIDTH = 4
@@ -68,6 +69,21 @@ def _expand(grid: torch.Tensor, tr: int, tc: int, R: int, C: int):
     return grid.repeat_interleave(tr, 0).repeat_interleave(tc, 1)[:R, :C]
 
 
+def _b7_base(base: IndexBase, shape, tile_shape) -> IndexBase:
+    """The 2-D base of B7's operand for a part (`bfp.b7_slices`, whole
+    rows) of the tensor `base.shape`: both laid out as B7 takes them,
+    each leading slice's rows padded to whole tiles where the one-process
+    operand's are."""
+    lead, R, C, tr, _, merged = bfp.b7_layout(tuple(base.shape), tile_shape)
+    l_lead, l_r, _, l_tr, _, l_merged = bfp.b7_layout(tuple(shape),
+                                                      tile_shape)
+    rows = R if merged else -(-R // tr) * tr
+    l_rows = l_r if l_merged else -(-l_r // l_tr) * l_tr
+    nd = IndexBase(tuple(lead) + (rows, C), tuple(base.offset))
+    ld = bfp.padded_shape(base.shape, tile_shape)[-1]
+    return flat_base(nd, tuple(l_lead) + (l_rows, shape[-1]), ld)
+
+
 class StatsAccumulator:
     """Raw sums of one tensor's stats over the B7 operands it is cut into
     (several slices of a stacked weight, or one view), so that a tensor
@@ -87,19 +103,28 @@ class StatsAccumulator:
     @torch.no_grad()
     def add(self, x: torch.Tensor, mantissa_bits: int,
             tile_shape: Sequence[Optional[int]], want_q: bool = True,
-            key: Optional[int] = None):
+            key: Optional[int] = None, base: Optional[IndexBase] = None):
         """Quantize x through B7 and add its stats; returns the dequantized
         x in its dtype (None unless want_q). An int `key` rounds
-        stochastically (`bfp.quantize`'s stream), None to nearest."""
+        stochastically (`bfp.quantize`'s stream), None to nearest. `base`
+        (a 2-D x only: a shard of a weight slice) draws x as that part of
+        the whole slice, as `bfp.quantize(..., base=base)` does."""
         stochastic = key is not None
         seed = seed_from_key(key) if stochastic else 0
+        b7_base = None
+        if stochastic and not is_whole(base, x.shape):
+            if x.ndim != 2:
+                raise ValueError(f"an index base for B7 needs a 2-D part, "
+                                 f"got {tuple(x.shape)}")
+            ld = bfp.padded_shape(base.shape, tile_shape)[-1]
+            b7_base = flat_base(base, x.shape, ld)
         parts, tr, tc = bfp.b7_slices(x, tile_shape, whole_rows=stochastic)
         qs = []
         self.n += x.numel()
         for p in parts:
             mant, expo, clip, emin, emax = bfp_quantize(
                 p, seed, mantissa_bits=mantissa_bits, tile_r=tr, tile_c=tc,
-                stochastic=stochastic, with_stats=True)
+                stochastic=stochastic, with_stats=True, base=b7_base)
             R, C = p.shape
             delta = bfp.pow2(expo.to(torch.int32) - mantissa_bits + 2)
             xf = p.to(torch.float32)

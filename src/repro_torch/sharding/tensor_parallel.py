@@ -57,6 +57,12 @@ stream's norm scales (`SP_PARTIAL`) take partial gradients, over their
 local tokens, and `train.zero` sums them over "model". Every replicated
 computation carries whole, identical gradients.
 
+Stochastic rounding: each product's operands are parts of the ones a
+single process multiplies, and `matmul` adds this rank's column block of
+w (and of g) or row block of x and w to the operands' index bases, so
+every draw is one process's (`kernels.common.IndexBase`). `DataPart` is
+a rank's rows of the data-parallel batch, the `Ctx.dp` slot.
+
 Every collective is one of `launch.transport.Transport`'s, recorded. No
 collective runs inside a captured CUDA graph (training never captures
 one around a layer; the sLSTM's graphed loops hold none).
@@ -68,6 +74,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels.common import IndexBase, index_base
 from repro_torch.sharding.partitioning import fwd_param_specs, mesh_axes
 
 # products that shard together, by layer-leaf name
@@ -283,6 +290,35 @@ def local_row_amax(a: torch.Tensor) -> torch.Tensor:
     return a.detach().abs().amax(dim=-1, keepdim=True).to(torch.float32)
 
 
+class _DPMean(torch.autograd.Function):
+    """The mean over the data ranks forward; the identity backward (each
+    rank's gradient of the global mean is then averaged over the ranks
+    with every other gradient, which completes the 1/n)."""
+
+    @staticmethod
+    def forward(ctx, x, transport):
+        t = transport.all_reduce_(x.detach().contiguous().clone())
+        return t / transport.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class DataPart(NamedTuple):
+    """A rank's rows of the data-parallel batch (the `Ctx.dp` slot): the
+    first row `offset` and the global batch `size` along dim 0 of the
+    activations, and the data axis's transport."""
+    offset: int
+    size: int
+    transport: object
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of `t` over the data ranks (differentiable: see
+        `_DPMean`)."""
+        return _DPMean.apply(t, self.transport)
+
+
 class TPGroup:
     """The model group of one rank (the `Ctx.tp` slot): its transport,
     size and rank, and the sequence-parallel flag."""
@@ -347,20 +383,35 @@ class TPGroup:
         return TPCall(kind, self.size, self.row_amax,
                       self.sum_ if kind == "col" else None)
 
-    def matmul(self, x, w, tp_dim: int, run, out: str = "gather"):
+    def matmul(self, x, w, tp_dim: int, run, out: str = "gather",
+               x_base: Optional[IndexBase] = None):
         """The product of x and the sharded weight w through `run(x, w,
-        call)` (the ctx's backend with a `TPCall`). tp_dim -1 is
-        column-parallel (out "shard" keeps the output sharded, "gather"
-        all-gathers it), -2 row-parallel (the output summed over the
-        ranks, or reduce-scattered over the sequence under SP)."""
+        call, x_base, w_base)` (the ctx's backend with a `TPCall` and the
+        operands' index bases: `x_base`, over x as given, with this
+        rank's block added). tp_dim -1 is column-parallel (out "shard"
+        keeps the output sharded, "gather" all-gathers it), -2
+        row-parallel (the output summed over the ranks, or
+        reduce-scattered over the sequence under SP)."""
+        if x_base is None:
+            x_base = index_base(x.shape)
         if tp_dim == -1:
-            y = run(x, w, self.call("col"))
+            n = w.shape[-1]
+            wb = IndexBase((w.shape[0], n * self.size), (0, self.rank * n))
+            y = run(x, w, self.call("col"), x_base, wb)
             return y if out == "shard" else self.gather(y, -1)
         if tp_dim != -2:
             raise ValueError(f"a 2-D product takes tp_dim -1 or -2, got "
                              f"{tp_dim}")
-        if x.shape[-1] == w.shape[-2] * self.size:
+        k = w.shape[-2]
+        if x.shape[-1] == k * self.size:
             x = self.split(x, -1)
-        y = run(x, w, self.call("row"))            # f32 partial sums
+        elif x_base.shape[-1] != k or x_base.offset[-1]:
+            raise ValueError(f"a row-parallel part of {k} features takes "
+                             f"x whole or its own part, got base {x_base}")
+        # x's part: this rank's block of the one-process contraction
+        xb = IndexBase(x_base.shape[:-1] + (k * self.size,),
+                       x_base.offset[:-1] + (self.rank * k,))
+        wb = IndexBase((k * self.size, w.shape[1]), (self.rank * k, 0))
+        y = run(x, w, self.call("row"), xb, wb)    # f32 partial sums
         y = self.reduce_scatter(y, 1) if self.sp else self.reduce(y)
         return y.to(x.dtype)

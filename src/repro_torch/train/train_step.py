@@ -19,9 +19,10 @@ and moments in place, one layer slice at a time, so the optimizer adds
 only one layer's f32 temporaries to the training state.
 
 Data, tensor, sequence and expert parallelism (`mesh=`, a ("data",
-"model") DeviceMesh; `seq_parallel=`): ZeRO-1 over "data" as the
-reference lays it out and the tile-aligned tensor-parallel layout over
-"model" (`train/zero.py`, `sharding/tensor_parallel.py`): each rank holds
+"model") or ("pod", "data", "model") DeviceMesh; `seq_parallel=`):
+ZeRO-1 over the data axes as the reference lays it out and the
+tile-aligned tensor-parallel layout over "model" (`train/zero.py`,
+`sharding/tensor_parallel.py`): each rank holds
 its shard of its model part of the master params and moments and takes
 its data slice of the global batch; the shards are narrowed and the
 narrow copy all-gathered over "data", the model runs on each rank's part
@@ -32,8 +33,11 @@ it whole. Telemetry reduces its raw sums over the ranks that hold other
 parts of a tensor (the weight tap on the shards' narrowing, the grad tap
 on the reduced gradients, the act taps over the data ranks' and, under
 sequence parallelism, the model ranks' tokens), and every rank feeds the
-controller rank 0's snapshot. Stochastic rounding and the "pod" axis
-raise under a mesh (ROADMAP slice 19).
+controller rank 0's snapshot. Under stochastic rounding every rank
+draws one process's numbers at its parts: the narrowing and the wide
+rounding on each shard's part of the whole leaf, every product's
+operands at their rows of the global batch (`Ctx.dp`) and their model
+block.
 
 Stochastic rounding: the step is `train_step(state, batch, key)` with an
 int key (`kernels.common.fold_in`; the Trainer folds its seed with the
@@ -69,7 +73,7 @@ from repro_torch.obs import NULL_RECORDER
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.precision.policy import (ResolvedPolicy, as_policy,
                                           as_segment)
-from repro_torch.train.zero import SLICE_19, ZeroLayout
+from repro_torch.train.zero import ZeroLayout
 
 
 class TrainState(NamedTuple):
@@ -271,11 +275,6 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
         stochastic = seg.global_cfg.rounding == "stochastic"
     zero = None
     if mesh is not None:
-        if stochastic:
-            raise NotImplementedError(
-                f"stochastic rounding under a mesh: the xorshift stream "
-                f"hashes by element position, and a rank's row 0 is not the "
-                f"global row 0; {SLICE_19}")
         zero = mesh if isinstance(mesh, ZeroLayout) else \
             ZeroLayout(arch, mesh, dev, tile=layout_tile(seg),
                        seq_parallel=seq_parallel)
@@ -298,10 +297,10 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
 
     act_reduce = act_tap and zero is not None and (zero.n > 1 or zero.sp)
 
-    def loss_and_grads(narrow, batch, key):
+    def loss_and_grads(narrow, batch, key, dp=None):
         ctx = Ctx(policy=exec_seg, key=key, device=dev,
                   act_tap=zero.act_reduce if act_reduce else act_tap,
-                  tp=None if zero is None else zero.tp)
+                  tp=None if zero is None else zero.tp, dp=dp)
         leaves = [t for _, t in _leaves(narrow)]
         if grad_accum == 1:
             loss, metrics = loss_fn(narrow, batch, arch, ctx, device=dev)
@@ -325,14 +324,16 @@ def make_train_step(arch: ArchConfig, hbfp, schedule, *, grad_accum: int = 1,
 
     def grads(state: TrainState, batch, key=None, weight_stats=None):
         nkey, key = step_keys(key)
+        dp = None
         if zero is None:
             narrow = _narrow_copy(state.params, param_cfg, compute_dtype,
                                   weight_stats, nkey)
         else:
             narrow = zero.narrow_copy(state.params, param_cfg, compute_dtype,
-                                      weight_stats)
+                                      weight_stats, nkey)
+            dp = zero.data_part(batch, grad_accum)
             batch = zero.local_batch(batch, grad_accum)
-        loss, metrics, gs = loss_and_grads(narrow, batch, key)
+        loss, metrics, gs = loss_and_grads(narrow, batch, key, dp)
         paths = [p for p, _ in _leaves(narrow)]
         del narrow
         return loss, metrics, _stack_grads(paths, gs)
@@ -415,8 +416,8 @@ def make_step(arch: ArchConfig, policy, schedule, *, controller=None,
 
     metrics gain "mantissa_bits" (the segment's global width, 0 for fp32)
     and, with a controller, "n_overrides" and "min_mantissa_bits".
-    `mesh` (a ("data", "model") DeviceMesh) makes every variant a
-    data- and tensor-parallel step over one `train.zero.ZeroLayout`
+    `mesh` (a ("data", "model") or ("pod", "data", "model") DeviceMesh)
+    makes every variant a data- and tensor-parallel step over one `train.zero.ZeroLayout`
     (`.layout`, laid out for the policy's first segment; see
     `make_train_step`), `seq_parallel` shards the residual stream over the
     sequence; under a mesh every rank observes rank 0's telemetry

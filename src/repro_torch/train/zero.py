@@ -42,9 +42,24 @@ over the cutting axis in f32, rounded whole, and each rank keeps its part
 (the narrowing, and the wide rounding after the update). No other leaf
 pays that gather.
 
+The "pod" axis (a ("pod", "data", "model") mesh) is more data
+parallelism, as in the reference: the batch, the master and the moments
+lie on the flattened ("pod", "data") group, pod-major (the rank order of
+the reference's `P(("pod", "data"))`). Its transport runs over one
+`dist.new_group` per model index, made alike on every rank, rather than
+`DeviceMesh._flatten`: a public call whose rank order is written out.
+
+Stochastic rounding: each shard is keyed and drawn as its part of the
+whole leaf (`leaf_base`, an `IndexBase`; a stacked leaf's layer slices by
+their global index), the narrowing and the wide rounding alike, so the
+narrow copy and the master equal one process's parts bit for bit; a leaf
+gathered over a cutting axis is whole along it. `data_part` gives the
+model's `Ctx.dp`: this rank's rows of the global batch, on which every
+product's operands draw one process's numbers.
+
 Every collective goes through the `launch.transport.Transport` of its
-axis (`transport` over "data", `model` over "model"), which records
-them. The "pod" axis raises (ROADMAP slice 19).
+axis (`transport` over the data axes, `model` over "model"), which
+records them.
 """
 from __future__ import annotations
 
@@ -56,18 +71,17 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import bfp
 from repro_torch.core.opt_shell import (_weight_cfg, apply_update_,
-                                        param_key, quantize_leaf)
+                                        param_key, quantize_leaf,
+                                        slice_base)
+from repro_torch.kernels.common import IndexBase, fold_in
 from repro_torch.launch.transport import Transport
 from repro_torch.models.transformer import init_params
 from repro_torch.numerics.stats import StatsAccumulator
 from repro_torch.optim.adamw import clip_scale, grad_sq_sum, named_leaves
-from repro_torch.sharding.partitioning import (batch_specs,
+from repro_torch.sharding.partitioning import (batch_specs, dp_axes,
                                                master_param_specs, mesh_axes)
-from repro_torch.sharding.tensor_parallel import (SP_PARTIAL, TPGroup,
-                                                  tp_layout)
-
-SLICE_19 = ("ROADMAP slice 19 (stochastic rounding under a mesh: each "
-            "rank's index base in the xorshift stream; the pod axis)")
+from repro_torch.sharding.tensor_parallel import (SP_PARTIAL, DataPart,
+                                                  TPGroup, tp_layout)
 
 
 def _unflatten(flat: dict):
@@ -87,6 +101,24 @@ def _dim_of(spec, axis):
     return next((d for d, s in enumerate(spec) if s == axis), None)
 
 
+def dp_group(mesh):
+    """The process group of this rank's data-parallel axes: "data", or
+    under a "pod" axis the flattened ("pod", "data") ranks of its model
+    index, pod-major. Every rank makes every such group, in one order (as
+    `dist.new_group` needs)."""
+    if "pod" not in mesh_axes(mesh):
+        return mesh.get_group("data")
+    ranks = mesh.mesh                       # [pod, data, model] global ranks
+    me = dist.get_rank()
+    mine = None
+    for m in range(ranks.shape[-1]):
+        members = ranks[..., m].reshape(-1).tolist()
+        g = dist.new_group(members)
+        if me in members:
+            mine = g
+    return mine
+
+
 def sp_partial(name: str) -> bool:
     """Whether a leaf takes partial gradients under sequence parallelism:
     a norm scale of the sequence-sharded residual stream."""
@@ -95,19 +127,19 @@ def sp_partial(name: str) -> bool:
 
 class ZeroLayout:
     """ZeRO-1 placement of an arch's training state on a ("data",
-    "model") mesh (a DeviceMesh), the model axis on the tile-aligned
-    tensor-parallel layout for weight tiles of edge `tile`, and the
-    collectives that move between the layouts."""
+    "model") or ("pod", "data", "model") mesh (a DeviceMesh), the model
+    axis on the tile-aligned tensor-parallel layout for weight tiles of
+    edge `tile`, and the collectives that move between the layouts."""
 
     def __init__(self, arch: ArchConfig, mesh, device, tile: Optional[int]
                  = 128, seq_parallel: bool = False):
         axes = mesh_axes(mesh)
-        if "pod" in axes:
-            raise NotImplementedError(f"a mesh {axes}: {SLICE_19}")
         self.mesh = mesh
         self.device = device
-        self.axis = "data"
-        self.transport = Transport(mesh.get_group("data"))
+        dp = dp_axes(mesh)
+        # the spec entry of the data axes (`master_param_specs`)
+        self.axis = dp if len(dp) > 1 else dp[0]
+        self.transport = Transport(dp_group(mesh))
         self.n = self.transport.size
         self.rank = self.transport.rank
         m = axes.get("model", 1)
@@ -239,6 +271,30 @@ class ZeroLayout:
                 out[k] = v.narrow(d + lead, self.rank * n, n)
         return out
 
+    def data_part(self, batch, grad_accum: int = 1):
+        """This rank's rows of the global batch (of each microbatch, with
+        grad_accum > 1) as the model's `Ctx.dp` (`DataPart`), or None
+        when the data axes hold one rank or every rank takes the whole
+        batch (a batch the DP size does not divide)."""
+        labels = batch["labels"]
+        micro = labels[0] if grad_accum > 1 else labels
+        if self.n == 1 or _dim_of(batch_specs({"labels": micro}, self.mesh)
+                                  ["labels"], self.axis) is None:
+            return None
+        rows = micro.shape[0] // self.n
+        return DataPart(self.rank * rows, micro.shape[0], self.transport)
+
+    def leaf_base(self, name: str, gathered=()) -> IndexBase:
+        """This rank's part of the whole leaf `name` as an `IndexBase`:
+        the offset of each axis that shards it, but along the dims in
+        `gathered` (gathered whole over a cutting axis first)."""
+        full = self.shapes[name]
+        off = [0] * len(full)
+        for d, _, n, r in self._axes(name):
+            if d not in gathered:
+                off[d] = r * (full[d] // n)
+        return IndexBase(full, tuple(off))
+
     # -- the step ------------------------------------------------------------
 
     def _reduce_stats(self, acc: StatsAccumulator, axes) -> None:
@@ -246,14 +302,38 @@ class ZeroLayout:
             if n > 1:
                 acc.reduce_(tr)
 
-    def narrow_copy(self, master, cfg, dtype: torch.dtype, stats=None):
+    def _narrow(self, n: str, w: torch.Tensor, c, key, acc, gathered):
+        """One leaf part narrowed at config `c` on its one-process stream
+        of the narrowing `key` (through B7 into `acc` when given, a layer
+        slice at a time as `train_step._narrow_leaf` does)."""
+        base = self.leaf_base(n, gathered)
+        for a in gathered:          # gathered whole: no offset to carry
+            assert w.shape[a] == base.shape[a] and base.offset[a] == 0
+        k = param_key(key, n, c)
+        if acc is None:
+            return quantize_leaf(w, c, False, k, base)
+        tile = lambda t: bfp.weight_tile_shape(t.ndim, c.tile)
+        if w.ndim < 3:
+            return acc.add(w, c.mantissa_bits, tile(w), key=k, base=base)
+        out = torch.empty_like(w)
+        for i in range(w.shape[0]):
+            gi, b = slice_base(base, i)
+            out[i] = acc.add(w[i], c.mantissa_bits, tile(w[i]),
+                             key=None if k is None else fold_in(k, gi),
+                             base=b)
+        return out
+
+    def narrow_copy(self, master, cfg, dtype: torch.dtype, stats=None,
+                    key: Optional[int] = None):
         """The compute copy of the master shards (`_narrow_copy`'s layout:
         "layers" a list of per-layer dicts of fresh autograd leaves; each
         model-sharded tensor carries its `tp_dim`, counted from the end):
-        narrowed on the shards and all-gathered over "data", or gathered
-        over a cutting axis first. With a `stats` dict every BFP weight is
-        narrowed through B7 and the `TensorStats` of the whole leaf (its
-        parts' raw sums reduced over the ranks) lands in stats[name]."""
+        narrowed on the shards and all-gathered over the data axes, or
+        gathered over a cutting axis first. With a `stats` dict every BFP
+        weight is narrowed through B7 and the `TensorStats` of the whole
+        leaf (its parts' raw sums reduced over the ranks) lands in
+        stats[name]. `key` (an int) rounds stochastically: each shard on
+        its part of the whole leaf's stream."""
         full = {}
         for n, t in named_leaves(master):
             c = _weight_cfg(cfg, n, t)
@@ -266,9 +346,7 @@ class ZeroLayout:
             for a, tr, _, _ in cut:
                 w = tr.all_gather_dim(w, a)
             if c is not None:
-                w = quantize_leaf(w, c, False) if acc is None else acc.add(
-                    w, c.mantissa_bits, bfp.weight_tile_shape(w.ndim,
-                                                              c.tile))
+                w = self._narrow(n, w, c, key, acc, [a for a, *_ in cut])
             w = w.to(cast, copy=w is t)
             if acc is not None:
                 self._reduce_stats(acc, [x for x in self._axes(n)
@@ -341,12 +419,14 @@ class ZeroLayout:
             g.mul_(scale)
 
     def apply_update(self, name, leaf, index, update, cfg, key=None):
-        """`opt_shell.apply_update_` on a shard; where the shard cuts a
-        tile, p + u is gathered over the cutting axes, rounded whole and
-        this rank keeps its part."""
+        """`opt_shell.apply_update_` on a shard, keyed and drawn as its
+        part of the whole leaf; where the shard cuts a tile, p + u is
+        gathered over the cutting axes, rounded whole along them and this
+        rank keeps its part."""
         c = _weight_cfg(cfg, name, leaf)
         if c is None or self.whole_tiles(name, c):
-            apply_update_(name, leaf, index, update, cfg, key)
+            apply_update_(name, leaf, index, update, cfg, key,
+                          self.leaf_base(name))
             return
         p = leaf if index is None else leaf[index]
         shift = 0 if index is None else -1
@@ -354,7 +434,11 @@ class ZeroLayout:
         w = (p.to(torch.float32) + update.to(torch.float32)).to(p.dtype)
         for a, tr, _, _ in cut:
             w = tr.all_gather_dim(w, a)
-        w = quantize_leaf(w, c, True, param_key(key, name, c, index))
+        gi, base = slice_base(self.leaf_base(name, [a - shift for a, *_ in
+                                                     cut]), index)
+        for a, *_ in cut:           # gathered whole: no offset to carry
+            assert w.shape[a] == base.shape[a] and base.offset[a] == 0
+        w = quantize_leaf(w, c, True, param_key(key, name, c, gi), base)
         for a, _, k, r in cut:
             w = w.narrow(a, r * (w.shape[a] // k), w.shape[a] // k)
         p.copy_(w)

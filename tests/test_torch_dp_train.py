@@ -39,8 +39,9 @@ processes started once for the module, 2 and 4 at the same time.
     checkpoint (gathered whole on rank 0) loads in one process and in
     `repro.checkpoint`;
   * the collectives of a step, as the transport records them;
-  * the raises: stochastic rounding and the "pod" axis under a mesh
-    (ROADMAP slice 19).
+  * the combinations that raised until ROADMAP slice 19 (stochastic
+    rounding and the "pod" axis under a mesh) lay out a step, on the fake
+    process group; they train in `tests/test_torch_sr_mesh.py`.
 
 The ranks are `python tests/torch_dist_worker.py dp RANK N PORT DIR`.
 """
@@ -256,25 +257,89 @@ def test_checkpoint_resume_and_cross_load(runs):
 
 
 def test_raises_under_a_mesh():
-    """Stochastic rounding and the "pod" axis still raise under a mesh
-    (ROADMAP slice 19). A "model" axis above 1, telemetry and the
-    controller train under a mesh since slice 18
-    (`tests/test_torch_tp_train.py`)."""
-    class FakeMesh:
-        def __init__(self, model, pod=False):
-            self.shape = {**({"pod": 2} if pod else {}), "data": 1,
-                          "model": model}
-            self.axis_names = tuple(self.shape)
+    """Stochastic rounding and the "pod" axis train under a mesh since
+    ROADMAP slice 19 (`test_builds_under_a_mesh`,
+    `tests/test_torch_sr_mesh.py`). What still raises is a part that no
+    index base can name, rather than a wrong stream: a kernel operand
+    whose rows are not one contiguous run of the one-process rows, a data
+    shard that cuts the MoE groups, a row-parallel product given another
+    part of x than its own."""
+    import torch
+    from types import SimpleNamespace
 
-    arch = _arch()
-    with pytest.raises(NotImplementedError, match="slice 19"):
-        make_step(arch, _policy(), _sched(), device="cpu",
-                  mesh=FakeMesh(1, pod=True))
-    with pytest.raises(NotImplementedError, match="slice 19"):
-        make_train_step(arch, _policy().resolve_segment(0), _sched(),
-                        device="cpu", mesh=FakeMesh(2, pod=True))
-    sr = as_policy("8~stochastic; backend=pallas").resolve_segment(0)
-    for model in (1, 2):
-        with pytest.raises(NotImplementedError, match="stochastic.*slice 19"):
-            make_train_step(arch, sr, _sched(), device="cpu",
-                            mesh=FakeMesh(model))
+    from repro_torch.kernels.common import flat_base, index_base
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.sharding.tensor_parallel import DataPart, TPGroup
+    with pytest.raises(ValueError, match="contiguous"):
+        flat_base(index_base((4, 6, 8), (0, 2, 0)), (2, 2, 8), 8)
+    ctx = Ctx(dp=DataPart(offset=1, size=3, transport=None))
+    with pytest.raises(ValueError, match="cuts the 2 MoE groups"):
+        moe_ffn(torch.zeros(1, 4, 8), {}, ctx, n_experts=2, top_k=1,
+                n_groups=2)
+    tp = TPGroup(SimpleNamespace(size=2, rank=0))
+    with pytest.raises(ValueError, match="row-parallel"):
+        tp.matmul(torch.zeros(3, 4), torch.zeros(4, 5), -2,
+                  lambda *a: None,
+                  x_base=index_base((3, 8), (0, 4)))
+
+
+# (mesh shape, axis names, spec) that raised before stochastic rounding
+# and the "pod" axis trained under a mesh (ROADMAP slice 19)
+MESH_CASES = (
+    ((2, 2, 1), ("pod", "data", "model"), "8; backend=pallas"),
+    ((2, 2, 1), ("pod", "data", "model"), "8~stochastic"),
+    ((2, 1, 2), ("pod", "data", "model"), "8~stochastic; backend=pallas"),
+    ((2, 1), ("data", "model"), "8~stochastic; backend=pallas"),
+    ((1, 2), ("data", "model"), "8~stochastic"))
+
+
+@pytest.mark.parametrize("shape,names,spec", MESH_CASES,
+                         ids=[f"{'x'.join(map(str, c[0]))}-{i}"
+                              for i, c in enumerate(MESH_CASES)])
+def test_builds_under_a_mesh(shape, names, spec):
+    """The combinations that raised until slice 19 now lay out a step, on
+    PyTorch's fake process group (no ranks): the data axes are ("pod",
+    "data") flattened pod-major where there is a pod axis, each leaf's
+    index base is this rank's part of the master spec, and the batch's
+    rows are this rank's `Ctx.dp` part. Training on them:
+    `tests/test_torch_sr_mesh.py`."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        pol = as_policy(spec)
+        lay = make_step(_arch(), pol, _sched(), device="cpu",
+                        mesh=mesh).layout
+        n = math.prod(shape[:-1])
+        assert lay.axis == (("pod", "data") if "pod" in names else "data")
+        assert lay.n == lay.transport.size == n and lay.m == shape[-1]
+        specs = dict(_np_tree_specs(mesh))
+        for name, full in lay.shapes.items():
+            base = lay.leaf_base(name)
+            assert base.shape == full and not any(base.offset), name
+            assert (lay.dims[name] is None) == (n == 1 or all(
+                s not in (lay.axis,) for s in specs[name])), name
+        b = _batch(0)
+        dp = lay.data_part(b)
+        assert (dp is None) == (n == 1)
+        if dp is not None:
+            assert (dp.offset, dp.size) == (0, b["labels"].shape[0])
+        seg = pol.resolve_segment(0)
+        assert make_train_step(_arch(), seg, _sched(), device="cpu",
+                               mesh=lay).layout is lay
+    finally:
+        dist.destroy_process_group()
+
+
+def _np_tree_specs(mesh):
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.sharding.partitioning import master_param_specs
+    return named_leaves(master_param_specs(
+        init_params(0, _arch(), device="meta"), mesh))

@@ -3,11 +3,14 @@
     python tests/torch_dist_worker.py compress RANK N PORT DIR
     python tests/torch_dist_worker.py dp RANK N PORT DIR
     python tests/torch_dist_worker.py tp RANK N PORT DIR MODEL
+    python tests/torch_dist_worker.py sr RANK N PORT DIR MESH
 
 `compress` is one rank of `tests/test_torch_grad_compress.py`'s reduce,
 `dp` one rank of `tests/test_torch_dp_train.py`'s ZeRO-1 runs, `tp` one
 rank of `tests/test_torch_tp_train.py`'s runs on a {data N/MODEL, model
-MODEL} mesh; each writes its results under DIR. This module imports torch and the port
+MODEL} mesh, `sr` one rank of `tests/test_torch_sr_mesh.py`'s stochastic
+runs on the mesh named MESH (`SR_MESHES`); each writes its results under
+DIR. This module imports torch and the port
 only (no JAX), so a rank starts quickly; the tests import its settings
 and hold the results against the reference and one process.
 """
@@ -363,6 +366,269 @@ def tp(rank: int, n: int, out: str, model: int) -> None:
         pickle.dump(res, f)
 
 
+# -- stochastic rounding under a mesh ------------------------------------------
+
+# (name, pod, data, model)
+SR_MESHES = (("d2", 1, 2, 1), ("m2", 1, 1, 2), ("p2d2", 2, 2, 1))
+SR_SEED = 7
+# the CE's loss chunk: 2 chunks of the 128 tokens, so a rank of {data 2}
+# takes one whole chunk and a rank of {pod 2, data 2} half of one
+SR_CHUNK = 64
+
+
+def sr_arch(name="gemma2-2b"):
+    return dataclasses.replace(get_arch(name).smoke(), dtype="float32",
+                               loss_chunk=SR_CHUNK)
+
+
+def sr_policy(backend="sim"):
+    """8-bit stochastic HBFP: 32-tiles on the sim path (every smoke
+    projection shards at model 2), 64 on the kernel path."""
+    return as_policy(HBFPConfig(8, 16, tile=TP_TILE if backend == "sim"
+                                else 64, rounding="stochastic"),
+                     backend=backend)
+
+
+def sr_key(i):
+    """The key of step i (the Trainer's for seed SR_SEED)."""
+    from repro_torch.kernels.common import fold_in
+    return fold_in(fold_in(0, SR_SEED), i)
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy().copy()
+
+
+def _base(b):
+    return None if b is None else (tuple(b.shape), tuple(b.offset))
+
+
+class OperandRecorder:
+    """Within the block, every operand a product quantizes: the sim
+    path's activation and weight quantizers (`core/hbfp_ops.py`) and the
+    operands of B1-B3 (their plain versions' quantize passes, with the
+    calls' index bases). Each record is (key, raw operand, quantized
+    operand, base as (shape, offset) or None); on the kernel path the
+    operands are padded 2-D, their base on the padded operand."""
+
+    def __init__(self):
+        self.records = []
+        self.baseless = []
+
+    def __enter__(self):
+        from repro_torch.core import hbfp_ops
+        from repro_torch.kernels import linear
+        self._saved = [(hbfp_ops, "_q_act", hbfp_ops._q_act),
+                       (hbfp_ops, "_q_w", hbfp_ops._q_w)] + [
+            (linear, n, getattr(linear, n))
+            for n in ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad")]
+        rec = self.records
+        q_act, q_w = hbfp_ops._q_act, hbfp_ops._q_w
+
+        def act(x, cfg, key, contract_axis, tp=None, base=None):
+            out = q_act(x, cfg, key, contract_axis, tp, base)
+            rec.append((("act", key, contract_axis), _np(x), _np(out),
+                        _base(base)))
+            if tp is None and base is not None and any(base.offset):
+                # the control: the same part drawn at its own indices
+                # (where that takes no collective)
+                self.baseless.append(torch.equal(
+                    out, q_act(x, cfg, key, contract_axis, tp, None)))
+            return out
+
+        def wq(w, cfg, key, base=None):
+            out = q_w(w, cfg, key, base)
+            rec.append((("w", key), _np(w), _np(out), _base(base)))
+            return out
+
+        fwd, dgrad, wgrad = (getattr(linear, n) for n in
+                             ("hbfp_matmul_fwd", "hbfp_dgrad", "hbfp_wgrad"))
+
+        def b1(x, w, seed=None, **kw):
+            y = fwd(x, w, seed, **kw)
+            self._rows("fwd.x", x, seed, kw["bk"], kw, "x", 0)
+            if kw.get("quantize_w", True):
+                self._w("fwd.w", w, seed, kw)
+            return y
+
+        def b2(g, w, seed=None, **kw):
+            dx = dgrad(g, w, seed, **kw)
+            self._rows("dgrad.g", g, seed, kw["bn"], kw, "g", 0x20000000)
+            if kw.get("quantize_w", True):
+                self._w("dgrad.w", w, seed, kw)
+            return dx
+
+        def b3(x, g, seed=None, **kw):
+            want = kw.pop("operands", False)
+            dw, xh, gh = wgrad(x, g, seed, operands=True, **kw)
+            for what, a, q, b in (("wgrad.x", x, xh, kw.get("x_base")),
+                                  ("wgrad.g", g, gh, kw.get("g_base"))):
+                rec.append(((what, int(seed)), _np(a), _np(q), _base(b)))
+            return (dw, xh, gh) if want else dw
+
+        hbfp_ops._q_act, hbfp_ops._q_w = act, wq
+        linear.hbfp_matmul_fwd, linear.hbfp_dgrad, linear.hbfp_wgrad = \
+            b1, b2, b3
+        return self
+
+    def _rows(self, what, a, seed, width, kw, name, stream):
+        from repro_torch.kernels import ref
+        af = a.to(torch.float32)
+        out = torch.empty_like(af)
+        C = af.shape[1]
+        base = kw.get(f"{name}_base")
+        for c0 in range(0, C, width):
+            q, d = ref._quantize_rows(
+                af, c0, width, C, kw["mantissa_bits"], kw.get("block", 0),
+                kw["stochastic"], ref._seed_value(seed), stream,
+                kw.get(f"{name}_amax"), base)
+            out[:, c0:c0 + width] = q * d
+        self.records.append(((what, int(seed)), _np(a), _np(out),
+                             _base(base)))
+
+    def _w(self, what, w, seed, kw):
+        from repro_torch.kernels import ref
+        base = kw.get("w_base")
+        q, d = ref._quantize_w(w.to(torch.float32), 0, 0, w.shape[1],
+                               kw["bk"], kw["bn"], kw["mantissa_bits"],
+                               kw["stochastic"], ref._seed_value(seed),
+                               base)
+        self.records.append(((what, int(seed)), _np(w), _np(q * d),
+                             _base(base)))
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _flat_narrow(t):
+    out = {f"layers/{k}": torch.stack([lp[k] for lp in t["layers"]])
+           for k in t["layers"][0]}
+    out.update((k, v) for k, v in t.items() if k != "layers")
+    return {k: v.detach() for k, v in out.items()}
+
+
+def sr_narrow_exact(layout, a, pol) -> dict:
+    """Step 1's narrow copy on the mesh against the model part of one
+    process's (both on step 0's narrowing key), bit for bit; and the
+    control: the same shards narrowed each as a whole leaf (no index
+    base) differ somewhere on a rank whose shards have an offset."""
+    from repro_torch.core.opt_shell import _weight_cfg, quantize_leaf
+    from repro_torch.core.opt_shell import param_key
+    from repro_torch.kernels.common import fold_in
+    from repro_torch.train.train_step import _narrow_copy
+    c = pol.resolve_segment(0).global_cfg
+    nkey = fold_in(sr_key(0), 0x5EED)
+    shards = init_train_state(0, a, device="cpu", mesh=layout).params
+    got = _flat_narrow(layout.narrow_copy(shards, c, torch.float32, None,
+                                          nkey))
+    want = _flat_narrow(_narrow_copy(
+        init_train_state(0, a, device="cpu").params, c, torch.float32,
+        None, nkey))
+    equal = True
+    for n, w in want.items():
+        d = layout.tp_dims[n]
+        if d is not None:
+            k = w.shape[d] // layout.m
+            w = w.narrow(d, layout.rank_m * k, k)
+        equal &= torch.equal(got[n], w)
+    # the control, on the shards that keep their tiles whole and have an
+    # offset (a shard that cuts a tile is gathered and rounded whole)
+    differs = None
+    for n, t in named_leaves(shards):
+        cc = _weight_cfg(c, n, t)
+        if cc is None or not any(layout.leaf_base(n).offset) \
+                or not layout.whole_tiles(n, cc):
+            continue
+        own = quantize_leaf(t, cc, False, param_key(nkey, n, cc))
+        differs = bool(differs) or not torch.equal(own, quantize_leaf(
+            t, cc, False, param_key(nkey, n, cc), layout.leaf_base(n)))
+    return dict(equal=bool(equal), differs_without_base=differs)
+
+
+def sr_run(a, pol, steps, data, mesh=None, record=False, **kw):
+    """`steps` steps from the seed-0 init on the keys `sr_key`: (losses,
+    state, step, the first step's `OperandRecorder` or None)."""
+    step = make_step(a, pol, sched(), device="cpu", mesh=mesh, **kw)
+    st = init_train_state(0, a, device="cpu",
+                          mesh=None if mesh is None else step.layout)
+    losses, records = [], None
+    for i in range(steps):
+        if i == 0 and record:
+            with OperandRecorder() as records:
+                st, m = step(st, data(i), sr_key(i))
+        else:
+            st, m = step(st, data(i), sr_key(i))
+        losses.append(float(m["loss"]))
+    return losses, st, step, records
+
+
+def _sr_mesh(name):
+    from torch.distributed.device_mesh import init_device_mesh
+    _, pod, data, model = next(m for m in SR_MESHES if m[0] == name)
+    if pod > 1:
+        return init_device_mesh("cpu", (pod, data, model),
+                                mesh_dim_names=("pod", "data", "model"))
+    return init_device_mesh("cpu", (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def sr(rank: int, n: int, out: str, name: str) -> None:
+    """On mesh `name`: the sim and kernel paths' 3 steps under
+    "8~stochastic" (their step-1 narrow copy and operand records), and
+    per mesh: {data 2} grad_accum 2; {model 2} SP on; on both a step of
+    llama4-scout (its MoE groups on the data axis, its experts sharded on
+    E); {pod 2, data 2} the Trainer preempted and resumed."""
+    mesh = _sr_mesh(name)
+    a = sr_arch()
+    res = {"runs": {}}
+    runs = [("sim", "sim", {}), ("kernel", "pallas", {})]
+    if name == "m2":
+        runs.append(("sim_sp", "sim", {"seq_parallel": True}))
+    for tag, backend, kw in runs:
+        pol = sr_policy(backend)
+        losses, st, step, rec = sr_run(a, pol, STEPS, batch, mesh,
+                                       record=True, **kw)
+        lay = step.layout
+        res["runs"][tag] = dict(
+            tp_result(lay, st, losses), records=rec.records,
+            baseless_equal=rec.baseless,
+            narrow=sr_narrow_exact(lay, a, pol), axis=lay.axis, n=lay.n,
+            rank=lay.rank, rank_m=lay.rank_m)
+    if name == "d2":
+        losses, st, step, _ = sr_run(a, sr_policy(), 1, accum_batch, mesh,
+                                     grad_accum=2)
+        res["accum"] = tp_result(step.layout, st, losses)
+    if name in ("d2", "m2"):
+        # the experts: their groups on the data axis, or sharded on E
+        la = sr_arch("llama4-scout-17b-a16e")
+        losses, st, step, _ = sr_run(la, sr_policy(), 1,
+                                     lambda i: arch_batch(la, i), mesh)
+        res["llama4"] = tp_result(step.layout, st, losses)
+    if name == "p2d2":
+        ckpt = os.path.join(out, "sr_ckpt")
+        step = make_step(a, sr_policy(), sched(), device="cpu", mesh=mesh)
+        kw = dict(train_step=step, data_fn=batch, ckpt_every=2,
+                  device="cpu", seed=SR_SEED)
+        init = lambda: init_train_state(0, a, device="cpu", mesh=step.layout)
+        first = Trainer(init_state=init(), ckpt_dir=ckpt, **kw)
+        try:
+            first.run(4, fail_at_step=3, log_fn=None)
+        except RuntimeError as e:
+            res["preempted"] = str(e)
+        whole = Trainer(init_state=first.state, **kw)
+        whole.run(4, log_fn=None)
+        resumed = Trainer(init_state=init(), ckpt_dir=ckpt, **kw)
+        res["resumed_from"] = resumed.start_step
+        resumed.run(4, log_fn=None)
+        res["resume_exact"] = _states_equal(resumed.state, whole.state)
+        res["final"] = _gathered(step.layout, whole.state)
+        res["ckpt"] = ckpt
+    with open(os.path.join(out, f"sr_{name}_{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
 if __name__ == "__main__":
     import torch.distributed as dist
     from repro_torch.launch.transport import init_process_group
@@ -373,6 +639,8 @@ if __name__ == "__main__":
     init_process_group(rank, n, port, device="cpu")
     if scenario == "tp":
         tp(rank, n, out, int(sys.argv[6]))
+    elif scenario == "sr":
+        sr(rank, n, out, sys.argv[6])
     else:
         {"compress": compress, "dp": dp}[scenario](rank, n, out)
     dist.destroy_process_group()
