@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase dist      # device, build, dist only
     python3 chip_smoke.py --phase tp        # device, build, tp only
     python3 chip_smoke.py --phase pod       # device, build, pod only
+    python3 chip_smoke.py --phase shard     # device, build, shard only
     python3 chip_smoke.py --phase sr_kernels  # the index-base cases only
 
 Phases (any failure exits non-zero before the result line):
@@ -17,7 +18,9 @@ Phases (any failure exits non-zero before the result line):
                 TF32 off for matmuls and convolutions;
   2. build    — compile every kernel source (four libraries) with nvcc,
                 one process per source, started together, and print each
-                kernel's registers, spill bytes and stack;
+                kernel's registers, spill bytes and stack (a whole run
+                waits for the flash library, the slowest, only after
+                the bwd and autotune phases);
   3. bwd      — B1, B2 (dgrad) and B3 (wgrad) against their plain
                 versions at gemma2-2b's training shapes (M = 4096 tokens),
                 timed with CUDA events beside torch.matmul and, on the
@@ -94,14 +97,14 @@ Phases (any failure exits non-zero before the result line):
                 devices draw the xorshift stream); the closed
                 adaptive-precision loop on yi-9b smoke makes the CPU's
                 decisions;
-  7. train-full — gemma2-2b (26 layers) and yi-9b (16 of 48 layers) at
+  7. train-full — gemma2-2b (8 of 26 layers) and yi-9b (8 of 48 layers) at
                 full width trained by the port's Trainer (a warm-up step,
                 then 3 steps): finite losses, step-0 loss within 2% of
                 fp32, exact launch counts of B1-B6, every B1/B2 and
                 B4-B6 launch on the int8 wgmma route and every B3 launch
                 on bf16 wgmma, step time, tokens/s, peak memory, and a
                 profile of one step;
-  7b. train-sr — ROADMAP A5: gemma2-2b (26 layers, full width) trained as
+  7b. train-sr — ROADMAP A5: gemma2-2b (8 of 26 layers, full width) trained as
                 train-full does under "8~stochastic; backend=pallas" on
                 HBFPConfig(8, 16, tile=24), beside train-full's nearest
                 gemma2-2b run, its profiled step making no more host
@@ -128,8 +131,8 @@ Phases (any failure exits non-zero before the result line):
    8b. accuracy — the paper's claim, loss against fp32 (ROADMAP A8): the
                 13 rows of benchmarks/design_space.py's grid at yi-9b
                 smoke, 40 steps from the port's init and data, on the card
-                and on the CPU (three processes of two threads, at the
-                same time), each
+                and on the CPU (three processes of two threads at the
+                lowest CPU priority, started after the build), each
                 row's tail loss (mean of the last 5) and delta against
                 fp32 within the CPU test's tolerance (0.01 at fp32 and
                 m 8, 0.06 at m 4), with the step at which each row's
@@ -148,7 +151,7 @@ Phases (any failure exits non-zero before the result line):
                 yi-9b serving shapes;
  10. model    — the yi-9b smoke model served on the card (kernel path)
                 agrees with the same model on the CPU (plain path);
- 11. serve    — yi-9b at full width, 8 of 48 layers (random seeded
+ 11. serve    — yi-9b at full width, 4 of 48 layers (random seeded
                 bf16 weights), served by the port's ServeEngine: 12
                 overloading requests, paged and slab, each with the
                 generate tick captured as a CUDA graph (the default) and
@@ -199,7 +202,7 @@ Phases (any failure exits non-zero before the result line):
                 reference), no B7 launch, the aux loss per layer within
                 (0.5, 2.5), the profiled step split into the expert
                 GEMMs, the rest of the MoE layer, the optimizer, the
-                narrowing, B1-B6 and the rest; (d) llama4 at 6 of 48
+                narrowing, B1-B6 and the rest; (d) llama4 at 3 of 48
                 layers, paged and slab, and (e) arctic at 1 of 35, slab,
                 served at full width from one narrowed copy (8 lanes,
                 ctx_len 1024, 8 requests of 32-512 tokens, 16 new), each
@@ -216,12 +219,12 @@ Phases (any failure exits non-zero before the result line):
                 = 4096 and 3072, qwen2-vl's 152,064-word head included)
                 against their plain versions, routes checked; (c)
                 qwen2-vl at full width, 3 of 80 layers, 1 x 4096, and (d)
-                musicgen at 24 of 48 layers, 2 x 1536 frames, trained as
+                musicgen at 12 of 48 layers, 2 x 1536 frames, trained as
                 train-full does: exact B1-B6 launches (K heads: B1
                 2·(P + K·C), or 2P + K in one CE chunk), step-0 loss
                 within 2% of fp32, the profiled step split by region; (e)
-                both served through the serve-step stages (qwen2-vl at 16
-                of 80 layers, musicgen at 24): a prefill of 8 x 512
+                both served through the serve-step stages (qwen2-vl at 8
+                of 80 layers, musicgen at 12): a prefill of 8 x 512
                 seeded frames into a 1,024-slot slab, 32 decode ticks on
                 seeded next-frame embeddings, graphed (`GraphedStage`
                 over fixed input buffers) and eager from a clone of the
@@ -232,14 +235,16 @@ Phases (any failure exits non-zero before the result line):
                 ranks of the one card (gloo, by placement: NCCL refuses
                 two ranks on one device): (a) B7 against its plain
                 version, bit for bit in all five outputs, at the (1, 512)
-                tiling of every gradient leaf of gemma2-2b at 4 layers
+                tiling of every gradient leaf of gemma2-2b at 2 layers
                 (the 256,000 x 2,304 embedding's the largest), routes
                 checked, timed; (b) one process's gradients (gemma2-2b
-                at full width, 4 of 26 layers, 2 x 2048 markov tokens)
+                at full width, 2 of 26 layers, 2 x 2048 markov tokens)
                 through the compressed reduce on a one-rank NCCL group
                 (B7 on every leaf; N = 1 returns each leaf's dequantized
                 packing); (c) two ranks (processes of this script,
-                `--dist-rank`, the libraries built here first) train it
+                `--dist-rank`, the libraries built here first; every
+                later gloo world starts up during the phase before its
+                own and waits for its go, `_spawn_ranks`) train it
                 on 1 x 2048 tokens each through `make_step(...,
                 mesh=make_host_mesh())` and the Trainer, a warm-up step
                 and 3 counted: exact B1-B3 launches a rank on their
@@ -293,8 +298,8 @@ Phases (any failure exits non-zero before the result line):
  11g. sr mesh — ROADMAP slice 19, stochastic rounding under a mesh:
                 gemma2-2b at full width, 2 x 2048 tokens, SR_SPEC, the
                 Trainer's keys, a warm-up step (step 1) and 3 counted, on
-                {data 2} (4 of 26 layers, the dist phase's ranks), on
-                {data 1, model 2} with SP (4 layers, the tp phase's
+                {data 2} (2 of 26 layers, the dist phase's ranks), on
+                {data 1, model 2} with SP (2 layers, the tp phase's
                 ranks) and, phase pod, on four gloo ranks of the card
                 (`--pod-rank`) on {pod 2, data 1, model 2} (2 layers, 1 x
                 2048 tokens a data rank, a telemetry step every 2, so B7
@@ -311,6 +316,40 @@ Phases (any failure exits non-zero before the result line):
                 rank equal one process's at its tokens, on their
                 training routes; bytes and seconds a step by collective
                 kind on each axis;
+ 11h. shard  — ROADMAP slice 20, sharded prefill and decode on the
+                reference's serving layouts (`train.serve_step.
+                ServeLayout`), yi-9b at full width, "8;
+                backend=pallas", gloo ranks of the card
+                (`--shard-rank`): (a) {data 2, model 2}, four ranks, 2
+                of 48 layers:
+                8 prompts x 512 tokens (4 a data rank) prefilled through
+                B4 on each rank's 16 query and 2 kv heads, then 16
+                greedy ticks on a slab ring of 1,024, every rank first
+                taking the same in one process (all at once) and the
+                mesh fed its greedy tokens: layer 0's q, k, v and every
+                local head's flash output bit-equal to one process's
+                slice, logits within SHARD_TOL, greedy tokens equal
+                wherever one process's top-2 margin exceeds it, B1
+                launches a rank per prefill and per tick (7L + 1, all
+                bf16 wgmma) and B4's (L, int8 wgmma); (b) the dry run's
+                decode_32k cell at 1 of 48 layers on {data 1, model 8},
+                eight ranks: batch 128, a ring of 32,768 slots, 4,096 a
+                rank (the kv heads do not divide 8, so the attention is
+                replicated and row-parallel over the ring), 128 prompts
+                x 64 tokens (B4 on the CUDA cores: 64-token prompts are
+                no whole 128-row CTA), 8 ticks, rank 0 first alone in
+                one process (the others waiting): every rank's cache
+                part printed
+                and equal to one process's slice, logits within
+                SHARD_TOL; `launch.dryrun.build_cell` on a fake group
+                of 8 at the same mesh and depth gives argument bytes
+                equal to rank 0's real params + cache + batch, its
+                memory track's total beside rank 0's real peak; (c) the
+                dry run's train_4k, prefill_32k and decode_32k cells of
+                yi-9b at the production mesh on the card's host (a
+                process of this script, `--shard-dry`, started at the
+                beginning and run beside the other phases), with their
+                trace_s;
  12. report   — the `kernels` JSON line (B1-B7), the card line, and the
                 last line {"ok": true, "device": {...}}.
 
@@ -423,9 +462,13 @@ SR_DISK_GB = 18.0
 
 # yi-9b's training attention: 1 sequence x 32 heads, 4096 tokens, hd 128
 FLASH_SHAPE = (32, 4096, 128)
-# yi-9b trains at full width and 16 of its 48 layers: 3.29 B parameters,
-# ~53 GB of f32 master, AdamW moments and grads (all 48 would need ~140 GB)
-YI_LAYERS = 16
+# yi-9b trains at full width and 8 of its 48 layers (16, ~53 GB of f32
+# master, AdamW moments and grads, until PR 30 cut it for the script's
+# time; all 48 would need ~140 GB)
+YI_LAYERS = 8
+# train-full's and train-sr's gemma2-2b: 8 of 26 layers (26 until PR 30,
+# cut for the script's time on slower hosts)
+GEMMA_LAYERS = 8
 # (name, BH, S, hd, dtype, m_bits, m_qk, m_pv, causal, block or None for
 # the largest power of two up to 128 dividing S) of the small cases; B4's
 # route follows from them (`flash_route`): int8 wgmma at m_qk, m_pv <= 8
@@ -580,8 +623,9 @@ ACC_BOUND_ROW = "hbfp8_16_t24"     # whose full-width delta is bounded
 # tail (the CPU test's m 4 tolerance): a check the bound alone cannot make
 ACC_CONTROL_ROW = "hbfp4_16_t24"
 ACC_CONTROL_NOISE = 0.06
-# dist (ROADMAP A13): gemma2-2b at 4 of 26 layers on two ranks of one card
-DIST_ARCH, DIST_LAYERS, DIST_RANKS = "gemma2-2b", 4, 2
+# dist (ROADMAP A13): gemma2-2b at 2 of 26 layers on two ranks of one card
+# (4 until ROADMAP slice 20's shard phase needed the script's time)
+DIST_ARCH, DIST_LAYERS, DIST_RANKS = "gemma2-2b", 2, 2
 DIST_B, DIST_S = 2, 2048            # global batch: 1 x 2048 tokens a rank
 DIST_SPEC = "8; backend=pallas"
 DIST_STEPS = 4                      # a warm-up step, then 3 counted
@@ -625,8 +669,24 @@ SR_B7_SHAPE = (4096, 4096)
 # tokens a data rank, a telemetry step every SR_POD_CADENCE (B7 on the
 # shards)
 SR_MESH_STEPS = 4
-SR_TP_LAYERS = 4
+SR_TP_LAYERS = 2          # 4 until ROADMAP slice 20's shard phase
 SR_POD_LAYERS, SR_POD_RANKS, SR_POD_CADENCE = 2, 4, 2
+# shard (ROADMAP slice 20): sharded prefill and decode on the reference's
+# serving layouts, gloo ranks of the card; yi-9b at full width and
+# `layers` of 48 layers, "8; backend=pallas"
+SHARD_ARCH, SHARD_SPEC = "yi-9b", "8; backend=pallas"
+# (a) {data 2, model 2}: heads sharded; 8 prompts x 512 tokens (4 a data
+# rank), then 16 greedy ticks on a slab ring of 1,024
+SHARD_A = dict(data=2, model=2, layers=2, B=8, S=512, ctx=1024, ticks=16)
+# (b) the dry run's decode_32k cell on {data 1, model 8}: the ring's
+# 32,768 slots 4,096 a rank; 128 prompts x 64 tokens, 8 ticks (1 layer,
+# 2 until the whole script needed the time)
+SHARD_B = dict(data=1, model=8, layers=1, B=128, S=64, ctx=32768, ticks=8)
+# logits against one process: tests/test_torch_serve.py's bf16 tolerance
+# (partial sums added in another order, then bf16 and BFP roundings)
+SHARD_TOL = 2e-2
+# (c) the dry run's cells at the production mesh, on the card's host
+SHARD_DRY = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def log(*a):
@@ -696,29 +756,45 @@ def _ptxas_kernels(text: str):
     return [(d, *rows[n]) for d, n in zip(_demangle(names), names)]
 
 
-def phase_build():
+def phase_build(later=()):
+    """Build every kernel library at once, one nvcc each; load and report
+    those not in `later` now. Returns (report, finish): `finish()` waits
+    for the libraries in `later`, which build beside what runs meanwhile,
+    loads and reports them and returns the whole report."""
     from repro_torch.kernels import hbfp_matmul as hm
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(hm.SOURCES)) as ex:
-        futs = {k: ex.submit(hm.build, k) for k in hm.SOURCES}
-        infos = {k: f.result() for k, f in futs.items()}
+    ex = ThreadPoolExecutor(len(hm.SOURCES))
+    futs = {k: ex.submit(hm.build, k) for k in hm.SOURCES}
     report = {}
-    for k, info in infos.items():
-        hm.load(k, info["path"])
-        kernels = _ptxas_kernels(info["log"])
-        spills = sum(st + ld for _, _, st, ld, _ in kernels)
-        regs = [r for _, r, *_ in kernels]
-        log(f"[build] {k}: {info['seconds']:.1f} s, {len(kernels)} "
-            f"kernels, registers {min(regs)}-{max(regs)}, spill bytes "
-            f"{spills}")
-        for name, r, st, ld, stack in kernels:
-            log(f"[build]   {name}: {r} registers, spill stores {st} B, "
-                f"spill loads {ld} B, stack {stack} B")
-        report[k] = [dict(kernel=n, registers=r, spill_store_bytes=st,
-                          spill_load_bytes=ld, stack_bytes=sk)
-                     for n, r, st, ld, sk in kernels]
-    log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
-    return report
+
+    def take(names):
+        for k in names:
+            info = futs[k].result()
+            hm.load(k, info["path"])
+            kernels = _ptxas_kernels(info["log"])
+            spills = sum(st + ld for _, _, st, ld, _ in kernels)
+            regs = [r for _, r, *_ in kernels]
+            log(f"[build] {k}: {info['seconds']:.1f} s, {len(kernels)} "
+                f"kernels, registers {min(regs)}-{max(regs)}, spill bytes "
+                f"{spills}")
+            for name, r, st, ld, stack in kernels:
+                log(f"[build]   {name}: {r} registers, spill stores {st} B, "
+                    f"spill loads {ld} B, stack {stack} B")
+            report[k] = [dict(kernel=n, registers=r, spill_store_bytes=st,
+                              spill_load_bytes=ld, stack_bytes=sk)
+                         for n, r, st, ld, sk in kernels]
+
+    take([k for k in hm.SOURCES if k not in later])
+    log(f"[build] {len(report)} libraries in {time.perf_counter() - t0:.1f} "
+        f"s")
+
+    def finish():
+        take(later)
+        ex.shutdown()
+        log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+        return report
+
+    return report, finish
 
 
 def _time_ms(fn, n: int) -> float:
@@ -2338,7 +2414,7 @@ def _b7_telemetry_launches(params, tile: int) -> int:
 
 
 def phase_train_sr(card: str, nearest: dict):
-    """ROADMAP A5 on the card. gemma2-2b at full width, 26 layers,
+    """ROADMAP A5 on the card. gemma2-2b at full width, GEMMA_LAYERS,
     SR_SPEC on HBFPConfig(8, 16, tile=24), 2 x 2048 tokens, through the
     Trainer (phase_train_full's checks: finite losses, step-0 loss within
     2% of fp32, exact B1-B3 launches, their routes), beside train-full's
@@ -2347,8 +2423,8 @@ def phase_train_sr(card: str, nearest: dict):
     layers: remat on and off give bit-equal loss and grads; a stochastic
     telemetry step equals the plain step (B7's launches exact, banded);
     a run preempted and resumed equals the uninterrupted run."""
-    tr = phase_train_full(card, "gemma2-2b", 2, 2048, spec=SR_SPEC,
-                          base=_sr_base(), phase="train-sr")
+    tr = phase_train_full(card, "gemma2-2b", 2, 2048, n_layers=GEMMA_LAYERS,
+                          spec=SR_SPEC, base=_sr_base(), phase="train-sr")
     tag = "[train-sr]"
     for k in ("step_s", "tokens_per_s", "peak_gib"):
         log(f"{tag} {k}: stochastic {tr[k]} vs nearest {nearest[k]}")
@@ -2490,7 +2566,7 @@ def _sr_proofs(card: str):
 # yi-9b serves at full width and 8 of its 48 layers (all 48 took ~115 s
 # of the script's time limit, the eager runs host-bound; 16 until the
 # stochastic mesh runs needed the time)
-SERVE_LAYERS = 8
+SERVE_LAYERS = 4        # 8 until PR 30 (the script's time)
 SERVE_LANES, SERVE_CTX, SERVE_NEW = 8, 1024, 32
 SERVE_LOCKSTEP = 34     # ticks: past the first completions and refills
 # one generate tick's B1 GEMM kernel as the profiler names it (fwd, not
@@ -3016,13 +3092,14 @@ def phase_recurrent(card: str) -> dict:
 # moe: the MoE family (ROADMAP A12.3) at full width. llama4-scout (16
 # experts, top-1, a shared expert) trains at 1 of its 48 layers on 1 x
 # 2048 tokens (its f32 master, moments and grads at ~16 bytes a
-# parameter: 4.27 B parameters fill the card) and serves at 6 of 48;
+# parameter: 4.27 B parameters fill the card) and serves at 3 of 48 (6
+# until PR 30);
 # arctic-480b (128 experts, top-2, a dense residual) serves at 1 of 35
 # (one layer's experts are 27 GB in bf16). The expert GEMMs' weights are
 # 3-D and take the sim path, as in the reference; attention, the shared
 # expert or dense residual and the head take B1-B6
 MOE_TRAIN = ("llama4-scout-17b-a16e", 1, 2048)
-MOE_SERVE = (("llama4-scout-17b-a16e", 6, (True, False)),
+MOE_SERVE = (("llama4-scout-17b-a16e", 3, (True, False)),
              ("arctic-480b", 1, (False,)))
 MOE_LANES, MOE_CTX, MOE_NEW = 8, 1024, 16
 MOE_LENS = tuple(32 + (512 - 32) * i // 7 for i in range(8))
@@ -3181,7 +3258,7 @@ def phase_moe(card: str) -> dict:
     routes checked; (c) llama4 at full width, 1 of 48 layers, trained
     through the Trainer (exact B1-B6 launches and routes, no B7, the aux
     loss per layer near 1, the profiled step split by region); (d, e)
-    llama4 (6 of 48 layers) and arctic (1 of 35) served at full width,
+    llama4 (3 of 48 layers) and arctic (1 of 35) served at full width,
     graphed against eager."""
     import torch
     from repro_torch.kernels import bfp_quantize as bq
@@ -3261,13 +3338,13 @@ def phase_moe(card: str) -> dict:
 # fed embeddings by a stub frontend. qwen2-vl-72b (M-RoPE, GQA 8, d_ff
 # 29,568, vocab 152,064) trains at 3 of its 80 layers on 1 x 4096 tokens
 # (3.879 B parameters: 0.878 B a layer and a 1.246-B head, ~46.5 GB of f32
-# master and moments) and serves at 16 of 80 (15.29 B, the size llama4
-# served at 6 layers); musicgen-large (four codebook heads of 2,048 words)
-# trains and serves at 24 of its 48 layers (cut from 48 for time), on 2 x
+# master and moments) and serves at 8 of 80 (16 until PR 30);
+# musicgen-large (four codebook heads of 2,048 words) trains and serves
+# at 12 of its 48 layers (48, then 24, cut for the script's time), on 2 x
 # 1536 frames (MusicGen trains on 30-s segments of 1,500 frames at 50
 # Hz). (name, layers (0 = all), B, S)
-VA_TRAIN = (("qwen2-vl-72b", 3, 1, 4096), ("musicgen-large", 24, 2, 1536))
-VA_SERVE = (("qwen2-vl-72b", 16), ("musicgen-large", 24))
+VA_TRAIN = (("qwen2-vl-72b", 3, 1, 4096), ("musicgen-large", 12, 2, 1536))
+VA_SERVE = (("qwen2-vl-72b", 8), ("musicgen-large", 12))
 # served: 8 lanes, a slab cache of 1,024 slots, a prefill of 512 seeded
 # frames a lane, then VA_TICKS decode ticks on seeded next-frame
 # embeddings (no token feedback: the frontend supplies each frame); the
@@ -3528,7 +3605,7 @@ def phase_vlm_audio(card: str) -> dict:
     (M = 4096 and 3072, qwen2-vl's head at its CE chunk's 2048, the
     heads included) against their plain versions,
     routes checked; (c) qwen2-vl at full width, 3 of 80 layers, and (d)
-    musicgen at 24 of 48, trained through the Trainer (exact B1-B6 launches
+    musicgen at 12 of 48, trained through the Trainer (exact B1-B6 launches
     on their tensor-core routes, step-0 loss within 2% of fp32); (e) both
     served at full width through the serve-step stages, the decode tick
     graphed against eager."""
@@ -4754,13 +4831,14 @@ def _acc_full(card: str, family: str, n_layers: int, bound: float) -> dict:
 
 def _acc_cpu_start():
     """Start (a)'s CPU half: the smoke grid's rows dealt out to
-    ACC_CPU_PROCS processes of ACC_CPU_THREADS threads; (the pool, the
-    futures of their losses)."""
+    ACC_CPU_PROCS processes of ACC_CPU_THREADS threads at the lowest CPU
+    priority; (the pool, the futures of their losses)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(ACC_CPU_PROCS,
                                mp_context=multiprocessing.get_context(
-                                   "spawn"))
+                                   "spawn"), initializer=os.nice,
+                               initargs=(19,))
     names = [r[0] for r in ACC_ROWS]
     return pool, [pool.submit(_acc_smoke_losses, "cpu",
                               names[i::ACC_CPU_PROCS], ACC_CPU_THREADS)
@@ -5023,7 +5101,7 @@ def _dist_resume(mesh, out: str, rank: int) -> dict:
     (step 3 from its state), and a run resumed from the step-2
     checkpoint that writes the step-4 one; rank 0 then loads that
     checkpoint in one process. (At full width a checkpoint of gemma2-2b
-    at 4 layers is ~18 GB of f32 master and moments, and one call of the
+    at 2 layers is ~16 GB of f32 master and moments, and one call of the
     card's tool may write 45 GiB in all, of which the earlier phases'
     checkpoints take ~37.)"""
     import dataclasses
@@ -5070,7 +5148,7 @@ def _dist_resume(mesh, out: str, rank: int) -> dict:
 
 
 def dist_rank(rank: int, n: int, port: int, out: str) -> int:
-    """`--dist-rank RANK N PORT DIR`: one rank of the dist phase (c) and
+    """`--dist-rank RANK N DIR`: one rank of the dist phase (c) and
     (d); writes DIR/rank<RANK>.json."""
     import torch
     import torch.distributed as dist
@@ -5153,7 +5231,7 @@ def phase_dist(card: str) -> dict:
     arch, depth, _, _ = _dist_setup()
     b7 = _dist_b7_cases(arch)
     nccl = _dist_nccl(card)
-    out = os.path.join(ROOT, "build", "dist_ranks")
+    out = _ranks_dir("dist_ranks")
     ranks_s = _run_ranks("--dist-rank", DIST_RANKS, out)
     ranks = []
     for r in range(DIST_RANKS):
@@ -5508,7 +5586,7 @@ def _tp_mesh_run(mesh, arch, data, sched, sp: bool, one: dict,
 
 
 def tp_rank(rank: int, n: int, port: int, out: str) -> int:
-    """`--tp-rank RANK N PORT DIR`: one rank of the tp phase (a)-(c) on a
+    """`--tp-rank RANK N DIR`: one rank of the tp phase (a)-(c) on a
     {data 1, model N} mesh of one card; writes DIR/tp<RANK>.json. Both
     ranks first take each configuration in one process at once, keeping
     their model part of its master on the host, then train it on the
@@ -5551,14 +5629,14 @@ def tp_rank(rank: int, n: int, port: int, out: str) -> int:
     return 0
 
 
-def phase_tp(card: str) -> dict:
+def phase_tp(card: str, world=None) -> dict:
     """ROADMAP A13's second half on the card (the module docstring's
-    11f)."""
+    11f); `world`: its ranks, `_spawn_ranks`'s, or None."""
     t0 = time.perf_counter()
     amax = _tp_amax_cases(card)
     amax_s = time.perf_counter() - t0
-    out = os.path.join(ROOT, "build", "tp_ranks")
-    ranks_s = _run_ranks("--tp-rank", TP_RANKS, out)
+    out = _ranks_dir("tp_ranks")
+    ranks_s = _run_ranks("--tp-rank", TP_RANKS, out, procs=world)
     ranks = []
     for r in range(TP_RANKS):
         with open(os.path.join(out, f"tp{r}.json")) as f:
@@ -6041,7 +6119,7 @@ def _sr_rank_pair(mesh, arch, data, sched, out, tag, rank, n, barrier,
 
 
 def pod_rank(rank: int, n: int, port: int, out: str) -> int:
-    """`--pod-rank RANK N PORT DIR`: one rank of the pod phase on
+    """`--pod-rank RANK N DIR`: one rank of the pod phase on
     {pod 2, data 1, model 2} (the module docstring's 11g); writes
     DIR/pod<RANK>.json."""
     import torch
@@ -6065,25 +6143,65 @@ def pod_rank(rank: int, n: int, port: int, out: str) -> int:
     return 0
 
 
-def _run_ranks(flag: str, n: int, out: str, timeout: int = 600) -> float:
-    """Start `n` rank processes of this script (`flag` RANK N PORT OUT),
-    two or more gloo ranks sharing the card (expandable segments keep
-    each rank's freed blocks usable by the next run's other sizes), and
-    wait for them; returns their wall seconds. A rank that fails or
-    outlives `timeout` fails the phase (the others are stopped)."""
-    import torch
+def _ranks_dir(name: str) -> str:
+    return os.path.join(ROOT, "build", name)
+
+
+def _spawn_ranks(flag: str, n: int, out: str) -> list:
+    """Start `n` rank processes of this script (`flag` RANK N OUT), two or
+    more gloo ranks sharing the card (expandable segments keep each rank's
+    freed blocks usable by the next run's other sizes). Each takes the
+    card, loads the kernels' libraries and waits in `_await_go` until
+    `_run_ranks` lets the world go, so a world started during the phase
+    before its own starts up meanwhile. Returns the processes."""
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    gc.collect()
-    torch.cuda.empty_cache()
-    port = _free_port()
-    t0 = time.perf_counter()
     env = dict(os.environ,
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r), str(n),
-         str(port), out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=env) for r in range(n)]
+         out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(n)]
+
+
+def _await_go(out: str) -> int:
+    """A rank process's start-up (`_spawn_ranks`): the card, the modules
+    the ranks run and the kernels' libraries, then a wait for OUT/go,
+    which holds the port of the world's store; returns it. Exits when the
+    script that started it is gone."""
+    import torch
+    import repro_torch.train  # noqa: F401
+    from repro_torch.kernels import hbfp_matmul as hm
+    torch.zeros(1, device="cuda")
+    for name in hm.SOURCES:
+        hm.load(name)
+    parent = os.getppid()
+    go = os.path.join(out, "go")
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            raise SystemExit("chip_smoke rank: the script that started it "
+                             "is gone")
+        time.sleep(0.05)
+    with open(go) as f:
+        return int(f.read())
+
+
+def _run_ranks(flag: str, n: int, out: str, timeout: int = 600,
+               procs=None) -> float:
+    """Let a world of `n` rank processes go (`procs`, `_spawn_ranks`'s;
+    started now when None) on a free port, and wait for them; returns
+    their wall seconds from the go. A rank that fails or outlives
+    `timeout` fails the phase (the others are stopped)."""
+    import torch
+    if procs is None:
+        procs = _spawn_ranks(flag, n, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    go = os.path.join(out, "go")
+    with open(go + ".tmp", "w") as f:
+        f.write(str(_free_port()))
+    os.replace(go + ".tmp", go)
+    t0 = time.perf_counter()
     texts = []
     for p in procs:
         try:
@@ -6098,14 +6216,15 @@ def _run_ranks(flag: str, n: int, out: str, timeout: int = 600) -> float:
     return time.perf_counter() - t0
 
 
-def phase_pod(card: str) -> dict:
+def phase_pod(card: str, world=None) -> dict:
     """ROADMAP slice 19's pod mesh on the card (the module docstring's
     11g): four gloo ranks of the card on {pod 2, data 1, model 2},
     gemma2-2b at full width and SR_POD_LAYERS of 26 layers, 1 x 2048
     tokens a data rank, under SR_SPEC with a telemetry step every
-    SR_POD_CADENCE (B7 narrowing each shard), held to one process."""
-    out = os.path.join(ROOT, "build", "pod_ranks")
-    secs = _run_ranks("--pod-rank", SR_POD_RANKS, out)
+    SR_POD_CADENCE (B7 narrowing each shard), held to one process;
+    `world`: its ranks, `_spawn_ranks`'s, or None."""
+    out = _ranks_dir("pod_ranks")
+    secs = _run_ranks("--pod-rank", SR_POD_RANKS, out, procs=world)
     ranks = []
     for r in range(SR_POD_RANKS):
         with open(os.path.join(out, f"pod{r}.json")) as f:
@@ -6128,6 +6247,425 @@ def phase_pod(card: str) -> dict:
                       ranks[0]["depth"])
     log(f"[pod] the ranks {secs:.1f} s | {card}")
     return dict(ranks=ranks, ranks_s=secs, check=check)
+
+
+# -- sharded serving (ROADMAP slice 20) ---------------------------------------
+
+def _shard_policy():
+    from repro_torch.precision import as_policy
+    return as_policy(SHARD_SPEC)
+
+
+class _FlashRec:
+    """While open, records layer 0's flash call of each prefill (q, k, v
+    and the output, on the host): `models.attention.flash_mha` wrapped."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.orig, self.calls = attention, attention.flash_mha, []
+
+    def __enter__(self):
+        def rec(q, k, v, ctx):
+            out = self.orig(q, k, v, ctx)
+            if not self.calls:
+                self.calls.append([t.detach().cpu() for t in (q, k, v, out)])
+            return out
+        self.mod.flash_mha = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_mha = self.orig
+
+
+def _shard_inputs(cfg, vocab, dev):
+    """The seeded prompts [B, S] (int32) of a shard run."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(2026)
+    return torch.randint(0, vocab, (cfg["B"], cfg["S"]), generator=g,
+                         device=dev, dtype=torch.int32)
+
+
+def _shard_run(arch, params, cfg, prompts, dev, layout=None, feed=None):
+    """Prefill the prompts and take cfg["ticks"] greedy decode ticks, in one
+    process (`layout` None: its own greedy tokens feed the ticks) or as
+    this rank's part (`ServeLayout`, its batch rows and shards, the ticks
+    fed `feed`, [ticks, B, 1], one process's greedy tokens). Returns
+    (logits on the host, one [B_local, 1, V] a stage, the greedy tokens
+    [ticks, B_local, 1], the rows of the global batch, the cache, layer
+    0's flash record, seconds)."""
+    import torch
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.train import serve_step as tss
+    B, S, C, T = cfg["B"], cfg["S"], cfg["ctx"], cfg["ticks"]
+    batch = {"tokens": prompts}
+    if layout is None:
+        pctx = dctx = tss._serve_ctx(arch, _shard_policy(), dev)()
+        local = lambda b: b
+        rows = slice(0, B)
+    else:
+        pctx = layout.ctx(B, prefill=True)
+        dctx = layout.ctx(B, C)
+        local = layout.local_batch
+        k = B // layout.n if layout.data_part(B) is not None else B
+        r0 = layout.rank * k if layout.data_part(B) is not None else 0
+        rows = slice(r0, r0 + k)
+    logits, greedy = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), _FlashRec() as rec:
+        # no positions: the standard layout, so the prefill takes flash
+        lg, cache = prefill(params, local(batch), arch, pctx)
+    with torch.no_grad():
+        cache = tss.prefill_to_decode_cache(cache, arch, C) \
+            if layout is None else layout.decode_cache(cache, B, C)
+        for t in range(T + 1):
+            logits.append(lg.float().cpu())
+            if t == T:
+                break
+            mine = lg.float().argmax(-1).to(torch.int32)      # [b, 1]
+            greedy.append(mine)
+            tb = {"tokens": mine if feed is None else feed[t],
+                  "positions": torch.full((B, 1), S + t, dtype=torch.int32,
+                                          device=dev)}
+            lg, cache = decode_step(params, local(tb), cache, arch, dctx)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    own = torch.stack(greedy).cpu() if greedy else None
+    return logits, own, rows, cache, rec.calls[0] if rec.calls else None, \
+        secs
+
+
+def _margin_ok(one_logits, got_logits, tol):
+    """(max |got - one| / max |one| over the stages, the greedy tokens
+    equal wherever one process's top-2 margin exceeds tol · max|one|,
+    the count of positions so checked)."""
+    import torch
+    worst, ok, checked = 0.0, True, 0
+    for a, b in zip(one_logits, got_logits):
+        scale = float(a.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / scale)
+        top = a.topk(2, dim=-1).values
+        sure = (top[..., 0] - top[..., 1]) > tol * scale
+        same = a.argmax(-1) == b.argmax(-1)
+        ok &= bool(same[sure].all())
+        checked += int(sure.sum())
+    return worst, ok, checked
+
+
+def _shard_rank_run(rank, n, out, dev="cuda", arch=None, cfg=None):
+    """One rank of the shard phase's (a) (n 4) or (b) (n 8): the body of
+    `--shard-rank`, on the default process group already started."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.serve_step import (ServeLayout,
+                                              narrow_serving_params)
+    cfg = cfg or (SHARD_A if n == 4 else SHARD_B)
+    mesh = init_device_mesh(dev, (cfg["data"], cfg["model"]),
+                            mesh_dim_names=("data", "model"))
+    depth = None
+    if arch is None:
+        arch, depth = _at_depth(SHARD_ARCH, cfg["layers"])
+    B, T = cfg["B"], cfg["ticks"]
+    prompts = _shard_inputs(cfg, arch.vocab_size, dev)
+    res = dict(rank=rank, n=n, depth=depth, backend=str(dist.get_backend()))
+
+    def whole():
+        return narrow_serving_params(init_params(0, arch, device=dev), arch,
+                                     _shard_policy())
+
+    # one process: every rank at once in (a); rank 0 alone in (b), the
+    # others waiting with nothing on the card (its ring is 17 GB)
+    one = None
+    feed = torch.zeros((T, B, 1), dtype=torch.int32, device=dev)
+    if n == 4 or rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = whole()
+        lg, own, _, cache, flash, secs = _shard_run(arch, params, cfg,
+                                                    prompts, dev)
+        one = dict(logits=lg, flash=flash, seconds=secs,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        feed.copy_(own.to(dev))
+        if n == 8:
+            kv = cache["kv"]
+            c = kv.k.shape[3] // n
+            one["prints"] = {f"kv/{f}": [
+                _fingerprint(getattr(kv, f).narrow(3, r * c, c))
+                for r in range(n)] for f in ("k", "v")}
+            one["prints"]["kv/slot_pos"] = _fingerprint(kv.slot_pos)
+            del kv
+        del params, cache
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.broadcast(feed, src=0)     # (b): one process's tokens to all
+    lay = ServeLayout(arch, mesh, _shard_policy(), dev)
+    params = lay.shard_params(whole())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    lg, _, rows, cache, flash, secs = _shard_run(arch, params, cfg, prompts,
+                                                 dev, lay, feed)
+    counts, plain = _counts()
+    res.update(seconds=secs, launches=counts, plain_calls=plain,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               kv=lay.cache_layout(B, cfg["ctx"]).kv,
+               replicated=sorted(lay.replicated),
+               collectives=lay.model.bytes_by_kind() if lay.model else {},
+               collective_s=lay.model.seconds_by_kind() if lay.model
+               else {})
+    if one is not None:
+        one_rows = [t[rows] for t in one["logits"]]
+        worst, ok, checked = _margin_ok(one_rows, lg, SHARD_TOL)
+        res.update(logits_rel=worst, greedy_equal=ok, greedy_checked=checked,
+                   one_seconds=one["seconds"], one_peak_gib=one["peak_gib"])
+    if n == 4:
+        # layer 0's flash inputs and output: this rank's rows and heads
+        # (all heads where the layout keeps attention replicated)
+        hq, hk = flash[0].shape[1], flash[1].shape[1]
+        rm = lay.rank_m if hq < one["flash"][0].shape[1] else 0
+        cut = lambda t, h: t[rows, rm * h:(rm + 1) * h]
+        res["flash_equal"] = {
+            name: bool(torch.equal(flash[i], cut(one["flash"][i],
+                                                 hq if i in (0, 3) else hk)))
+            for i, name in enumerate(("q", "k", "v", "out"))}
+        res["flash_heads"] = [hq, hk]
+    else:
+        kv = cache["kv"]
+        res["prints"] = {"kv/k": _fingerprint(kv.k), "kv/v": _fingerprint(kv.v),
+                         "kv/slot_pos": _fingerprint(kv.slot_pos)}
+        res["logits_print"] = _fingerprint(torch.cat(lg))
+        res["real_bytes"] = tree_bytes(params) + tree_bytes(cache) + \
+            tree_bytes(lay.local_batch({
+                "tokens": feed[0],
+                "positions": torch.zeros((B, 1), dtype=torch.int32,
+                                         device=dev)}))
+        if one is not None:
+            res["one_prints"] = one["prints"]
+    del params, cache
+    with open(os.path.join(out, f"shard{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return res
+
+
+def shard_rank(rank: int, n: int, port: int, out: str) -> int:
+    """`--shard-rank RANK N DIR`: one rank of the shard phase's (a)
+    (N = 4) or (b) (N = 8); writes DIR/shard<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.transport import init_process_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group(rank, n, port)
+    _shard_rank_run(rank, n, out)
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_dry(out: str) -> int:
+    """`--shard-dry OUT`: the shard phase's (c), the dry run's SHARD_DRY
+    cells of yi-9b at the production mesh (single pod), both tracks, on
+    fake tensors on the card's device type; writes OUT."""
+    from repro_torch.launch import dryrun
+    recs = {}
+    for shape in SHARD_DRY:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(SHARD_ARCH, shape, False, device="cuda")
+        rec["wall_s"] = round(time.perf_counter() - t0, 1)
+        recs[f"{SHARD_ARCH}|{shape}|single"] = rec
+        with open(out, "w") as f:
+            json.dump(recs, f, indent=1)
+    return 0
+
+
+def _shard_dry_start():
+    """Start (c) in a process of this script beside the other phases, at
+    the lowest CPU priority (one busy core of fake-tensor dispatch for
+    ~3-4 min, which would otherwise slow the launch-bound phases it
+    overlaps): (the process, its output file; its log beside it)."""
+    path = os.path.join(ROOT, "build", "shard_dry.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    with open(path + ".log", "w") as logf:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--shard-dry", path], stdout=logf,
+                                stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+    return proc, path
+
+
+def _shard_cross_check(card: str, rank0: dict, dev: str = "cuda") -> dict:
+    """(b)'s dry-run cross-check: `launch.dryrun.build_cell` of the
+    decode_32k cell at SHARD_B's depth on a fake group of its ranks and
+    mesh; its argument bytes must equal rank 0's real ones."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.formats import HBFP8_16
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.transport import init_fake_process_group
+    arch = _at_depth(SHARD_ARCH, SHARD_B["layers"])[0]
+    init_fake_process_group(SHARD_B["data"] * SHARD_B["model"])
+    try:
+        mesh = init_device_mesh("cpu", (SHARD_B["data"], SHARD_B["model"]),
+                                mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            cell = dryrun.build_cell(arch, "decode_32k", mesh,
+                                     _shard_policy(), device=dev)
+            args = dryrun.tree_bytes(cell.arguments)
+        # its memory track as the dry run runs it (HBFP8_16, the sim path)
+        mem = dryrun._run_memory(arch, "decode_32k", mesh, HBFP8_16, None,
+                                 torch.device(dev))
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    log(f"[shard] (b) dry run at {SHARD_B['layers']} layers on {{data "
+        f"{SHARD_B['data']}, model {SHARD_B['model']}}}: argument bytes "
+        f"{args} vs rank 0's real {rank0['real_bytes']}; its total "
+        f"{mem['per_device_total_gib']} GiB (args "
+        f"{mem['argument_bytes'] / 2**30:.3f}, outputs "
+        f"{mem['output_bytes'] / 2**30:.3f}, temps "
+        f"{mem['temp_bytes'] / 2**30:.3f}) beside rank 0's real peak "
+        f"{rank0['peak_gib']:.3f} GiB; {secs:.1f} s | {card}")
+    if args != rank0["real_bytes"]:
+        fail(f"shard (b): the dry run's argument bytes {args} != rank 0's "
+             f"{rank0['real_bytes']}")
+    return dict(argument_bytes=args, memory=mem, seconds=secs)
+
+
+def _shard_check(tag: str, card: str, ranks: list, want: dict) -> None:
+    """The checks every shard run shares: routes, counts, logits, greedy
+    tokens (on the ranks that hold one process's logits)."""
+    for res in ranks:
+        r = res["rank"]
+        log(f"[shard {tag} rank {r}] {res['backend']}, {res['depth']}: "
+            f"{res['seconds']:.2f} s, peak {res['peak_gib']:.2f} GiB, cache "
+            f"split {res['kv']}; launches {res['launches']}; collectives "
+            f"on model {res['collectives']} bytes, "
+            f"{ {k: round(v, 2) for k, v in res['collective_s'].items()} } "
+            f"s | {card}")
+        if res["backend"] != "gloo":
+            fail(f"shard {tag}: ranks sharing one card took {res['backend']}")
+        got = {k: res["launches"].get(k, 0) for k in want}
+        if got != want or res["plain_calls"]:
+            fail(f"shard {tag} rank {r}: launches {got} != {want} or plain "
+                 f"calls {res['plain_calls']}")
+        routes = {k: {x.split("/")[1]: v for x, v in res["launches"].items()
+                      if x.startswith(k + "/")}
+                  for k in ("hbfp_matmul_fwd", "hbfp_flash_fwd")}
+        b4 = next(k.split("/")[1] for k in want
+                  if k.startswith("hbfp_flash_fwd/"))
+        if not _all_on({"b1": routes["hbfp_matmul_fwd"]}, "bf16_wgmma") or \
+                not _all_on({"b4": routes["hbfp_flash_fwd"]}, b4):
+            fail(f"shard {tag} rank {r}: a launch off its route "
+                 f"{res['launches']}")
+        if "logits_rel" in res:
+            log(f"[shard {tag} rank {r}] against one process "
+                f"({res['one_seconds']:.2f} s, peak "
+                f"{res['one_peak_gib']:.2f} GiB): logits within rel "
+                f"{res['logits_rel']:.3g} (tol {SHARD_TOL}), greedy tokens "
+                f"equal {res['greedy_equal']} at {res['greedy_checked']} "
+                f"sure positions | {card}")
+            if res["logits_rel"] > SHARD_TOL or not res["greedy_equal"]:
+                fail(f"shard {tag} rank {r}: logits {res['logits_rel']} or "
+                     f"greedy tokens {res['greedy_equal']}")
+
+
+def _shard_want(cfg) -> dict:
+    """B1 and B4 launches a rank of a shard run: 7L + 1 a prefill and a
+    tick, L flash calls a prefill (one a layer, on the rank's heads), B4
+    on the route its prompt length gives (`flash_route`: S % 128 == 0
+    for int8 wgmma, so (b)'s 64-token prompts take the CUDA cores)."""
+    from repro_torch.kernels.hbfp_flash_attn import flash_route
+    L, S = cfg["layers"], cfg["S"]
+    blk = min(128, S)
+    b1 = (7 * L + 1) * (1 + cfg["ticks"])
+    b4 = flash_route(m_qk=8, m_pv=8, S=S, hd=128, bq=blk, bk=blk)
+    return {"hbfp_matmul_fwd": b1, "hbfp_matmul_fwd/bf16_wgmma": b1,
+            "hbfp_flash_fwd": L, f"hbfp_flash_fwd/{b4}": L}
+
+
+def phase_shard(card: str, dry=None, world=None) -> dict:
+    """ROADMAP slice 20 on the card (the module docstring's 11h); `dry`
+    (`_shard_dry_start`'s) is stopped if a check fails; `world`: (a)'s
+    ranks, `_spawn_ranks`'s, or None."""
+    if dry is None:
+        dry = _shard_dry_start()
+    try:
+        return _phase_shard(card, dry, world)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+
+
+def _phase_shard(card: str, dry, world) -> dict:
+    t0 = time.perf_counter()
+    runs = {}
+    worlds = {"a": world}
+    for tag, n, cfg in (("a", 4, SHARD_A), ("b", 8, SHARD_B)):
+        out = _ranks_dir(f"shard_{tag}")
+        if worlds[tag] is None:
+            worlds[tag] = _spawn_ranks("--shard-rank", n, out)
+        if tag == "a":     # (b)'s ranks start up during (a)
+            worlds["b"] = _spawn_ranks("--shard-rank", 8,
+                                       _ranks_dir("shard_b"))
+        secs = _run_ranks("--shard-rank", n, out, procs=worlds[tag])
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out, f"shard{r}.json")) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(out, ignore_errors=True)
+        _shard_check(tag, card, ranks, _shard_want(cfg))
+        runs[tag] = dict(ranks=ranks, seconds=secs)
+        log(f"[shard] ({tag}) {n} ranks in {secs:.1f} s | {card}")
+    for res in runs["a"]["ranks"]:
+        log(f"[shard a rank {res['rank']}] layer 0's q, k, v and flash "
+            f"output on {res['flash_heads']} query / kv heads bit-equal to "
+            f"one process's: {res['flash_equal']}")
+        if not all(res["flash_equal"].values()):
+            fail(f"shard (a) rank {res['rank']}: {res['flash_equal']}")
+    b = runs["b"]["ranks"]
+    one = b[0]["one_prints"]
+    for res in b:
+        r = res["rank"]
+        want = {"kv/k": one["kv/k"][r], "kv/v": one["kv/v"][r],
+                "kv/slot_pos": one["kv/slot_pos"]}
+        if res["prints"] != want or res["kv"] != "seq":
+            fail(f"shard (b) rank {r}: cache part {res['prints']} != one "
+                 f"process's slice {want} (split {res['kv']})")
+        if res["logits_print"] != b[0]["logits_print"]:
+            fail(f"shard (b) rank {r}: logits differ from rank 0's")
+    log(f"[shard] (b) every rank's cache part (k, v: 4,096 of 32,768 slots) "
+        f"and the whole slot_pos bit-equal to one process's slice; the "
+        f"ranks' logits alike | {card}")
+    cross = _shard_cross_check(card, b[0])
+    proc, path = dry
+    proc.wait(timeout=900)
+    if proc.returncode != 0:
+        with open(path + ".log") as f:
+            fail(f"shard (c): the dry run exited {proc.returncode}:\n"
+                 f"{f.read()[-3000:]}")
+    with open(path) as f:
+        cells = json.load(f)
+    for cell, rec in cells.items():
+        m = rec.get("memory", {})
+        r = rec.get("roofline", {})
+        log(f"[shard] (c) {cell}: {rec['status']}, trace_s {rec.get('trace_s')}"
+            f", wall {rec['wall_s']} s; per device args "
+            f"{m.get('argument_bytes', 0) / 2**30:.2f} GiB, total "
+            f"{m.get('per_device_total_gib')} GiB; roofline bound "
+            f"{r.get('bottleneck')} {r.get('step_time_lower_bound_s', 0):.4g}"
+            f" s (fake tensors on the card's host) | {card}")
+        if rec["status"] != "ok":
+            fail(f"shard (c): {cell} {rec}")
+    log(f"[shard] phase {time.perf_counter() - t0:.1f} s | {card}")
+    return dict(runs=runs, cross=cross, dry=cells)
 
 
 def phase_sr_kernels(card: str) -> dict:
@@ -6264,7 +6802,7 @@ def _quant_entry(rows, adapt, train_sr, dist, pod):
     x (one read, one write) is the yardstick. The dist phase adds its
     compressed reduces' launches (two ranks and the one-rank NCCL group)
     and its times at the gradients' (1, 512) tiling ("grad_tiling_*",
-    summed over gemma2-2b's distinct gradient operands at 4 layers)."""
+    summed over gemma2-2b's distinct gradient operands at DIST_LAYERS)."""
     main = [r for r in rows
             if r["input"] == "randn" and r["case"].endswith("_t24_m4")]
     tel_sr = train_sr["proofs"]["telemetry"]
@@ -6325,22 +6863,28 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    if sys.argv[1:2] == ["--dist-rank"] and len(sys.argv) == 6:
-        return dist_rank(int(sys.argv[2]), int(sys.argv[3]),
-                         int(sys.argv[4]), sys.argv[5])
-    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 6:
-        return tp_rank(int(sys.argv[2]), int(sys.argv[3]),
-                       int(sys.argv[4]), sys.argv[5])
-    if sys.argv[1:2] == ["--pod-rank"] and len(sys.argv) == 6:
-        return pod_rank(int(sys.argv[2]), int(sys.argv[3]),
-                        int(sys.argv[4]), sys.argv[5])
+    ranks = {"--dist-rank": dist_rank, "--tp-rank": tp_rank,
+             "--pod-rank": pod_rank, "--shard-rank": shard_rank}
+    if sys.argv[1:2] and sys.argv[1] in ranks and len(sys.argv) == 5:
+        port = _await_go(sys.argv[4])
+        return ranks[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), port,
+                                  sys.argv[4])
+    if sys.argv[1:2] == ["--shard-dry"] and len(sys.argv) == 3:
+        return shard_dry(sys.argv[2])
     t0 = time.perf_counter()
     name, card = phase_device()
-    build = phase_build()
+    # the shard phase's dry-run cells (CPU only) run beside the others
+    whole = sys.argv[1:] == []
+    shard_dry_proc = _shard_dry_start() if whole else None
+    # a whole run builds the flash library, the slowest, beside the bwd
+    # and autotune phases, which launch none of its kernels
+    build, build_rest = phase_build(("hbfp_flash_attn",) if whole else ())
+    if not whole:
+        build = build_rest()
     phases = {"recurrent": phase_recurrent, "moe": phase_moe,
               "vlm_audio": phase_vlm_audio, "autotune": phase_autotune,
               "dist": phase_dist, "tp": phase_tp, "pod": phase_pod,
-              "sr_kernels": phase_sr_kernels}
+              "shard": phase_shard, "sr_kernels": phase_sr_kernels}
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] and \
             sys.argv[2] in phases:
         out = phases[sys.argv[2]](card)
@@ -6351,24 +6895,27 @@ def main() -> int:
         log(f"[time] --phase {sys.argv[2]} done at "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    # the accuracy phase's CPU half runs from here on, at the lowest CPU
+    # priority, beside the kernel and training phases
+    acc_cpu = _acc_cpu_start()
     bwd = phase_bwd()
     log(f"[time] bwd kernels done at {time.perf_counter() - t0:.1f} s")
     at = phase_autotune(card)
     log(f"[time] autotune done at {time.perf_counter() - t0:.1f} s")
+    build = build_rest()
     flash = phase_flash()
     log(f"[time] flash kernels done at {time.perf_counter() - t0:.1f} s")
     quant = phase_quantize()
     log(f"[time] quantize kernel done at {time.perf_counter() - t0:.1f} s")
-    # the accuracy phase's CPU half runs beside the training phases
-    acc_cpu = _acc_cpu_start()
     train_smoke = {a: phase_train(a) for a in ("gemma2-2b", "yi-9b")}
     from repro_torch.kernels.common import fold_in
     train_smoke["gemma2-2b stochastic"] = phase_train(
         "gemma2-2b", SR_SPEC, fold_in(fold_in(0, SR_SEED), 0))
     adapt_smoke = phase_adaptive_smoke()
     log(f"[time] smoke training done at {time.perf_counter() - t0:.1f} s")
-    train = phase_train_full(card, "gemma2-2b", 2, 2048)
-    # yi-9b: 16 of 48 layers, so f32 master, AdamW moments and grads fit
+    train = phase_train_full(card, "gemma2-2b", 2, 2048,
+                             n_layers=GEMMA_LAYERS)
+    # yi-9b: YI_LAYERS of 48 layers, so f32 master, AdamW moments and grads fit
     train_yi = phase_train_full(card, "yi-9b", 1, 4096, n_layers=YI_LAYERS)
     log(f"[time] training done at {time.perf_counter() - t0:.1f} s")
     train_sr = phase_train_sr(card, train)
@@ -6389,12 +6936,20 @@ def main() -> int:
     log(f"[time] moe done at {time.perf_counter() - t0:.1f} s")
     va = phase_vlm_audio(card)
     log(f"[time] vlm_audio done at {time.perf_counter() - t0:.1f} s")
+    # each gloo world after the first starts up during the phase before
+    tp_world = _spawn_ranks("--tp-rank", TP_RANKS, _ranks_dir("tp_ranks"))
     dist = phase_dist(card)
     log(f"[time] dist done at {time.perf_counter() - t0:.1f} s")
-    tp = phase_tp(card)
+    pod_world = _spawn_ranks("--pod-rank", SR_POD_RANKS,
+                             _ranks_dir("pod_ranks"))
+    tp = phase_tp(card, tp_world)
     log(f"[time] tp done at {time.perf_counter() - t0:.1f} s")
-    pod = phase_pod(card)
+    shard_world = _spawn_ranks("--shard-rank", SHARD_A["data"]
+                               * SHARD_A["model"], _ranks_dir("shard_a"))
+    pod = phase_pod(card, pod_world)
     log(f"[time] pod done at {time.perf_counter() - t0:.1f} s")
+    shard = phase_shard(card, shard_dry_proc, shard_world)
+    log(f"[time] shard done at {time.perf_counter() - t0:.1f} s")
     bwd = bwd + rec["kernel_rows"] + moe["kernel_rows"] + va["kernel_rows"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -6406,7 +6961,7 @@ def main() -> int:
                    "adaptive_full": adapt, "accuracy": acc,
                    "serve": serve, "recurrent": rec, "moe": moe,
                    "vlm_audio": va, "autotune": at, "dist": dist,
-                   "tp": tp, "pod": pod},
+                   "tp": tp, "pod": pod, "shard": shard},
                   f, indent=1)
     tick = [c for c in cases if c["config"] == "served" and c["M"] == 8
             and c["x_dtype"] == "bfloat16"]
@@ -6451,9 +7006,15 @@ def main() -> int:
                   for a, r in (*rec["serve"].items(),
                                *moe["serve"].items(),
                                *va["serve"].items())}
+    # ROADMAP slice 20's sharded serving, every rank: B1 all bf16 wgmma,
+    # B4 (the prefills' flash on each rank's heads) all int8 wgmma
+    shard_runs = lambda k: {f"shard_{t}": sum(r["launches"][k]
+                                              for r in run["ranks"])
+                            for t, run in shard["runs"].items()}
     b1_paths = {"serve": serve_launches, **rec_served,
                 "autotune_serve_yi": at["serve"]["launches"],
-                **by_path("hbfp_matmul_fwd")}
+                **by_path("hbfp_matmul_fwd"),
+                **shard_runs("hbfp_matmul_fwd")}
     # main-path launches by route: training, the adaptive run and the
     # accuracy runs counted per route; every served launch was checked to
     # be bf16 wgmma
@@ -6472,7 +7033,9 @@ def main() -> int:
         for r in ("int8_wgmma", "bf16_wgmma", "cuda_core")}
     b1_train = _bwd_entry("hbfp_matmul_fwd", bwd, {}, "", "",
                           by_route("hbfp_matmul_fwd", serve_launches
-                                   + sum(rec_served.values())))
+                                   + sum(rec_served.values())
+                                   + sum(shard_runs("hbfp_matmul_fwd")
+                                         .values())))
     b1 = {
         "name": "hbfp_matmul_fwd", "route": "cuda",
         "source": src + "hbfp_matmul_fwd.cu",
@@ -6511,12 +7074,16 @@ def main() -> int:
                              + acc_route(k, r) + moe["train"]["routes"][k][r]
                              + sum(t["routes"][k][r]
                                    for t in va_train.values())
+                             + sum(x["launches"].get(f"{k}/{r}", 0)
+                                   for run in shard["runs"].values()
+                                   for x in run["ranks"])
                              for r in ("int8_wgmma", "cuda_core")}
     b456 = [_flash_entry(k, flash, {
                 "train_yi": train_yi["launches"][k],
                 "adaptive_yi": adapt["launches"][k], **acc_paths(k),
                 "train_llama4": moe["train"]["launches"][k],
-                **{p: t["launches"][k] for p, t in va_train.items()}},
+                **{p: t["launches"][k] for p, t in va_train.items()},
+                **shard_runs(k)},
                          fref + line,
                          src + ("hbfp_flash_fwd_sm90.cuh"
                                 if k == "hbfp_flash_fwd"

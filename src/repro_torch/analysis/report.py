@@ -6,6 +6,8 @@ and traffic tables, and a JSONL run-log (`obs.JSONLSink`), followed live
 text for the same input, but that the memory table asks whether a cell
 fits one H100's 80 GiB and the roofline table names Hopper's remedies.
 
+    python -m repro_torch.launch.dryrun --all --mesh both \
+        --out results/dryrun.json        # the port's dry run writes it
     python -m repro_torch.analysis.report results/dryrun.json
     python -m repro_torch.analysis.report --numerics results/numerics.json
     python -m repro_torch.analysis.report --serve BENCH_serve.json

@@ -8,8 +8,13 @@ The inputs are per-device numbers, as the reference's: each term divides
 by one card's peak (NVIDIA's H100 SXM data sheet, dense rates, at the
 full 700 W power limit; PERF.md §3). The reference reads its FLOPs,
 bytes and collective bytes from XLA's compiled dry-run artifacts
-(`cost_analysis_dict`, `collective_bytes_from_text` over the TPU's ICI);
-the port's dry run (ROADMAP slice 18) decides what it reads instead.
+(`cost_analysis_dict`, `collective_bytes_from_text` over the TPU's ICI).
+The port's dry run (`launch/dryrun.py`) runs rank 0's program on fake
+tensors and reads instead: the FLOPs of
+`torch.utils.flop_counter.FlopCounterMode` (the products only, where
+XLA also counts elementwise FLOPs), the sum of each non-view aten op's
+input and output bytes, and the collectives its transports record
+(`collective_bytes_from_records`).
 
 MODEL_FLOPS = 6·N·D for training (N params, D tokens), 2·N·D for inference
 forward passes (2·N_active·D for MoE) — the useful-work yardstick; the
@@ -24,6 +29,41 @@ PEAK_FLOPS_BF16 = 989e12
 PEAK_FLOPS_INT8 = 1979e12
 HBM_BW = 3.35e12
 NVLINK_BW_PER_DIR = 450e9   # NVLink 4: 900 GB/s both directions
+
+
+# all-reduce = reduce-scatter + all-gather ≈ 2× payload over the ring (the
+# reference's multipliers, by its HLO names)
+_KIND_MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+              "all-to-all": 1.0, "collective-permute": 1.0}
+# a transport record's kind -> (the HLO name, the result's bytes per
+# payload byte as a multiple of the group size g, else 1)
+_RECORD_KIND = {"all_reduce": ("all-reduce", False),
+                "all_reduce_max": ("all-reduce", False),
+                "all_reduce_min": ("all-reduce", False),
+                # the transport's reduce-scatter issues an all-reduce of
+                # the whole tensor (`launch.transport`): counted as issued
+                "reduce_scatter": ("all-reduce", False),
+                "all_gather": ("all-gather", True),
+                "gather": ("all-gather", True)}
+
+
+def collective_bytes_from_records(records) -> Dict:
+    """Per-device collective wire bytes from `launch.transport.Transport`
+    records (kind, payload bytes, group size, seconds), the port's
+    counterpart of `collective_bytes_from_text`: each collective's
+    result-shape bytes (a gather's payload times its group size g) ×
+    `_KIND_MULT` × (g − 1)/g, by the reference's kind names."""
+    by_kind: Dict[str, float] = {}
+    count: Dict[str, int] = {}
+    for kind, payload, g, *_ in records:
+        name, gathered = _RECORD_KIND[kind]
+        result = payload * g if gathered else payload
+        frac = (g - 1) / g if g > 1 else 0.0
+        by_kind[name] = by_kind.get(name, 0.0) + \
+            result * _KIND_MULT[name] * frac
+        count[name] = count.get(name, 0) + 1
+    return {"total_bytes": float(sum(by_kind.values())),
+            "by_kind": by_kind, "op_counts": count}
 
 
 def model_flops(arch, shape_name: str) -> float:

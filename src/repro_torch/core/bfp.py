@@ -79,20 +79,23 @@ def _pad_to(x: torch.Tensor, padded: Sequence[int]) -> torch.Tensor:
     return torch.nn.functional.pad(x, pad)
 
 
+def _tile_steps(x: torch.Tensor, mantissa_bits: int,
+                tile_shape: Sequence[Optional[int]]):
+    """(x zero-padded to whole tiles in its grouped view, one step δ a
+    tile broadcastable against it, the padded shape)."""
+    padded, grouped, axes, needs_pad = _tile_view(tuple(x.shape), tile_shape)
+    g = (_pad_to(x, padded) if needs_pad else x).reshape(grouped)
+    # |x| and its max are exact in x's dtype
+    amax = g.abs().amax(dim=axes, keepdim=True)
+    return g, pow2(_max_exponent(amax) - mantissa_bits + 2), padded
+
+
 def tile_scales(x: torch.Tensor, mantissa_bits: int,
                 tile_shape: Sequence[Optional[int]]) -> torch.Tensor:
     """Per-element quantization step δ, broadcast back to x.shape."""
-    padded, grouped, axes, needs_pad = _tile_view(tuple(x.shape), tile_shape)
-    ax = x.to(torch.float32).abs()
-    if needs_pad:
-        ax = _pad_to(ax, padded)
-    g = ax.reshape(grouped)
-    amax = g.amax(dim=axes, keepdim=True)
-    delta = pow2(_max_exponent(amax) - mantissa_bits + 2)
-    delta = delta.expand(grouped).reshape(padded)
-    if needs_pad:
-        delta = delta[tuple(slice(0, d) for d in x.shape)]
-    return delta
+    g, delta, padded = _tile_steps(x, mantissa_bits, tile_shape)
+    delta = delta.expand(g.shape).reshape(padded)
+    return delta[tuple(slice(0, d) for d in x.shape)]
 
 
 # elements whose uniforms one pass of stochastic rounding draws at once
@@ -124,15 +127,6 @@ def _round_stochastic(v: torch.Tensor, padded, key: int,
     return out.reshape(v.shape)
 
 
-def _round(v: torch.Tensor, rounding: str, key: Optional[int],
-           padded, base: Optional[IndexBase] = None) -> torch.Tensor:
-    if rounding == "stochastic":
-        if key is None:
-            raise ValueError("stochastic rounding requires a key")
-        return _round_stochastic(v, padded, key, base)
-    return torch.round(v)  # round-half-even
-
-
 def quantize(x: torch.Tensor, mantissa_bits: int,
              tile_shape: Sequence[Optional[int]],
              rounding: str = "nearest",
@@ -143,7 +137,9 @@ def quantize(x: torch.Tensor, mantissa_bits: int,
     Stochastic rounding needs an int `key`. `amax` ([..., 1], f32), for
     row tiles (1, ..., 1, None) only, is each row's group amax taken
     instead of the row's own (the global row max of a row whose features
-    are split over tensor-parallel ranks). `base` (a
+    are split over tensor-parallel ranks); for column tiles (1, ..., 1,
+    None, 1) it is [..., 1, N], each column's (the global amax of a
+    column split over the ranks along its rows). `base` (a
     `kernels.common.IndexBase` on the unpadded one-process operand) makes
     x that part of it: its draws are the one-process operand's at the
     part's elements (x's tiles must be whole tiles of that operand, or
@@ -151,21 +147,35 @@ def quantize(x: torch.Tensor, mantissa_bits: int,
     if mantissa_bits >= 24:
         return x
     dt = x.dtype
-    xf = x.to(torch.float32)
-    if amax is None:
-        delta = tile_scales(xf, mantissa_bits, tile_shape)
-    elif tuple(tile_shape) != (1,) * (x.ndim - 1) + (None,):
-        raise ValueError(f"a given amax needs row tiles, got "
-                         f"{tuple(tile_shape)}")
-    else:
-        delta = pow2(_max_exponent(amax) - mantissa_bits + 2)
     lim = float(2 ** (mantissa_bits - 1) - 1)
-    if is_whole(base, x.shape):
-        base = None
-    padded = padded_shape(x.shape if base is None else base.shape,
-                          tile_shape)
-    q = _round(xf / delta, rounding, key, padded, base).clamp(-lim, lim)
-    return (q * delta).to(dt)
+    if amax is None:
+        g, delta, padded = _tile_steps(x, mantissa_bits, tile_shape)
+    elif tuple(tile_shape) in ((1,) * (x.ndim - 1) + (None,),
+                               (1,) * (x.ndim - 2) + (None, 1)):
+        g, padded = x, tuple(x.shape)
+        delta = pow2(_max_exponent(amax) - mantissa_bits + 2)
+    else:
+        raise ValueError(f"a given amax needs row or column tiles, got "
+                         f"{tuple(tile_shape)}")
+    # one f32 copy in the grouped view, rounded in place with one step a
+    # tile (never materialized per element): a large activation (a decode
+    # ring's kᵀ and v) costs that copy beside the result
+    q = g.to(torch.float32, copy=True).div_(delta)
+    v = q.reshape(padded)[tuple(slice(0, d) for d in x.shape)]
+    if rounding == "stochastic":
+        if key is None:
+            raise ValueError("stochastic rounding requires a key")
+        if is_whole(base, x.shape):
+            base = None
+        whole = padded_shape(x.shape if base is None else base.shape,
+                             tile_shape)
+        v.copy_(_round_stochastic(v, whole, key, base))
+    else:
+        v.round_()  # round-half-even
+    q.clamp_(-lim, lim).mul_(delta)
+    out = v.to(dt)
+    # x's layout where q mirrors it; a view into the padding, densely
+    return out if padded == tuple(x.shape) else out.contiguous()
 
 
 def act_tile_shape(rank: int, act_block: Optional[int]

@@ -82,15 +82,21 @@ def grad_base(x_base: Optional[IndexBase], w_base: Optional[IndexBase],
 def _q_act(x, cfg: HBFPConfig, key, contract_axis: int, tp=None,
            base: Optional[IndexBase] = None):
     """Per-row exponents along the contraction axis (optionally blocked by
-    cfg.act_block); on the global row amax, reduced over `tp` (a TPCall
-    whose ranks each hold a part of every row: the last axis), where the
+    cfg.act_block); on the global amax along that axis, reduced over `tp`
+    (a TPCall whose ranks each hold a part of the contraction: x's last
+    axis, or the rows of an activation-kind right operand), where the
     parts cut an exponent group; drawn as the part `base`."""
     tile = [1] * x.ndim
     tile[contract_axis] = cfg.act_block
     amax = None
-    if tp is not None and row_amax_needed(cfg.act_block, x.shape[-1],
-                                          x.shape[-1] * tp.size):
-        amax = tp.reduce_max(local_row_amax(x))
+    k = x.shape[contract_axis]
+    if tp is not None and row_amax_needed(cfg.act_block, k, k * tp.size):
+        # the call reduces a row amax; a right operand's groups are the
+        # columns, the rows of its transpose
+        if contract_axis % x.ndim == x.ndim - 1:
+            amax = tp.reduce_max(local_row_amax(x))
+        else:
+            amax = tp.reduce_max(x.transpose(-1, -2)).transpose(-1, -2)
     return bfp.quantize(x, cfg.mantissa_bits, tile, cfg.rounding, key, amax,
                         base)
 
@@ -102,13 +108,16 @@ def _q_w(w, cfg: HBFPConfig, key, base: Optional[IndexBase] = None):
 
 
 def _q_b(b, cfg: HBFPConfig, key, kind: str,
-         base: Optional[IndexBase] = None):
-    """Quantize the right-hand operand b[..., K, N] (the part `base`)."""
+         base: Optional[IndexBase] = None, tp=None):
+    """Quantize the right-hand operand b[..., K, N] (the part `base`); an
+    activation-kind b of a row-parallel call (`tp`) holds this rank's
+    rows of the contraction, each column on its global amax where the
+    parts cut its exponent group."""
     if kind == "weight":
         if not cfg.requantize_weights:
             return b
         return _q_w(b, cfg, key, base)
-    return _q_act(b, cfg, key, contract_axis=b.ndim - 2, base=base)
+    return _q_act(b, cfg, key, contract_axis=b.ndim - 2, tp=tp, base=base)
 
 
 def _sum_to(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -129,7 +138,7 @@ class _HBFPMatmulFn(torch.autograd.Function):
         xb, wb = bases
         xq = _q_act(x, cfg, _fold(key, 0), contract_axis=x.ndim - 1, tp=row,
                     base=xb)
-        wq = _q_b(w, cfg, _fold(key, 1), w_kind, wb)
+        wq = _q_b(w, cfg, _fold(key, 1), w_kind, wb, row)
         if row is not None:
             # the partial product in f32, summed over the ranks outside
             y = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))

@@ -7,7 +7,10 @@ an extra pure-DP axis. Each mesh is a
 `torch.distributed.device_mesh.DeviceMesh` over the ranks of the default
 process group (started first, e.g. by `launch.transport.
 init_process_group` in every rank of a `torchrun` launch), on the CUDA
-devices when there are any, else on the CPU.
+devices when there are any, else on the CPU. On PyTorch's fake process
+group (`launch.transport.init_fake_process_group(256 or 512)`) one
+process builds the production mesh as its rank 0 (the dry run's,
+`launch/dryrun.py`), on the CPU's device type: it places nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +32,9 @@ def _mesh(shape, axes):
             "no process group: start one in every rank first "
             "(repro_torch.launch.transport.init_process_group, or a "
             "torchrun launch)")
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    # a fake group (the dry run's) places nothing: its mesh is the CPU's
+    fake = str(dist.get_backend()) == "fake"
+    dev = "cuda" if torch.cuda.is_available() and not fake else "cpu"
     return init_device_mesh(dev, tuple(shape), mesh_dim_names=tuple(axes))
 
 

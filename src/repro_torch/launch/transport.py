@@ -24,7 +24,17 @@ gloo is staged through host memory explicitly, the same way on every
 run, and counted in `staged`. The reduce-scatter is an all-reduce
 followed by the rank's chunk (gloo has none on CUDA tensors, and on the
 CPU only in recent PyTorch versions); NCCL's own, at half the bytes,
-waits for a run with a card a rank (ROADMAP slice 18).
+waits for a run with a card a rank (ROADMAP slice 18). A record of it
+is the all-reduce it issues (the whole tensor's bytes), under the kind
+its caller names.
+
+PyTorch's fake process group (`init_fake_process_group`, backend
+"fake") runs the dry run (`launch/dryrun.py`): one process is rank 0 of
+a world of 256 or 512, every collective returns at once and moves
+nothing, nothing is staged through host memory, and each is recorded as
+on any backend (kind, payload bytes, group size, seconds), which
+`analysis.roofline.collective_bytes_from_records` turns into the
+reference's per-device wire bytes.
 """
 from __future__ import annotations
 
@@ -61,6 +71,14 @@ def init_process_group(rank: int, world_size: int, port: int,
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world_size, rank=rank)
     return backend
+
+
+def init_fake_process_group(world_size: int) -> None:
+    """Start PyTorch's fake process group of `world_size` ranks in this
+    process as rank 0 (no peers, no network: the dry run's)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 class Transport:

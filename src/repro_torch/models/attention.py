@@ -85,17 +85,31 @@ def dequantize_kv(q: torch.Tensor, e: torch.Tensor, dtype):
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
-def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window, heads=None):
+def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window, heads=None,
+                  seq=None, fold=False):
     """One query block against all kv. qb: [B,Hkv,G,C,hd]; k, v:
     [B,Hkv,S,hd]; qpos: [C] or [B,C]; kpos: [B,S]. `heads` (offset,
     global count) places the kv heads in one process's under tensor
-    parallelism, for the products' index bases."""
+    parallelism, for the products' index bases. `seq` (offset, global
+    count): k and v are this rank's run of the cache's slots, the rest on
+    the other model ranks (`ctx.tp`); the attention is then row-parallel
+    (`_seq_softmax`, the PV's f32 partials summed over the ranks and cast
+    once). `fold` (a decode over a cache): a kv head's G query heads go
+    in as the rows of one product ([B,Hkv,1,G·C,hd]: the same rows in the
+    same order, so the same exponent groups and stochastic indices), so
+    k and v are not copied G times to match them."""
     acfg = _acfg(ctx)
     hp = () if heads is None else ((1, *heads),)
+    sp = lambda d: () if seq is None else ((d, *seq),)
+    Bq, Hk, G, C = qb.shape[:4]
+    rows = (lambda t: t.reshape(Bq, Hk, 1, G * C, t.shape[-1])) if fold \
+        else (lambda t: t)
+    qf = rows(qb)
     kt = k.transpose(-1, -2)[:, :, None]               # [B,Hkv,1,hd,S]
-    scores = ctx_matmul(qb, kt, ctx, "qk", cfg=acfg, w_kind="act",
-                        x_base=ctx.batch_base(qb.shape, hp),
-                        w_base=ctx.batch_base(kt.shape, hp))
+    scores = ctx_matmul(qf, kt, ctx, "qk", cfg=acfg, w_kind="act",
+                        x_base=ctx.batch_base(qf.shape, hp),
+                        w_base=ctx.batch_base(kt.shape, hp + sp(-1)))
+    scores = scores.reshape(Bq, Hk, G, C, -1)
     scores = softcap(scores.to(torch.float32), cap)
     if qpos.ndim == 1:
         qp = qpos[None, :, None]
@@ -107,18 +121,41 @@ def _attend_block(qb, k, v, qpos, kpos, ctx, cap, window, heads=None):
         mask &= kp > qp - window
     scores = torch.where(mask[:, None, None], scores,
                          scores.new_full((), NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(qb.dtype)
     vb = v[:, :, None]
-    return ctx_matmul(probs, vb, ctx, "pv", cfg=acfg, w_kind="act",
-                      x_base=ctx.batch_base(probs.shape, hp),
-                      w_base=ctx.batch_base(vb.shape, hp))
+    out = lambda t: t.reshape(Bq, Hk, G, C, t.shape[-1])
+    if seq is None:
+        probs = rows(torch.softmax(scores, dim=-1).to(qb.dtype))
+        return out(ctx_matmul(probs, vb, ctx, "pv", cfg=acfg, w_kind="act",
+                              x_base=ctx.batch_base(probs.shape, hp),
+                              w_base=ctx.batch_base(vb.shape, hp)))
+    tp = ctx.tp
+    probs = rows(_seq_softmax(scores, tp).to(qb.dtype))
+    # the probabilities' rows and v's columns are exponent groups along the
+    # contraction, which the run cuts: the row call takes their global
+    # amax (a group the run leaves whole needs none; one it cuts that is
+    # not a whole row or column is refused)
+    part = ctx_matmul(probs, vb, ctx, "pv", cfg=acfg, w_kind="act",
+                      x_base=ctx.batch_base(probs.shape, hp + sp(-1)),
+                      w_base=ctx.batch_base(vb.shape, hp + sp(-2)),
+                      call=tp.call("row"))
+    return out(tp.sum_(part.to(torch.float32)).to(qb.dtype))
+
+
+def _seq_softmax(scores, tp):
+    """The softmax of score rows whose columns lie on the model ranks:
+    the global row max (all-reduce MAX) and the global sum of
+    exponentials (all-reduce SUM), in f32; one process's softmax up to
+    the order of that sum."""
+    mx = tp.max_(scores.amax(dim=-1, keepdim=True))
+    e = torch.exp(scores - mx)
+    return e / tp.sum_(e.sum(dim=-1, keepdim=True))
 
 
 def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
-        q_chunk: Optional[int] = None, heads=None):
+        q_chunk: Optional[int] = None, heads=None, seq=None, fold=False):
     """q: [B,H,Sq,hd]; k, v: [B,Hkv,Skv,hd]. Causal + optional window.
     With q_chunk (dividing Sq) the query blocks run one after another,
-    bounding the score tensor to one chunk. `heads`: see
+    bounding the score tensor to one chunk. `heads`, `seq`, `fold`: see
     `_attend_block`."""
     B, H, Sq, hd = q.shape
     Hkv = k.shape[1]
@@ -129,14 +166,16 @@ def mha(q, k, v, qpos, kpos, ctx, *, cap=None, window=None,
     scale = q.new_full((), 1.0 / (hd ** 0.5))
     qs = (q * scale).reshape(B, Hkv, G, Sq, hd)
     if q_chunk is None or Sq <= q_chunk or Sq % q_chunk != 0:
-        out = _attend_block(qs, k, v, qpos, kpos, ctx, cap, window, heads)
+        out = _attend_block(qs, k, v, qpos, kpos, ctx, cap, window, heads,
+                            seq, fold)
         return out.reshape(B, H, Sq, hd)
     outs = []
     for s0 in range(0, Sq, q_chunk):
         qp = qpos[s0:s0 + q_chunk] if qpos.ndim == 1 \
             else qpos[:, s0:s0 + q_chunk]
         outs.append(_attend_block(qs[:, :, :, s0:s0 + q_chunk], k, v, qp,
-                                  kpos, ctx, cap, window, heads))
+                                  kpos, ctx, cap, window, heads, seq,
+                                  fold))
     return torch.cat(outs, dim=3).reshape(B, H, Sq, hd)
 
 
@@ -191,6 +230,49 @@ def _slab_append(cache: KVCache, k, v, tok_pos, bfp_cache: bool, dtype):
         cache.v[bidx, :, slot] = vt.to(cache.v.dtype)
         kd, vd = cache.k, cache.v
     return cache, kd, vd, cache.slot_pos
+
+
+def _slab_append_run(cache: KVCache, k, v, tok_pos, bfp_cache: bool, dtype,
+                     rank: int, size: int):
+    """The sequence-sharded slab: this rank holds the ring slots [rank·c,
+    (rank+1)·c) of the C = size·c slots of k and v ([B,Hkv,c,hd], and the
+    8-bit cache's exponents [B,Hkv,c]) and the whole [B,C] slot_pos,
+    which every rank writes alike. Of the S incoming tokens each rank
+    writes into k and v only those whose slot pos % C falls in its run,
+    one token index at a time (a row's tokens take distinct slots, and a
+    token outside the run writes its clamped slot's own value back: no
+    data-dependent shape, no host sync). Returns (cache, k_run, v_run,
+    the run's slot positions)."""
+    B, S = tok_pos.shape
+    c = cache.k.shape[2]
+    C = c * size
+    slot = tok_pos % C                                   # [B, S]
+    bidx = torch.arange(B, device=k.device)
+    cache.slot_pos[bidx[:, None], slot] = tok_pos.to(cache.slot_pos.dtype)
+    local = slot - rank * c
+    own = (local >= 0) & (local < c)
+    local = local.clamp(0, c - 1)
+    kt = k.transpose(1, 2)                               # [B, S, Hkv, hd]
+    vt = v.transpose(1, 2)
+    if bfp_cache:
+        kt, ke = quantize_kv_vec(kt)
+        vt, ve = quantize_kv_vec(vt)
+        parts = ((cache.k, kt), (cache.v, vt), (cache.k_exp, ke),
+                 (cache.v_exp, ve))
+    else:
+        parts = ((cache.k, kt), (cache.v, vt))
+    for s in range(S):
+        at, mine = local[:, s], own[:, s]
+        for dst, src in parts:
+            keep = mine.reshape(B, *([1] * (src.ndim - 2)))
+            dst[bidx, :, at] = torch.where(keep, src[:, s].to(dst.dtype),
+                                           dst[bidx, :, at])
+    if bfp_cache:
+        kd = dequantize_kv(cache.k, cache.k_exp, dtype)
+        vd = dequantize_kv(cache.v, cache.v_exp, dtype)
+    else:
+        kd, vd = cache.k, cache.v
+    return cache, kd, vd, cache.slot_pos[:, rank * c:(rank + 1) * c]
 
 
 def _paged_append(cache: PagedKVCache, k, v, tok_pos, bfp_cache: bool,
@@ -259,13 +341,28 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
     kernel here. Under tensor parallelism with the attention projections
     sharded (`ctx.tp`, `tp_dim` -1 on wq) the rank works on its H/m query
     and Hkv/m kv heads, each query head's kv head on the same rank, and
-    wo is row-parallel."""
+    wo is row-parallel.
+
+    A decode cache split over "model" where the attention is replicated
+    (`ctx.kv`, `sharding.partitioning.cache_layout`): with "heads" the
+    rank writes and attends its kv heads (and their query heads) and the
+    ranks' outputs are gathered by head; with "seq" the slab holds the
+    rank's run of the ring's slots and the attention over it is
+    row-parallel (`_attend_block`). The paged cache is not split."""
     B, S, D = x.shape
     heads = None
-    if ctx.tp is not None and getattr(p["attn_wq"], "tp_dim", None) == -1:
-        heads = (ctx.tp.rank * (n_kv_heads // ctx.tp.size), n_kv_heads)
-        n_heads //= ctx.tp.size
-        n_kv_heads //= ctx.tp.size
+    tp = ctx.tp
+    if tp is not None and getattr(p["attn_wq"], "tp_dim", None) == -1:
+        heads = (tp.rank * (n_kv_heads // tp.size), n_kv_heads)
+        n_heads //= tp.size
+        n_kv_heads //= tp.size
+    kv = None if cache is None or tp is None else ctx.kv
+    if kv is not None and (heads is not None or isinstance(
+            cache, PagedKVCache)):
+        if kv == "seq" or isinstance(cache, PagedKVCache):
+            raise ValueError(f"a {kv}-split cache needs a replicated "
+                             f"attention and a slab cache")
+        kv = None          # the attention's own heads are the cache's
     q = ctx_matmul(x, p["attn_wq"], ctx, "wq", out="shard")
     k = ctx_matmul(x, p["attn_wk"], ctx, "wk", out="shard")
     v = ctx_matmul(x, p["attn_wv"], ctx, "wv", out="shard")
@@ -296,7 +393,21 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
                 new_cache = KVCache(kq, vq, tok_pos, ke, ve)
             else:
                 new_cache = KVCache(k=k, v=v, slot_pos=tok_pos)
+    elif kv == "seq":
+        new_cache, kd, vd, npos = _slab_append_run(
+            cache, k, v, tok_pos, bfp_cache, x.dtype, tp.rank, tp.size)
+        c = kd.shape[2]
+        out = mha(q, kd, vd, tok_pos, npos, ctx, cap=attn_cap, window=window,
+                  q_chunk=None, seq=(tp.rank * c, c * tp.size), fold=True)
     else:
+        if kv == "heads":
+            # this rank's kv heads and their query heads, gathered after
+            hk = n_kv_heads // tp.size
+            hq = n_heads // tp.size
+            heads = (tp.rank * hk, n_kv_heads)
+            q = q[:, tp.rank * hq:(tp.rank + 1) * hq]
+            k = k[:, tp.rank * hk:(tp.rank + 1) * hk]
+            v = v[:, tp.rank * hk:(tp.rank + 1) * hk]
         if isinstance(cache, PagedKVCache):
             new_cache, kd, vd, npos = _paged_append(cache, k, v, tok_pos,
                                                     bfp_cache, x.dtype)
@@ -304,7 +415,9 @@ def attention_layer(x, p, ctx, *, n_heads, n_kv_heads, head_dim,
             new_cache, kd, vd, npos = _slab_append(cache, k, v, tok_pos,
                                                    bfp_cache, x.dtype)
         out = mha(q, kd, vd, tok_pos, npos, ctx, cap=attn_cap, window=window,
-                  q_chunk=None, heads=heads)
+                  q_chunk=None, heads=heads, fold=True)
+        if kv == "heads":
+            out = tp.gather(out, 1)
 
     out = out.transpose(1, 2).reshape(B, S, n_heads * head_dim)
     out = ctx_matmul(out, p["attn_wo"], ctx, "wo")

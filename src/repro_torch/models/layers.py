@@ -78,7 +78,7 @@ _ATTN_ROLE = {"qk": "attn_qk", "pv": "attn_pv"}
 
 def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
                out: str = "gather", tp_dim=_UNSET, x_base=_UNSET,
-               w_base=None):
+               w_base=None, call=None):
     """Route one model dot product through the Ctx's resolved policy, with
     the reference's dispatch: attention roles take their role width on the
     sim path; backend "pallas" sends 2-D weight-kind products to the
@@ -99,7 +99,12 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
     w: its batch rows); a site whose operands are parts along other dims
     (attention's local heads, the experts, a CE chunk) passes its
     `kernels.common.IndexBase`s, and `TPGroup.matmul` adds the model
-    axis's column or row block."""
+    axis's column or row block.
+
+    `call` (a `sharding.tensor_parallel.TPCall` of kind "row") runs an
+    attention product whose contraction this rank holds a part of (the
+    sequence-sharded cache's PV): the f32 partial product, which the
+    caller sums over the ranks."""
     cfg = ctx.cfg if cfg is _UNSET else cfg
     key = ctx.key_for(site)
     if x_base is _UNSET:
@@ -112,7 +117,7 @@ def ctx_matmul(x, w, ctx, site: str, cfg=_UNSET, w_kind: str = "weight",
         if rw is not None:
             cfg = rw.apply(cfg)
         return hbfp_matmul(x, w, cfg, key, w_kind=w_kind, x_base=x_base,
-                           w_base=w_base)
+                           w_base=w_base, tp=call)
     dgrad_cfg = wgrad_cfg = None
     if cfg is not None and ctx.roles:
         dg = role_width_for(ctx.roles, "dgrad")
@@ -186,15 +191,21 @@ class Ctx:
                (`sharding.tensor_parallel.DataPart`: the first row and
                the global batch, dim 0 of the activations): each
                operand's stochastic draws are one process's at its rows,
-               and the MoE groups lie on the data shards.
+               and the MoE groups lie on the data shards;
+    kv       — how a decode cache splits over "model" where the attention
+               does not shard it by its own heads
+               (`sharding.partitioning.CacheLayout.kv`): None (whole, or
+               on the attention's local heads), "heads" (this rank's kv
+               heads of a replicated attention) or "seq" (this rank's run
+               of the ring's slots).
     """
 
     __slots__ = ("policy", "cfg", "key", "backend", "roles", "device",
-                 "act_tap", "tp", "dp")
+                 "act_tap", "tp", "dp", "kv")
 
     def __init__(self, cfg=None, key: Optional[int] = None, backend=None,
                  policy=None, device=None, act_tap: bool = False,
-                 tp=None, dp=None):
+                 tp=None, dp=None, kv=None):
         if policy is None:
             policy = as_segment(cfg, backend=backend or "sim")
         self.policy = policy
@@ -206,6 +217,7 @@ class Ctx:
         self.act_tap = act_tap
         self.tp = tp
         self.dp = dp
+        self.kv = kv
 
     def batch_base(self, shape, parts=()):
         """The index base of an activation of local `shape` whose dim 0
@@ -224,9 +236,15 @@ class Ctx:
             return None
         return fold_in(self.key, int.from_bytes(site.encode()[:4], "little"))
 
+    def without_dp(self) -> "Ctx":
+        """This context for a whole (gathered) batch: no data part."""
+        return Ctx(key=self.key, backend=self.backend, policy=self.policy,
+                   device=self.device, act_tap=self.act_tap, tp=self.tp,
+                   kv=self.kv)
+
     def fold(self, i: int) -> "Ctx":
         """The context of layer i: the key folded with i."""
         return Ctx(key=None if self.key is None else fold_in(self.key, i),
                    backend=self.backend, policy=self.policy,
                    device=self.device, act_tap=self.act_tap, tp=self.tp,
-                   dp=self.dp)
+                   dp=self.dp, kv=self.kv)

@@ -147,7 +147,10 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
     load-balance loss takes the global means, and the experts' operands
     are their one-process part along the groups (the index bases of the
     stochastic draws, with the experts' block under expert parallelism).
-    A rank whose tokens do not fall on whole groups is refused."""
+    A rank whose tokens do not fall on whole groups is refused, unless
+    its data part asks to gather them (`DataPart.gather_groups`, the
+    serving layout's): then every data rank routes the global groups on
+    the gathered batch, as one process does, and keeps its rows."""
     B, S, D = x.shape
     T_all = B * S
     dp = ctx.dp
@@ -158,9 +161,18 @@ def moe_ffn(x, p, ctx, *, n_experts: int, top_k: int,
         G_all = n_groups_for(dp.size * S, n_groups, group_tokens)
         per = dp.size * S // G_all
         if T_all % per or (dp.offset * S) % per:
-            raise ValueError(
-                f"a data shard of {T_all} tokens at token {dp.offset * S} "
-                f"cuts the {G_all} MoE groups of {per} tokens")
+            if not dp.gather_groups:
+                raise ValueError(
+                    f"a data shard of {T_all} tokens at token "
+                    f"{dp.offset * S} cuts the {G_all} MoE groups of {per} "
+                    f"tokens")
+            whole = dp.transport.all_gather_dim(x.contiguous(), 0)
+            out, aux = moe_ffn(
+                whole, p, ctx.without_dp(), n_experts=n_experts,
+                top_k=top_k, capacity_factor=capacity_factor,
+                n_groups=n_groups, dense_residual=dense_residual,
+                shared_expert=shared_expert, group_tokens=group_tokens)
+            return out[dp.offset:dp.offset + B], aux
         G, g0 = T_all // per, dp.offset * S // per
     T = T_all // G
     xg = x.reshape(G, T, D)

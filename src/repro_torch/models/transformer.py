@@ -164,7 +164,7 @@ def init_params(seed: int, arch: ArchConfig, device=None):
         dt, scale = (torch.float32, init[1]) if isinstance(init, tuple) \
             else (dtype, init)
         t = torch.empty((L, *shape), dtype=dt, device=dev)
-        for i in range(L):
+        for i in range(L if gen is not None else 0):
             t[i] = normal(shape, scale, dt)
         layers[name] = t
     params = {"layers": layers,
@@ -424,11 +424,15 @@ def _stack_caches(built):
 def _std_positions(batch) -> bool:
     """True when attention may mask by block index (the reference's flash
     gate): positions are absent from the batch, or a [B, S] (or [3, B, S])
-    array equal to the standard contiguous arange. The port has no traced
-    positions; its serving stages, which stand in for the reference's
-    jitted ones, pass std_pos=False explicitly."""
+    array equal to the standard contiguous arange. The port's serving
+    stages, which stand in for the reference's jitted ones, pass
+    std_pos=False explicitly; fake positions (the dry run's, which carry
+    no values) are the reference's traced ones: False."""
     if "positions" not in batch:
         return True
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(batch["positions"]):
+        return False
     p = torch.as_tensor(batch["positions"])
     if p.ndim not in (2, 3):
         return False
@@ -645,6 +649,16 @@ def loss_fn(params, batch, arch: ArchConfig, ctx: Ctx,
     return loss, metrics
 
 
+def _served_logits(params, x, arch: ArchConfig, ctx):
+    """The final norm and head of served hidden states; a vocab-sharded
+    head's columns gathered whole, as `forward` gathers them."""
+    logits = _logits(params, x, arch, ctx)
+    if ctx.tp is not None and getattr(params["head_w"], "tp_dim",
+                                      None) == -1:
+        return ctx.tp.gather(logits, -1)
+    return logits
+
+
 def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
             std_pos: Optional[bool] = None):
     """Forward over the prompt (tokens or embeds, positions [B,S] or
@@ -652,25 +666,37 @@ def prefill(params, batch, arch: ArchConfig, ctx: Ctx, device=None,
     codebooks, cache). Runs on `device`, else ctx.device, else the CUDA device. std_pos None
     reads the batch's positions as the reference's un-jitted prefill
     does; the serving stages pass False, as the reference's jitted ones
-    see traced positions."""
+    see traced positions. Under tensor parallelism (`ctx.tp`, the
+    parameters a rank's shards) the embedding is vocab-parallel and the
+    logits are gathered whole; under sequence parallelism (the
+    reference's `seq_parallel` prefill option, `ctx.tp.sp`) the residual
+    stream holds the local tokens, gathered before the last token's
+    head."""
     dev = _entry_device(params, ctx, device)
-    x, positions = _embed_in(params, batch, arch, dev)
+    tp = ctx.tp
+    x, positions = _embed_in(params, batch, arch, dev, tp)
     if std_pos is None:
         std_pos = _std_positions(batch)
     x, cache, _ = _run_stack(params, x, positions, arch, ctx,
                              want_cache=True, std_pos=std_pos)
-    return _logits(params, x[:, -1:], arch, ctx), cache
+    if tp is not None and tp.sp:
+        x = tp.gather(x, 1)
+    return _served_logits(params, x[:, -1:], arch, ctx), cache
 
 
 def decode_step(params, batch, cache, arch: ArchConfig, ctx: Ctx,
                 device=None):
     """One multi-token step over the cache (updated in place). batch:
     tokens [B,S] or embeds [B,S,D], and positions [B,S] ([3,B,S] under
-    M-RoPE)."""
+    M-RoPE). Under tensor parallelism as `prefill`, the cache a rank's
+    part (`ctx.kv`); sequence parallelism is a prefill option only."""
     dev = _entry_device(params, ctx, device)
-    x, positions = _embed_in(params, batch, arch, dev)
+    if ctx.tp is not None and ctx.tp.sp:
+        raise ValueError("sequence parallelism is a prefill option: decode "
+                         "with a model group whose sp is off")
+    x, positions = _embed_in(params, batch, arch, dev, ctx.tp)
     x, cache, _ = _run_stack(params, x, positions, arch, ctx, cache=cache)
-    return _logits(params, x, arch, ctx), cache
+    return _served_logits(params, x, arch, ctx), cache
 
 
 def lane_capacity(arch: ArchConfig, ctx_len: int) -> int:
@@ -697,14 +723,22 @@ def _state_cache(arch: ArchConfig, batch_size: int, dev):
     return {}
 
 
-def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int):
+def make_cache(params, arch: ArchConfig, batch_size: int, ctx_len: int,
+               kv_split=None):
     """An empty stacked slab cache on the params' device: "kv" (none for
-    xLSTM) and the recurrent states."""
+    xLSTM) and the recurrent states. `kv_split` (mode, m) makes a model
+    rank's part of k and v (and the 8-bit cache's exponents): "heads" its
+    Hkv/m kv heads, "seq" its C/m ring slots (slot_pos stays whole; see
+    `sharding.partitioning.cache_layout`)."""
     dev = params["head_w"].device
     if arch.xlstm:
         return _state_cache(arch, batch_size, dev)
     L, B, C = arch.n_layers, batch_size, lane_capacity(arch, ctx_len)
-    shape = (L, B, arch.n_kv_heads, C, arch.hd)
+    Hkv, Ck = arch.n_kv_heads, C
+    if kv_split is not None:
+        mode, m = kv_split
+        Hkv, Ck = (Hkv // m, C) if mode == "heads" else (Hkv, C // m)
+    shape = (L, B, Hkv, Ck, arch.hd)
     pos = torch.full((L, B, C), -1, dtype=torch.int32, device=dev)
     if arch.bfp_kv_cache:
         i8 = dict(dtype=torch.int8, device=dev)

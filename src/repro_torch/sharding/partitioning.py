@@ -24,6 +24,7 @@ into `torch.distributed.tensor` placements on a `DeviceMesh`.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 
 class Spec(tuple):
@@ -219,6 +220,78 @@ def cache_specs(cache, mesh, seq_shard: bool = False):
         return Spec(*spec)
 
     return _map_with_path(one, cache)
+
+
+class CacheLayout(NamedTuple):
+    """How a rank holds a decode cache on a mesh (`cache_layout`): `kv`
+    the split of the kv leaves over "model" that the attention must know
+    (`Ctx.kv`: None, "heads" or "seq"), `specs` {leaf path: the `Spec` of
+    the stacked leaf as the port holds it}, `replicated` {leaf path: why
+    a leaf that `cache_specs` shards over "model" stays whole}."""
+    kv: Optional[str]
+    specs: dict
+    replicated: dict
+    model: int = 1
+
+    @property
+    def kv_split(self):
+        """(mode, model size) of k and v for `models.make_cache`, or
+        None where they are whole over "model"."""
+        spec = self.specs.get("kv/k", ())
+        if "model" not in spec:
+            return None
+        return ("heads" if spec.index("model") == 2 else "seq"), self.model
+
+
+def _flat_specs(specs, path=()):
+    if isinstance(specs, Spec):
+        return {"/".join(path): specs}
+    out = {}
+    if specs is None:
+        return out
+    if isinstance(specs, dict):
+        items = [(str(k), v) for k, v in specs.items()]
+    elif hasattr(specs, "_fields"):
+        items = [(f, getattr(specs, f)) for f in specs._fields]
+    else:
+        items = [(str(i), v) for i, v in enumerate(specs)]
+    for k, v in items:
+        out.update(_flat_specs(v, path + (k,)))
+    return out
+
+
+def cache_layout(cache, mesh, attn_sharded: bool,
+                 seq_shard: bool = True) -> CacheLayout:
+    """The decode cache's layout on `mesh`, `cache_specs` reconciled with
+    the compute layout (`tensor_parallel.tp_layout`): the batch over the
+    data axes where they divide it; the kv heads over "model" where
+    `cache_specs` shards them (which `attn_sharded` implies: the
+    attention's own local heads), else, with `seq_shard`, the ring's
+    slots (the flash-decoding layout; slot_pos, which `cache_specs`
+    leaves whole over "model", stays whole); the recurrent states whole
+    over "model", as their mixers are (`tensor_parallel.CONCATENATED`),
+    each listed in `replicated` where `cache_specs` shards it."""
+    ref = _flat_specs(cache_specs(cache, mesh, seq_shard))
+    specs, why, kv = {}, {}, None
+    for name, spec in ref.items():
+        spec = list(spec)
+        if "model" in spec:
+            d = spec.index("model")
+            if name.startswith("kv/"):
+                if d == 2:
+                    kv = kv or ("heads" if not attn_sharded else None)
+                else:
+                    kv = "seq"
+            else:
+                spec[d] = None
+                why[name] = ("its mixer is replicated: the in-projection "
+                             "concatenates several parts")
+        specs[name] = Spec(*spec)
+    if attn_sharded and kv == "seq":
+        raise ValueError("a sharded attention holds its own kv heads; the "
+                         "sequence split is for a replicated one")
+    return CacheLayout(kv=kv, specs=specs, replicated=why,
+                       model=mesh_axes(mesh)["model"])
 
 
 def to_shardings(specs, mesh):

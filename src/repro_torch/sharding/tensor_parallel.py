@@ -110,14 +110,19 @@ def _flat(tree, prefix=""):
 
 
 def tp_layout(params, mesh, tile: Optional[int], n_heads: int = 0,
-              n_kv_heads: int = 0) -> TPLayout:
+              n_kv_heads: int = 0, ep_only: bool = False) -> TPLayout:
     """The tile-aligned "model" layout of a params tree (shapes only: a
     "meta" tree will do) on `mesh` (anything `mesh_axes` reads), for
     square weight tiles of edge `tile` (None: one tile spans its dim, so
     no matrix dim shards; the caller folds the kernels' tiles and the
-    activation block into it)."""
+    activation block into it). `ep_only` is the reference's MoE serving
+    layout (`fwd_param_specs(ep_only=True)`): only the experts shard, and
+    every dense and attention leaf that the full rules shard is listed
+    replicated with that reason."""
     m = mesh_axes(mesh)["model"]
     specs = dict(_flat(fwd_param_specs(params, mesh)))
+    if ep_only:
+        ep = dict(_flat(fwd_param_specs(params, mesh, ep_only=True)))
     leaves = dict(_flat(params))
     dims, why = {}, {}
     for name, t in leaves.items():
@@ -125,6 +130,10 @@ def tp_layout(params, mesh, tile: Optional[int], n_heads: int = 0,
         d = next((i for i, s in enumerate(spec) if s == "model"), None)
         if d is None or m == 1:
             dims[name] = None
+            continue
+        if ep_only and "model" not in ep[name]:
+            dims[name] = None
+            why[name] = "ep_only: only the experts shard"
             continue
         if d >= t.ndim - 2:              # a weight-matrix dim, not experts
             part = t.shape[d] // m
@@ -308,10 +317,14 @@ class _DPMean(torch.autograd.Function):
 class DataPart(NamedTuple):
     """A rank's rows of the data-parallel batch (the `Ctx.dp` slot): the
     first row `offset` and the global batch `size` along dim 0 of the
-    activations, and the data axis's transport."""
+    activations, and the data axis's transport. `gather_groups` (the
+    serving layout's choice, `train.serve_step.ServeLayout`): where the
+    rank's rows cut the MoE groups, the MoE layer gathers the batch and
+    routes the global groups (no gradient); otherwise it refuses them."""
     offset: int
     size: int
     transport: object
+    gather_groups: bool = False
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of `t` over the data ranks (differentiable: see
@@ -415,3 +428,28 @@ class TPGroup:
         y = run(x, w, self.call("row"), xb, wb)    # f32 partial sums
         y = self.reduce_scatter(y, 1) if self.sp else self.reduce(y)
         return y.to(x.dtype)
+
+
+def shard_params(params, dims: dict, rank: int, size: int):
+    """A model rank's part of whole (narrow) parameters, for serving (the
+    counterpart of `train.zero`'s narrow copy): each leaf that `dims`
+    (`TPLayout.dims`) shards, this rank's block along its dim, copied;
+    the rest as it is. "layers" becomes a list of per-layer dicts, each
+    sharded tensor tagged with its `tp_dim` (counted from the end, as the
+    narrow copy's), which `ctx_matmul` and the model read."""
+    def part(t, d):
+        if d is None:
+            return t
+        k = t.shape[d] // size
+        out = t.narrow(d, rank * k, k).clone(
+            memory_format=torch.contiguous_format)
+        out.tp_dim = d
+        return out
+
+    layers = params["layers"]
+    L = next(iter(layers.values())).shape[0]
+    out = {k: part(v, dims.get(k)) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [{k: part(v[i], dims.get(f"layers/{k}"))
+                      for k, v in layers.items()} for i in range(L)]
+    return out

@@ -108,11 +108,15 @@ def dp_group(mesh):
     `dist.new_group` needs)."""
     if "pod" not in mesh_axes(mesh):
         return mesh.get_group("data")
-    ranks = mesh.mesh                       # [pod, data, model] global ranks
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    # [pod, data, model] global ranks, read on the host (outside the dry
+    # run's fake-tensor mode, which would fake them)
+    with unset_fake_temporarily():
+        ranks = mesh.mesh.tolist()
     me = dist.get_rank()
     mine = None
-    for m in range(ranks.shape[-1]):
-        members = ranks[..., m].reshape(-1).tolist()
+    for m in range(len(ranks[0][0])):
+        members = [r[m] for pod in ranks for r in pod]
         g = dist.new_group(members)
         if me in members:
             mine = g

@@ -1,8 +1,8 @@
 """Public names: every public top-level name of each reference module
 that has a counterpart in the port exists there, but for the written
 exemptions below, each with its reason; the reference modules with no
-counterpart yet are pinned by name (the dry run, ROADMAP slice 18, which
-its port must take off the list). The reference's
+counterpart yet are pinned by name (none since the dry run's port,
+ROADMAP slice 20). The reference's
 names are read from its source (top-level functions, classes and
 assignments, and the re-exports of its `__init__` files); the port's are
 looked up on the imported module. The names added by ROADMAP A15 are
@@ -11,6 +11,7 @@ then held to the reference's behaviour.
 import ast
 import importlib
 import os
+import re
 
 import numpy as np
 import pytest
@@ -20,16 +21,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(ROOT, "src", "repro")
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
-# reference modules without a port counterpart yet: the dry run on a
-# fake process group (ROADMAP slice 18)
-NOT_PORTED = {"launch/dryrun.py"}
+# reference modules without a port counterpart yet
+NOT_PORTED = set()
 
 _PALLAS = "a Pallas kernel entry; the port's kernel is the CUDA wrapper"
 _INIT = ("the port builds parameters from shapes and loads the "
          "reference's weights through numpy (ROADMAP A15, not queued)")
 _LANES = "jax fold_in sampling keys, which torch cannot replay (ROADMAP C5)"
 _XLA = ("reads the TPU's interconnect or XLA's compiled dry-run artifacts; "
-        "the port's dry run (ROADMAP slice 18) decides what it reads")
+        "the port's dry run reads fake tensors and its transports' records "
+        "(analysis/roofline.py: collective_bytes_from_records)")
 # (module, name): why the port has no such name
 EXEMPT = {
     ("kernels/hbfp_matmul.py", "hbfp_matmul_pallas"): _PALLAS,
@@ -198,3 +199,20 @@ def test_flash_attention_vjp_is_the_training_function():
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert np.isfinite(outs[0][0].numpy()).all()
+
+
+def test_dryrun_names_match_reference():
+    """The dry run's public names are the reference's, its shapes and skip
+    rule equal, and its CLI takes every one of the reference's flags."""
+    from repro.launch import dryrun as jdry
+    from repro_torch.launch import dryrun
+    names = _public_names(os.path.join(REF, "launch", "dryrun.py"), False)
+    assert {"SHAPES", "FULL_ATTENTION_SKIP", "build_cell", "applicable",
+            "run_cell", "main"} <= names
+    assert all(hasattr(dryrun, n) for n in names)
+    assert dryrun.SHAPES == jdry.SHAPES
+    assert dryrun.FULL_ATTENTION_SKIP == jdry.FULL_ATTENTION_SKIP
+    src = open(os.path.join(REF, "launch", "dryrun.py")).read()
+    flags = set(re.findall(r'add_argument\("(--[a-z0-9-]+)"', src))
+    port = open(os.path.join(PORT, "launch", "dryrun.py")).read()
+    assert flags <= set(re.findall(r'add_argument\("(--[a-z0-9-]+)"', port))

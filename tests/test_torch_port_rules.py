@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_no_reference():
               "repro_torch.core.grad_compress", "repro_torch.launch.mesh",
               "repro_torch.launch.transport", "repro_torch.sharding",
               "repro_torch.sharding.partitioning", "repro_torch.train.zero",
-              "repro_torch.analysis.roofline"):
+              "repro_torch.analysis.roofline", "repro_torch.launch.dryrun"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -50,7 +50,10 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "import torch.distributed as dist\n"
+        "started = dist.is_available() and dist.is_initialized()\n"
+        "print('PROCESS GROUP', started)\n"
+        "sys.exit(1 if bad or started else 0)\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT, env.get("PYTHONPATH", "")])

@@ -4,13 +4,15 @@
     python tests/torch_dist_worker.py dp RANK N PORT DIR
     python tests/torch_dist_worker.py tp RANK N PORT DIR MODEL
     python tests/torch_dist_worker.py sr RANK N PORT DIR MESH
+    python tests/torch_dist_worker.py serve RANK N PORT DIR
 
 `compress` is one rank of `tests/test_torch_grad_compress.py`'s reduce,
 `dp` one rank of `tests/test_torch_dp_train.py`'s ZeRO-1 runs, `tp` one
 rank of `tests/test_torch_tp_train.py`'s runs on a {data N/MODEL, model
 MODEL} mesh, `sr` one rank of `tests/test_torch_sr_mesh.py`'s stochastic
-runs on the mesh named MESH (`SR_MESHES`); each writes its results under
-DIR. This module imports torch and the port
+runs on the mesh named MESH (`SR_MESHES`), `serve` one rank of
+`tests/test_torch_tp_serve.py`'s sharded prefill and decode on each mesh
+of N ranks in `SERVE_MESHES`, one after another; each writes its results under DIR. This module imports torch and the port
 only (no JAX), so a rank starts quickly; the tests import its settings
 and hold the results against the reference and one process.
 """
@@ -629,6 +631,219 @@ def sr(rank: int, n: int, out: str, name: str) -> None:
         pickle.dump(res, f)
 
 
+# -- sharded serving -----------------------------------------------------------
+
+# (name, arch, data, model, options); yi-9b smoke has 4 query and 2 kv
+# heads: at model 2 they shard, at model 4 the cache's ring does
+SERVE_MESHES = (("y12", "yi-9b", 1, 2, {}),
+                ("y14", "yi-9b", 1, 4, {}),
+                ("y22", "yi-9b", 2, 2, {}),
+                ("l12", "llama4-scout-17b-a16e", 1, 2, {"ep_only": True}),
+                ("l22", "llama4-scout-17b-a16e", 2, 2, {"ep_only": True}),
+                ("h12", "hymba-1.5b", 1, 2, {}),
+                ("h14", "hymba-1.5b", 1, 4, {}))
+SERVE_TILE = 32                 # the sim path's tiles: attention shards
+SERVE_B, SERVE_S, SERVE_CTX, SERVE_TICKS = 4, 8, 16, 4
+# (prompt, ring) where a mesh differs: hymba's sliding window (16 in the
+# smoke arch) with a prompt longer than it, on the heads-sharded and the
+# sequence-split ring
+SERVE_DIMS = {"h12": (24, 32), "h14": (24, 32)}
+
+
+def serve_dims(mesh=None):
+    """(prompt length, ring length) of a serving case."""
+    return SERVE_DIMS.get(mesh, (SERVE_S, SERVE_CTX))
+
+
+def serve_cfg(act_block=None):
+    return HBFPConfig(8, 16, tile=SERVE_TILE, act_block=act_block)
+
+
+def serve_arch(name, bfp_kv=False, mesh=None):
+    """The smoke arch of a serving case; on "l22" llama4 routes one MoE
+    group over the global batch, which each data rank's tokens cut."""
+    a = dataclasses.replace(get_arch(name).smoke(), dtype="float32",
+                            bfp_kv_cache=bfp_kv)
+    return dataclasses.replace(a, moe_groups=1) if mesh == "l22" else a
+
+
+def serve_inputs(a, S=SERVE_S):
+    """The global prompt [B, S] and the SERVE_TICKS decode tokens [B, 1]
+    each, numpy int32, from a seed."""
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, a.vocab_size, (SERVE_B, S)).astype(np.int32)
+    ticks = rng.integers(0, a.vocab_size,
+                         (SERVE_TICKS, SERVE_B, 1)).astype(np.int32)
+    return toks, ticks
+
+
+class AttnRecorder:
+    """Records attention's QK and PV products (x, w, result) in call order
+    while installed (`models.attention.ctx_matmul` wrapped), and a
+    ("stage",) entry where each stage (prefill, decode tick) begins."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.calls = attention, []
+        self.orig = attention.ctx_matmul
+
+    def __enter__(self):
+        def rec(x, w, ctx, site, *a, **kw):
+            y = self.orig(x, w, ctx, site, *a, **kw)
+            if site in ("qk", "pv"):
+                self.calls.append((site, x.detach().numpy().copy(),
+                                   w.detach().numpy().copy(),
+                                   y.detach().numpy().copy()))
+            return y
+        self.mod.ctx_matmul = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ctx_matmul = self.orig
+
+    def stage(self):
+        self.calls.append(("stage",))
+
+
+def serve_run(a, params, cfg, layout=None, record=True, S=SERVE_S,
+              ctx_len=SERVE_CTX):
+    """Prefill the S-token prompt, grow the cache to a ring of `ctx_len`
+    and take the SERVE_TICKS decode steps, on one process (`layout` None)
+    or this rank's part of a mesh: (logits [prefill, ticks...], the final
+    cache's leaves as numpy, attention's recorded products)."""
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.train import serve_step as tss
+    toks, ticks = serve_inputs(a, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32),
+                          (SERVE_B, S)).copy()
+    batch = {"tokens": torch.from_numpy(toks),
+             "positions": torch.from_numpy(pos)}
+    if layout is None:
+        ctx_for = tss._serve_ctx(a, cfg, "cpu")
+        pctx = dctx = ctx_for()
+        local = lambda b: b
+        p = params
+    else:
+        pctx = layout.ctx(SERVE_B, prefill=True)
+        dctx = layout.ctx(SERVE_B, ctx_len)
+        local = layout.local_batch
+        p = layout.shard_params(params)
+    rec = AttnRecorder()
+    out = []
+    with torch.no_grad(), rec:
+        rec.stage()
+        lg, cache = prefill(p, local(batch), a, pctx, device="cpu",
+                            std_pos=False)
+        out.append(lg.numpy().copy())
+        cache = tss.prefill_to_decode_cache(cache, a, ctx_len) \
+            if layout is None else \
+            layout.decode_cache(cache, SERVE_B, ctx_len)
+        for i in range(SERVE_TICKS):
+            rec.stage()
+            tb = {"tokens": torch.from_numpy(ticks[i]),
+                  "positions": torch.full((SERVE_B, 1), S + i,
+                                          dtype=torch.int32)}
+            lg, cache = decode_step(p, local(tb), cache, a, dctx,
+                                    device="cpu")
+            out.append(lg.numpy().copy())
+    leaves = {}
+    for k, c in cache.items():
+        fields = c._fields if hasattr(c, "_fields") else range(len(c))
+        for f, t in zip(fields, c):
+            if t is not None:
+                leaves[f"{k}/{f}"] = t.numpy().copy()
+    return out, leaves, rec.calls if record else None
+
+
+def serve(rank: int, n: int, out: str) -> None:
+    """Every mesh of N ranks in `SERVE_MESHES`, one at a time in these
+    processes (`serve_mesh`)."""
+    for name, _, data, model, _ in SERVE_MESHES:
+        if data * model == n:
+            serve_mesh(rank, out, name)
+
+
+def serve_mesh(rank: int, out: str, name: str) -> None:
+    """Mesh `name`'s cases: prefill and SERVE_TICKS decode ticks of its
+    arch (yi-9b on {model 4} also with the 8-bit cache), and on {model 4}
+    a ring of 8 whose runs of 2 slots cut 4-feature exponent groups
+    (refused)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models import from_jax_params
+    from repro_torch.train.serve_step import (ServeLayout,
+                                              narrow_serving_params)
+    _, arch_name, data, model, opts = next(m for m in SERVE_MESHES
+                                           if m[0] == name)
+    mesh = init_device_mesh("cpu", (data, model),
+                            mesh_dim_names=("data", "model"))
+    tree = dict(np.load(os.path.join(out, f"w_{arch_name}.npz")))
+    res = {"cases": {}}
+    cases = [False, True] if name == "y14" else [False]
+    for bfp_kv in cases:
+        a = serve_arch(arch_name, bfp_kv, name)
+        params = narrow_serving_params(
+            from_jax_params(_unflat(tree), device="cpu"), a, serve_cfg())
+        lay = ServeLayout(a, mesh, serve_cfg(), device="cpu", **opts)
+        S, ctx_len = serve_dims(name)
+        logits, leaves, calls = serve_run(a, params, serve_cfg(), lay,
+                                          S=S, ctx_len=ctx_len)
+        clay = lay.cache_layout(SERVE_B, ctx_len)
+        res["cases"][bfp_kv] = dict(
+            logits=logits, cache=leaves, calls=calls, kv=clay.kv,
+            cache_specs={k: tuple(v) for k, v in clay.specs.items()},
+            cache_replicated=clay.replicated, replicated=lay.replicated,
+            dims=lay.dims, rank_m=lay.rank_m, rank=lay.rank,
+            records=list(lay.model.records) if lay.model else [])
+    if name == "y12":
+        # the reference's seq_parallel prefill: the residual stream's
+        # tokens split over "model", the last token's hidden gathered
+        from repro_torch.models.transformer import prefill
+        a = serve_arch(arch_name)
+        params = narrow_serving_params(
+            from_jax_params(_unflat(tree), device="cpu"), a, serve_cfg())
+        lay = ServeLayout(a, mesh, serve_cfg(), device="cpu",
+                          seq_parallel=True)
+        toks = torch.from_numpy(serve_inputs(a)[0])
+        with torch.no_grad():
+            lg, cache = prefill(lay.shard_params(params), {"tokens": toks},
+                                a, lay.ctx(SERVE_B, prefill=True),
+                                device="cpu", std_pos=False)
+        res["sp"] = dict(logits=lg.numpy().copy(),
+                         k=cache["kv"].k.numpy().copy(),
+                         kinds=sorted({r[0] for r in lay.model.records}))
+    if name == "y14":
+        a = serve_arch(arch_name)
+        params = narrow_serving_params(
+            from_jax_params(_unflat(tree), device="cpu"), a, serve_cfg())
+        lay = ServeLayout(a, mesh, serve_cfg(4), device="cpu")
+        try:
+            with torch.no_grad():
+                from repro_torch.models.transformer import decode_step
+                p = lay.shard_params(params)
+                cache = lay.make_cache(p, SERVE_B, 8)
+                decode_step(p, {"tokens": torch.zeros((SERVE_B, 1),
+                                                      dtype=torch.int64),
+                                "positions": torch.zeros((SERVE_B, 1),
+                                                         dtype=torch.int32)},
+                            cache, a, lay.ctx(SERVE_B, 8), device="cpu")
+            res["refused"] = None
+        except ValueError as e:
+            res["refused"] = str(e)
+    with open(os.path.join(out, f"serve_{name}_{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _unflat(flat: dict):
+    out = {}
+    for k, v in flat.items():
+        *head, last = k.split("/")
+        d = out
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return out
+
+
 if __name__ == "__main__":
     import torch.distributed as dist
     from repro_torch.launch.transport import init_process_group
@@ -641,6 +856,8 @@ if __name__ == "__main__":
         tp(rank, n, out, int(sys.argv[6]))
     elif scenario == "sr":
         sr(rank, n, out, sys.argv[6])
+    elif scenario == "serve":
+        serve(rank, n, out)
     else:
         {"compress": compress, "dp": dp}[scenario](rank, n, out)
     dist.destroy_process_group()
